@@ -1,0 +1,102 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+it never quietly falls back to the CPU."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as device_mod
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_sources() -> list[Path]:
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    """With ``jax`` and ``repro`` made unimportable, every module of the
+    port and ``chip_smoke`` import, and a tiny evaluation runs on the CPU."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import repro_torch
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(m.name)
+        import chip_smoke
+        from repro_torch.core import circuits, flow
+        net = circuits.sha_like(rounds=1)
+        lanes = flow.random_lanes(net, 2, seed=0)
+        vals = flow.evaluate_netlist(net, lanes, 2, device="cpu")
+        assert flow.oracle_check(net, lanes, vals, 2)
+        assert not any(k == "jax" or k.startswith("jax.")
+                       or k == "repro" or k.startswith("repro.")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ISOLATED")
+    """)
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "ISOLATED" in out.stdout
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    text = path.read_text()
+    for bad in ("import jax", "from jax", "import repro.", "from repro.",
+                "import repro\n", "from repro import"):
+        assert bad not in text, (path, bad)
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_mod.resolve_device(None)
+    with pytest.raises(RuntimeError):
+        device_mod.resolve_device("cuda")
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+    assert device_mod.resolve_device(torch.device("cpu")).type == "cpu"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Entry points that build tensors take the card unless asked for the
+    CPU: without one they raise instead of running on the host."""
+    from repro_torch.core import circuits, flow
+    from repro_torch.core.eval_torch import eval_netlist_levels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = circuits.sha_like(rounds=1)
+    lanes = flow.random_lanes(net, 1, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flow.evaluate_netlist(net, lanes, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flow.evaluate_suite([net], [lanes], 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_netlist_levels(net, lanes, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flow.eval_mode_cost_model([net])
+    assert flow.evaluate_netlist(net, lanes, 1, device="cpu").shape == \
+        (net.n_signals, 1)
