@@ -25,11 +25,31 @@ line; any failure raises, so the script exits non-zero:
    DD5 proven by lane simulation on the fused evaluator;
 7. per-level baseline: the Fig. 9 stress workload through ``lut_eval``,
    equal to the fused evaluator;
-8. summary: the ``kernels`` line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+8. LM kernel parity: ``flash_attention`` (causal / not, GQA and MQA,
+   windows, softcap, queries at the tail, ragged S and T, every
+   instantiated head dimension, float32 within 2e-4 and bfloat16 within
+   2e-2, and the serving shapes, the decode one read in place from a
+   cache) and ``bitplane_matmul`` (B = 1, 4, 6, 8, ragged M / K / N, the
+   quantized-serving shapes; rtol 1e-5 / atol 1e-4) against their plain
+   versions on the card, timed beside the plain version, the bound and
+   one library call (SDPA; ``torch.matmul`` on the dequantized weight);
+9. serve: ``kratos-dd`` at full width — a float32 gate run (kernel path
+   against the plain path and the teacher-forced forward, within 5e-3,
+   identical greedy tokens) and a timed bfloat16 run whose flash launches
+   are counted (12 layers x 64 steps);
+10. serve_gemma2: ``gemma2-2b`` at full width, the same gate with a prompt
+    of 4608 tokens so that the local layers' window of 4096 bites, and a
+    timed bfloat16 run;
+11. quantized: the quantized-serving flow on ``kratos-dd`` — every
+    layer's FFN ``wi`` as 6 bit-planes through ``bitplane_matmul`` at 8
+    and 4096 rows;
+12. profile_decode: a warm bfloat16 prefill and decode step of each model
+    under ``torch.profiler``;
+13. summary: the ``kernels`` line, the card line, and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each phase that drives the main
-path and read just after; the parity phase's launches are not counted.
+path and read just after; the parity phases' launches are not counted.
 It exits non-zero without a result when no CUDA device is present.
 """
 from __future__ import annotations
@@ -50,12 +70,24 @@ if str(ROOT / "src") not in sys.path:
 N_LANE_WORDS = 4096
 ARCH_NAMES = ("baseline", "dd5", "dd6")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/lut_eval.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+BITPLANE_SOURCE = "src/repro_torch/kernels/csrc/bitplane_matmul.cu"
 
 #: H100 SXM peaks used for the bounds: HBM3 bandwidth (NVIDIA data sheet)
 #: and int32 logic throughput (132 SMs x 64 INT32 lanes per clock x 1.98 GHz
 #: boost, Hopper architecture white paper)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: dense bfloat16 tensor-core and float32 CUDA-core peaks (NVIDIA H100 SXM
+#: data sheet, without sparsity)
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+#: the global layers' window, as the models pass it (``blocks.HUGE_WINDOW``)
+HUGE_WINDOW = 1 << 30
+#: the reference's own bound between cached and teacher-forced logits
+#: (``tests/train/test_substrate.py``), used for every serve comparison
+SERVE_TOL = 5e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -208,6 +240,271 @@ def kernel_parity(device, main_shapes: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# LM kernels: parity and timing
+# ---------------------------------------------------------------------------
+
+
+def visible_pairs(S: int, T: int, causal: bool, window) -> int:
+    """(query, key) pairs attention must compute when the S queries sit
+    at the tail of T keys: key k is visible to the query at position q
+    when ``k <= q`` (causal) and ``k > q - window``."""
+    qpos = np.arange(S, dtype=np.int64) + (T - S)
+    hi = np.minimum(qpos, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound_ms(B, Hq, Hkv, S, T, D, elem_bytes, causal, window) -> dict:
+    """Least time for one attention call: 4 D FLOPs per visible pair
+    (q.k and p.v) over the peak of the input type (bf16 tensor cores,
+    fp32 CUDA cores), against q, k, v read once and o written once over
+    the HBM rate."""
+    flops = 4 * B * Hq * visible_pairs(S, T, causal, window) * D
+    nbytes = elem_bytes * (2 * B * Hq * S * D + 2 * B * Hkv * T * D)
+    peak = BF16_FLOPS if elem_bytes == 2 else FP32_FLOPS
+    return _bound(flops, peak, nbytes)
+
+
+def bitplane_bound_ms(M: int, K: int, N: int, B: int) -> dict:
+    """Least time for ``[M, K] x [B, K, N]``: the product's 2 M K N
+    float32 FLOPs over the CUDA-core peak, against the planes, x and the
+    scale read once and y written once over the HBM rate."""
+    return _bound(2 * M * K * N, FP32_FLOPS, 4 * (B * K * N + M * K + M * N + N))
+
+
+def _bound(flops: int, peak: float, nbytes: int) -> dict:
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": t_ops,
+            "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+#: (label, B, Hq, Hkv, S, T, causal, window, softcap), run at every head
+#: dimension and in both types
+FLASH_CASES = [
+    ("causal", 2, 4, 4, 100, 100, True, None, None),
+    ("bidirectional_gqa2", 1, 4, 2, 70, 70, False, None, None),
+    ("mqa_window_softcap", 2, 4, 1, 130, 130, True, 48, 30.0),
+    ("tail_ragged_window", 1, 4, 2, 37, 201, True, 64, None),
+    ("decode_softcap", 3, 4, 2, 1, 77, True, None, 50.0),
+    ("window_not_causal", 1, 2, 1, 90, 90, False, 40, None),
+]
+FLASH_DIMS = (16, 32, 64, 128, 256)
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+#: the serving path's attention calls: (label, B, Hq, Hkv, S, T, D,
+#: causal, window, softcap, dtype, cache_len).  A call with a cache length
+#: reads k / v in place from a ``[B, cache_len, H, D]`` cache sliced to T,
+#: as decode does.
+FLASH_MAIN = [
+    ("kratos-dd prefill", 8, 12, 12, 512, 512, 64, True, HUGE_WINDOW, None,
+     "bfloat16", None),
+    ("kratos-dd decode", 8, 12, 12, 1, 576, 64, True, HUGE_WINDOW, None,
+     "bfloat16", 640),
+    ("kratos-dd gate prefill fp32", 2, 12, 12, 128, 128, 64, True,
+     HUGE_WINDOW, None, "float32", None),
+    ("gemma2-2b local prefill", 2, 8, 4, 4608, 4608, 256, True, 4096, 50.0,
+     "bfloat16", None),
+]
+
+#: (M, K, N, B): ragged shapes with random {0, 1} planes; K is kept where
+#: the reference's own kernel tests hold it for B = 8
+BITPLANE_CASES = [(1, 1, 1, b) for b in (1, 4, 6, 8)] + \
+    [(65, 130, 70, b) for b in (1, 4, 6, 8)] + \
+    [(37, 200, 129, 6), (130, 768, 257, 4), (3, 768, 100, 1)]
+#: the quantized-serving shapes (kratos-dd's FFN wi as 6 planes)
+BITPLANE_MAIN = [(8, 768, 4096, 6), (4096, 768, 4096, 6)]
+BITPLANE_RTOL, BITPLANE_ATOL = 1e-5, 1e-4
+
+
+def _dtype(name: str):
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _attn_inputs(gen, B, Hq, Hkv, S, T, D, dtype, device, cache_len=None):
+    """q ``[B, Hq, S, D]`` and k / v ``[B, Hkv, T, D]`` as the model hands
+    them over: transposed views of ``[B, S, H, D]`` activations, k / v
+    sliced from a longer cache when ``cache_len`` is given."""
+    import torch
+
+    def act(s, h):
+        return torch.randn((B, s, h, D), generator=gen, device=device,
+                           dtype=torch.float32).to(dtype)
+
+    q = act(S, Hq).transpose(1, 2)
+    T_buf = cache_len if cache_len else T
+    k = act(T_buf, Hkv)[:, :T].transpose(1, 2)
+    v = act(T_buf, Hkv)[:, :T].transpose(1, 2)
+    return q, k, v
+
+
+def _within(got, want, rtol: float, atol: float) -> tuple[bool, float]:
+    import torch
+
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    return bool(torch.allclose(g, w, rtol=rtol, atol=atol)), err
+
+
+def flash_parity(device, cases=FLASH_CASES, dims=FLASH_DIMS,
+                 dtypes=("float32", "bfloat16"), seed: int = 0) -> dict:
+    """``flash_attention`` against its plain version on every case, head
+    dimension and type; raises on the first disagreement.  Returns the
+    largest error per type."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    worst = {}
+    for dt in dtypes:
+        worst[dt] = 0.0
+        for D in dims:
+            for label, B, Hq, Hkv, S, T, causal, window, softcap in cases:
+                q, k, v = _attn_inputs(gen, B, Hq, Hkv, S, T, D, _dtype(dt),
+                                       device)
+                kw = dict(causal=causal, window=window, softcap=softcap)
+                got = ops.flash_attention(q, k, v, **kw)
+                want = ops.flash_attention(q, k, v, use_kernel=False, **kw)
+                ok, err = _within(got, want, FLASH_TOL[dt], FLASH_TOL[dt])
+                check(ok and got.dtype == want.dtype,
+                      f"flash_attention {label} D={D} {dt} differs from "
+                      f"its plain version (max abs err {err})")
+                worst[dt] = max(worst[dt], err)
+    return worst
+
+
+def bitplane_parity(device, cases=BITPLANE_CASES, seed: int = 0) -> float:
+    """``bitplane_matmul`` against its plain version on random planes;
+    raises on the first disagreement.  Returns the largest error."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    worst = 0.0
+    for M, K, N, B in cases:
+        x = torch.randn((M, K), generator=gen, device=device)
+        planes = torch.randint(0, 2, (B, K, N), generator=gen,
+                               device=device).float()
+        scale = torch.randn((N,), generator=gen, device=device) * 0.1
+        got = ops.bitplane_matmul(x, planes, scale)
+        want = ops.bitplane_matmul(x, planes, scale, use_kernel=False)
+        ok, err = _within(got, want, BITPLANE_RTOL, BITPLANE_ATOL)
+        check(ok, f"bitplane_matmul M={M} K={K} N={N} B={B} differs from "
+                  f"its plain version (max abs err {err})")
+        worst = max(worst, err)
+    return worst
+
+
+def quantized_planes(gen, K: int, N: int, bits: int, device):
+    """6-bit planes and scale of a weight drawn as the model's
+    ``init_dense`` draws it."""
+    import torch
+
+    from repro_torch.quant.bitplane import quantize_bitplanes
+
+    w = torch.randn((K, N), generator=gen, device=device) * K ** -0.5
+    return quantize_bitplanes(w, bits)
+
+
+def sdpa_backend(q, k, v, is_causal: bool) -> list[str]:
+    """Names of the device kernels one SDPA call ran (which backend)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, is_causal=is_causal)
+        torch.cuda.synchronize()
+    return sorted({e.key[:80] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("Activity Buffer")})
+
+
+def lm_kernel_parity(device) -> dict:
+    """Both LM kernels against their plain versions on the card (every
+    case within tolerance, else it raises), then each main-path shape
+    timed: kernel, plain version, bound and library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.quant.bitplane import dequantize
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the library yardstick
+    flash_err = flash_parity(device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    flash_main = []
+    for (label, B, Hq, Hkv, S, T, D, causal, window, softcap, dt,
+         cache_len) in FLASH_MAIN:
+        q, k, v = _attn_inputs(gen, B, Hq, Hkv, S, T, D, _dtype(dt), device,
+                               cache_len)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ops.flash_attention(q, k, v, use_kernel=False, **kw)
+        ok, err = _within(got, want, FLASH_TOL[dt], FLASH_TOL[dt])
+        check(ok, f"flash_attention {label} differs from its plain version "
+                  f"(max abs err {err})")
+        heavy = S * T > 1 << 22
+        rec = {"label": label, "q": [B, Hq, S, D], "kv": [B, Hkv, T, D],
+               "dtype": dt, "causal": causal, "window": window,
+               "softcap": softcap, "kv_from_cache": cache_len is not None,
+               "max_abs_err": err,
+               "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+               "plain_ms": time_ms(lambda: ops.flash_attention(
+                   q, k, v, use_kernel=False, **kw),
+                   reps=3 if heavy else 10, inner=2 if heavy else 10),
+               **flash_bound_ms(B, Hq, Hkv, S, T, D, q.element_size(),
+                                causal, window)}
+        # SDPA computes the same function only without softcap and with
+        # the window wider than the keys; its is_causal aligns the mask
+        # top-left, which is the tail alignment only when S == T (and a
+        # single tail query sees every key)
+        if softcap is None and Hq == Hkv and window >= T:
+            is_causal = causal and S == T
+            rec["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=is_causal))
+            rec["library_kernels"] = sdpa_backend(q, k, v, is_causal)
+        else:
+            rec["library_ms"] = None
+        flash_main.append(rec)
+        del q, k, v, got, want
+
+    bit_err = bitplane_parity(device)
+    bit_main = []
+    for M, K, N, B in BITPLANE_MAIN:
+        planes, scale = quantized_planes(gen, K, N, B, device)
+        x = torch.randn((M, K), generator=gen, device=device)
+        got = ops.bitplane_matmul(x, planes, scale)
+        want = ops.bitplane_matmul(x, planes, scale, use_kernel=False)
+        ok, err = _within(got, want, BITPLANE_RTOL, BITPLANE_ATOL)
+        check(ok, f"bitplane_matmul [{M}, {K}] x [{B}, {K}, {N}] differs "
+                  f"from its plain version (max abs err {err})")
+        w = dequantize(planes, scale)
+        bit_main.append({
+            "shape": [M, K, N, B], "max_abs_err": err,
+            "ms": time_ms(lambda: ops.bitplane_matmul(x, planes, scale)),
+            "plain_ms": time_ms(lambda: ops.bitplane_matmul(
+                x, planes, scale, use_kernel=False)),
+            "library_ms": time_ms(lambda: torch.matmul(x, w)),
+            **bitplane_bound_ms(M, K, N, B)})
+    return {"phase": "lm_kernel_parity",
+            "flash_attention": {"max_abs_err": flash_err,
+                                "cases": len(FLASH_CASES) * len(FLASH_DIMS)
+                                * 2, "main": flash_main},
+            "bitplane_matmul": {"max_abs_err": bit_err,
+                                "cases": len(BITPLANE_CASES),
+                                "main": bit_main}}
+
+
+# ---------------------------------------------------------------------------
 # main-path phases (device-generic: the tests rehearse them on the CPU at
 # tiny sizes; the script runs them on the card at full size)
 # ---------------------------------------------------------------------------
@@ -334,8 +631,6 @@ def phase_profile(nets: list, lanes: list, n_lane_words: int,
     time by kernel and copy, busy share of the wall, and the host
     operations that take the most time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import flow
 
@@ -346,6 +641,19 @@ def phase_profile(nets: list, lanes: list, n_lane_words: int,
             torch.cuda.synchronize()
 
     run()  # warm: plan tensors uploaded, allocator primed
+    return {"phase": "profile", "what": "evaluate_suite grouped (warm)",
+            "n_lane_words": n_lane_words,
+            **profile_summary(run, device, top)}
+
+
+def profile_summary(run, device, top: int = 10) -> dict:
+    """One call of ``run()`` (which ends in a device synchronisation)
+    under ``torch.profiler``: its wall, device busy time and idle share,
+    device time by kernel and copy, and the host operations that take the
+    most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
@@ -365,9 +673,7 @@ def phase_profile(nets: list, lanes: list, n_lane_words: int,
                    for e in events if e.device_type == DeviceType.CPU),
                   key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in dev)
-    return {"phase": "profile", "what": "evaluate_suite grouped (warm)",
-            "n_lane_words": n_lane_words, "wall_ms": wall * 1e3,
-            "device_busy_ms": busy,
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / (wall * 1e3),
             "device_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
                                   for k, ms, c in dev[:top]],
@@ -452,6 +758,153 @@ def main_path_shapes(nets: list, levels_net) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serving phases (device-generic, like the ones above)
+# ---------------------------------------------------------------------------
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def as_float32(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def cast_params(params: dict, dtype) -> dict:
+    return {k: cast_params(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in params.items()}
+
+
+def serve_gate(cfg32, params32, batch: int, prompt_len: int, max_new: int,
+               device) -> dict:
+    """Float32 serving through the kernels against the plain path
+    (``use_kernel=False``, the reference's masked attention over the whole
+    cache) and against the teacher-forced forward: logits within
+    ``SERVE_TOL`` at the prefill and every decode step, identical greedy
+    tokens.  Raises on any difference."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    prompts = serve.make_prompts(cfg32, batch, prompt_len, device, seed=0)
+    (kern, counts) = _counted(lambda: serve.generate(
+        cfg32, params32, prompts, max_new, keep_logits=True))
+    plain = serve.generate(cfg32, params32, prompts, max_new,
+                           use_kernel=False, keep_logits=True)
+    d_plain = float((kern["logits"] - plain["logits"]).abs().max())
+    check(d_plain <= SERVE_TOL, f"{cfg32.name}: kernel-path logits differ "
+                                f"from the plain path by {d_plain}")
+    check(torch.equal(kern["tokens"], plain["tokens"]),
+          f"{cfg32.name}: greedy tokens differ between the kernel and plain "
+          "paths")
+    fed = torch.cat([prompts, kern["tokens"][:, :-1]], dim=1)
+    hidden, _ = lm.forward(cfg32, params32, fed, return_hidden=True)
+    tf = lm.unembed(cfg32, params32, hidden[:, prompt_len - 1:]).float()
+    d_tf = float((kern["logits"] - tf).abs().max())
+    check(d_tf <= SERVE_TOL, f"{cfg32.name}: cached logits differ from the "
+                             f"teacher-forced forward by {d_tf}")
+    check(bool(torch.isfinite(kern["logits"]).all()),
+          f"{cfg32.name}: non-finite logits")
+    return {"batch": batch, "prompt_len": prompt_len, "max_new": max_new,
+            "max_abs_logit_diff_vs_plain": d_plain,
+            "max_abs_logit_diff_vs_forward": d_tf, "tol": SERVE_TOL,
+            "tokens_identical": True, "launches": counts,
+            "first_row": kern["tokens"][0].tolist()}
+
+
+def serve_timed(cfg, params, batch: int, prompt_len: int, max_new: int,
+                device) -> dict:
+    """One warm-up, then the timed serving run with its launches
+    counted."""
+    from repro_torch.launch import serve
+
+    prompts = serve.make_prompts(cfg, batch, prompt_len, device, seed=1)
+    serve.generate(cfg, params, prompts, 2)  # warm: library, allocator
+    res, counts = _counted(lambda: serve.generate(cfg, params, prompts,
+                                                  max_new))
+    return {"batch": batch, "prompt_len": prompt_len, "max_new": max_new,
+            "dtype": cfg.compute_dtype, "prefill_ms": res["prefill_ms"],
+            "decode_ms_per_step": res["decode_ms_per_step"],
+            "tok_per_s": res["tok_per_s"],
+            "decode_tok_per_s": res["decode_tok_per_s"],
+            "launches": counts}
+
+
+def phase_serve(name: str, cfg, device, gate: tuple, timed: tuple,
+                seed: int = 0) -> tuple[dict, dict]:
+    """A config at full width: the float32 gate run, then a timed run in
+    the config's own types with the same (cast) weights.  Returns the
+    phase record and the bfloat16 weights (for the profile phase)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    cfg32 = as_float32(cfg)
+    params32 = serve.make_params(cfg32, device, seed=seed)
+    gate_rec = serve_gate(cfg32, params32, *gate, device)
+    params = cast_params(params32, getattr(torch, cfg.param_dtype))
+    del params32
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    timed_rec = serve_timed(cfg, params, *timed, device)
+    n_layers = cfg.n_layers
+    return ({"phase": name, "arch": cfg.name, "layers": n_layers,
+             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+             "head_dim": cfg.hd, "vocab": cfg.vocab, "gate": gate_rec,
+             "timed": timed_rec,
+             "flash_launches_expected": n_layers * timed[2]}, params)
+
+
+def phase_quantized(cfg32, device, rows=(8, 4096), bits: int = 6) -> dict:
+    """The quantized-serving flow at full width: every layer's FFN ``wi``
+    as ``bits`` planes through ``bitplane_matmul`` at each row count."""
+    from repro_torch.launch import quantized_serve, serve
+
+    params = serve.make_params(cfg32, device, seed=0)
+    t0 = time.perf_counter()
+    res, counts = _counted(lambda: quantized_serve.run(
+        cfg32, params, bits=bits, rows=rows))
+    return {"phase": "quantized", "wall_s": time.perf_counter() - t0,
+            **res, "worst_mean_rel_err": max(max(e) for e in
+                                             res["mean_rel_err"].values()),
+            "bound": quantized_serve.MAX_REL_ERR, "launches": counts}
+
+
+def phase_profile_serve(cfg, params, batch: int, prompt_len: int, device,
+                        top: int = 10) -> dict:
+    """A warm prefill and a warm decode step under ``torch.profiler``."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.decode import decode_step, prefill
+    from repro_torch.serve.kvcache import init_cache
+
+    prompts = serve.make_prompts(cfg, batch, prompt_len, device, seed=2)
+    cache = init_cache(cfg, batch, prompt_len + 1, device=device)
+    tok = prompts[:, -1:]
+
+    def run_prefill():
+        prefill(cfg, params, cache, prompts)
+        _sync(device)
+
+    def run_decode():
+        decode_step(cfg, params, cache, tok, prompt_len)
+        _sync(device)
+
+    run_prefill()  # warm
+    run_decode()
+    return {"phase": "profile_decode", "arch": cfg.name, "batch": batch,
+            "prompt_len": prompt_len, "dtype": cfg.compute_dtype,
+            "prefill": profile_summary(run_prefill, device, top),
+            "decode_step": profile_summary(run_decode, device, top)}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -484,6 +937,8 @@ def main() -> int:
     shapes = main_path_shapes(nets, levels_net)
     krec = kernel_parity(device, shapes)
     emit({"phase": "kernel_parity", **krec})
+    lmrec = lm_kernel_parity(device)
+    emit(lmrec)
 
     emit(phase_flow(suites, device))
     lanes = suite_lanes(nets, N_LANE_WORDS)
@@ -509,18 +964,74 @@ def main() -> int:
     check(lrec["launches"]["lut_eval"] > 0,
           "the per-level baseline did not launch lut_eval")
 
+    from repro_torch.configs.base import get_config
+
+    srec, kratos_params = phase_serve(
+        "serve", get_config("kratos-dd"), device, gate=(2, 128, 16),
+        timed=(8, 512, 64))
+    emit(srec)
+    flash_launches = srec["timed"]["launches"]["flash_attention"]
+    check(flash_launches == srec["flash_launches_expected"],
+          f"kratos-dd serving launched flash_attention {flash_launches} "
+          f"times, expected {srec['flash_launches_expected']}")
+    check(srec["gate"]["launches"]["flash_attention"] > 0,
+          "the kratos-dd gate run did not launch flash_attention")
+    emit(phase_profile_serve(get_config("kratos-dd"), kratos_params, 8, 512,
+                             device))
+    del kratos_params
+    torch.cuda.empty_cache()
+
+    grec, gemma_params = phase_serve(
+        "serve_gemma2", get_config("gemma2-2b"), device, gate=(1, 4608, 4),
+        timed=(2, 4608, 16))
+    emit(grec)
+    check(grec["timed"]["launches"]["flash_attention"]
+          == grec["flash_launches_expected"],
+          "gemma2-2b serving did not launch flash_attention once per layer "
+          "and step")
+    emit(phase_profile_serve(get_config("gemma2-2b"), gemma_params, 2, 4608,
+                             device))
+    del gemma_params
+    torch.cuda.empty_cache()
+
+    qrec = phase_quantized(as_float32(get_config("kratos-dd")), device)
+    emit(qrec)
+    bit_launches = qrec["launches"]["bitplane_matmul"]
+    check(bit_launches > 0, "the quantized flow did not launch "
+                            "bitplane_matmul")
+
     replaces = {"lut_eval6": "src/repro/kernels/lut_eval.py:90",
-                "lut_eval": "src/repro/kernels/lut_eval.py:47"}
+                "lut_eval": "src/repro/kernels/lut_eval.py:47",
+                "flash_attention": "src/repro/kernels/flash_attention.py:75",
+                "bitplane_matmul": "src/repro/kernels/bitplane_matmul.py:49"}
+    sources = {"lut_eval6": KERNEL_SOURCE, "lut_eval": KERNEL_SOURCE,
+               "flash_attention": FLASH_SOURCE,
+               "bitplane_matmul": BITPLANE_SOURCE}
     launches = {"lut_eval6": launches6,
-                "lut_eval": lrec["launches"]["lut_eval"]}
+                "lut_eval": lrec["launches"]["lut_eval"],
+                "flash_attention": flash_launches,
+                "bitplane_matmul": bit_launches}
+    flash_main = lmrec["flash_attention"]["main"][0]  # kratos-dd prefill
+    bit_main = lmrec["bitplane_matmul"]["main"][1]    # [4096, 768] rows
+    recs = {**{k: {**krec[k], "library_ms": None}
+               for k in ("lut_eval6", "lut_eval")},
+            "flash_attention": {
+                **flash_main, "shape": [flash_main["q"], flash_main["kv"]],
+                "max_abs_err": max(
+                    flash_main["max_abs_err"],
+                    *lmrec["flash_attention"]["max_abs_err"].values())},
+            "bitplane_matmul": {
+                **bit_main, "max_abs_err": max(
+                    bit_main["max_abs_err"],
+                    lmrec["bitplane_matmul"]["max_abs_err"])}}
     emit({"kernels": [
-        {"name": k, "route": "cuda", "source": KERNEL_SOURCE,
+        {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k], "launches": launches[k],
-         "max_abs_err": krec[k]["max_abs_err"], "ms": krec[k]["ms"],
-         "plain_ms": krec[k]["plain_ms"], "bound_ms": krec[k]["bound_ms"],
-         "bound_by": krec[k]["bound_by"], "library_ms": None,
-         "shape": krec[k]["shape"]}
-        for k in ("lut_eval6", "lut_eval")]})
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "shape": r["shape"]}
+        for k, r in recs.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,9 @@
+"""TinyLlama 1.1B — llama2-arch small [arXiv:2401.02385]."""
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="tinyllama-1.1b", family="dense",
+    n_layers=22, d_model=2048, n_heads=32, n_kv_heads=4, head_dim=64,
+    d_ff=5632, vocab=32000, act="swiglu", tie_embeddings=False,
+    rope_theta=10000.0,
+))

@@ -1,5 +1,5 @@
-"""Dispatch for the LUT-evaluation kernels (the port of
-``repro/kernels/ops.py``'s ``lut_eval`` / ``lut_eval6``).
+"""Dispatch for the port's kernels (the port of ``repro/kernels/ops.py``'s
+``lut_eval``, ``lut_eval6``, ``bitplane_matmul`` and ``flash_attention``).
 
 ``use_kernel`` mirrors the reference's ``use_pallas``:
 
@@ -10,7 +10,7 @@
 * a CPU tensor runs the plain-torch version.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``lut_eval6.launches``, ``lut_eval.launches``), incremented where the
+(``lut_eval6.launches``, ``lut_eval.launches``, ...), incremented where the
 kernel launches and nowhere else, so a run can show which path it took.
 Lanes are int32 bit patterns (see :mod:`repro_torch.kernels.ref`).
 """
@@ -53,14 +53,50 @@ def lut_eval6(inputs: torch.Tensor, tt_lo: torch.Tensor, tt_hi: torch.Tensor,
     return ref.lut_eval6_ref(inputs, tt_lo, tt_hi)
 
 
-lut_eval.launches = 0
-lut_eval6.launches = 0
+def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
+                    scale: torch.Tensor, use_kernel: bool = True
+                    ) -> torch.Tensor:
+    """``x[M, K]`` float32, ``planes[B, K, N]`` in {0, 1}, ``scale[N]`` ->
+    ``y[M, N] = (x @ W) * scale`` with W the two's-complement sum of the
+    planes."""
+    if _wants_kernel(x, use_kernel):
+        from .bitplane_matmul import bitplane_matmul_cuda
+
+        out = bitplane_matmul_cuda(x, planes, scale)
+        if out.numel():
+            bitplane_matmul.launches += 1
+        return out
+    return ref.bitplane_matmul_ref(x, planes, scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, scale: float | None = None,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """``q[B, Hq, S, D]``, ``k/v[B, Hkv, T, D]`` -> ``[B, Hq, S, D]``:
+    attention with the queries at the tail of the keys (causal, GQA,
+    sliding window, logit softcap)."""
+    if _wants_kernel(q, use_kernel):
+        from .flash_attention import flash_attention_cuda
+
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+        if out.numel():
+            flash_attention.launches += 1
+        return out
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+
+
+_COUNTED = (lut_eval6, lut_eval, flash_attention, bitplane_matmul)
+for _fn in _COUNTED:
+    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
-    lut_eval.launches = 0
-    lut_eval6.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"lut_eval6": lut_eval6.launches, "lut_eval": lut_eval.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}

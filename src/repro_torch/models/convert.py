@@ -1,0 +1,41 @@
+"""Carry model weights across packages as numpy.
+
+The JAX package's parameters are nested dicts of arrays with the same
+names and stacked ``[L, ...]`` shapes as this package's, so they cross as
+a dict map: :func:`params_from_numpy` turns nested dicts of numpy arrays
+(``np.asarray`` of each jax array) into tensors, and
+:func:`params_to_numpy` is its inverse.  The tests use them so that both
+packages compute with the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
+    """Nested dicts of numpy arrays -> the same dicts of tensors on
+    ``device`` (cast to ``dtype`` when given).  bfloat16 arrays (numpy's
+    ``ml_dtypes`` extension type) are widened to float32 before they cross
+    and keep their type on this side unless ``dtype`` says otherwise."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    a = np.asarray(tree)
+    want = dtype
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+        want = dtype or torch.bfloat16
+    t = torch.from_numpy(np.array(a)).to(device)  # a writable copy
+    return t if want is None else t.to(want)
+
+
+def params_to_numpy(tree):
+    """Nested dicts of tensors -> the same dicts of numpy arrays on the
+    host.  bfloat16 tensors come back as float32 (numpy has no bfloat16)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -1,0 +1,152 @@
+"""Decoder-LM assembly for the dense family (the port of
+``repro/models/lm.py``): init, embedding, unembedding and the
+teacher-forced forward.
+
+Parameters keep the reference's names and stacked ``[L, ...]`` shapes, so
+weights cross between the packages as a dict map
+(:mod:`repro_torch.models.convert`).  Layers run as a Python loop, so each
+layer's attention window is a static int.  The reference's ``constrain``
+calls are sharding hints for a mesh; on one card they are nothing.  Other
+families (moe, ssm, hybrid, encdec, vlm) are not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from . import blocks
+from .blocks import HUGE_WINDOW
+from .layers import dtype_of, init_dense, rms_norm
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported; only dense")
+
+
+def _layer_windows(cfg: ModelConfig, n: int, offset: int = 0) -> list[int]:
+    """Per-layer attention window (HUGE_WINDOW = global), as ints."""
+    w = np.full(n, HUGE_WINDOW, dtype=np.int64)
+    if cfg.local_window:
+        if cfg.layer_pattern == "lg":       # gemma2: local, global alternating
+            for i in range(n):
+                if (i + offset) % 2 == 0:
+                    w[i] = cfg.local_window
+        else:                                # hymba-style: all local but a few
+            for i in range(n):
+                if (i + offset) not in (0, n // 2, n - 1):
+                    w[i] = cfg.local_window
+    return [int(x) for x in w]
+
+
+def _init_attn(gen, cfg: ModelConfig, L: int, dt) -> dict:
+    d, Hq, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dev = gen.device
+    p = {
+        "ln1": torch.zeros((L, d), dtype=dt, device=dev),
+        "wq": init_dense(gen, (L, d, Hq * D), dt),
+        "wk": init_dense(gen, (L, d, Hkv * D), dt),
+        "wv": init_dense(gen, (L, d, Hkv * D), dt),
+        "wo": init_dense(gen, (L, Hq * D, d), dt),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((L, Hq * D), dtype=dt, device=dev)
+        p["bk"] = torch.zeros((L, Hkv * D), dtype=dt, device=dev)
+        p["bv"] = torch.zeros((L, Hkv * D), dtype=dt, device=dev)
+    if cfg.name.startswith("gemma2"):
+        p["post_ln"] = torch.zeros((L, d), dtype=dt, device=dev)
+    return p
+
+
+def _init_ffn(gen, cfg: ModelConfig, L: int, dt) -> dict:
+    d, F = cfg.d_model, cfg.d_ff
+    p = {"ln2": torch.zeros((L, d), dtype=dt, device=gen.device)}
+    if cfg.act == "gelu_mlp":
+        p["wi"] = init_dense(gen, (L, d, F), dt)
+    else:
+        p["wi"] = init_dense(gen, (L, d, 2 * F), dt)
+    p["wo_ff"] = init_dense(gen, (L, F, d), dt)
+    if cfg.name.startswith("gemma2"):
+        p["post_ln2"] = torch.zeros((L, d), dtype=dt, device=gen.device)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random weights for a dense config, drawn from ``gen`` on its
+    device.  The layout equals the reference's; the numbers differ (torch
+    and jax generators differ), so parity tests convert the reference's
+    weights instead."""
+    _require_dense(cfg)
+    dt = dtype_of(cfg.param_dtype)
+    d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
+    params: dict = {
+        "embed": init_dense(gen, (V, d), dt, scale=1.0),
+        "ln_f": torch.zeros((d,), dtype=dt, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_dense(gen, (d, V), dt)
+    params["blocks"] = {**_init_attn(gen, cfg, L, dt),
+                        **_init_ffn(gen, cfg, L, dt)}
+    return params
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked block parameters (views)."""
+    return {k: v[i] for k, v in params["blocks"].items()}
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens):
+    emb = params["embed"][tokens]
+    if cfg.name.startswith("gemma"):
+        emb = emb * (cfg.d_model ** 0.5)
+    return emb.to(dtype_of(cfg.compute_dtype))
+
+
+def unembed(cfg: ModelConfig, params, x):
+    x = rms_norm(x, params["ln_f"], cfg.rms_eps)
+    w = params.get("lm_head")
+    if w is None:
+        w = params["embed"].T
+    logits = x @ w.to(x.dtype)
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(
+            logits.float() / cfg.logit_softcap).to(x.dtype)
+    return logits
+
+
+def forward(cfg: ModelConfig, params, tokens, *, return_hidden=False,
+            use_kernel: bool = True):
+    """Teacher-forced forward pass -> ``(logits [B, S, V], aux)`` (or the
+    hidden states ``[B, S, d]`` with ``return_hidden``).  ``aux`` is the
+    reference's auxiliary loss, 0 for the dense family."""
+    _require_dense(cfg)
+    x = embed_tokens(cfg, params, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    for i, window in enumerate(_layer_windows(cfg, cfg.n_layers)):
+        p = layer_params(params, i)
+        a, _ = blocks.attn_block(cfg, p, x, positions, window=window,
+                                 use_kernel=use_kernel)
+        x = x + a
+        x = x + blocks.ffn_block(cfg, p, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return unembed(cfg, params, x), aux
+
+
+class LM(nn.Module):
+    """A thin module around :func:`forward` for callers that expect one."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        _require_dense(cfg)
+        self.cfg = cfg
+        self.params = params
+
+    def forward(self, tokens, use_kernel: bool = True):
+        return forward(self.cfg, self.params, tokens,
+                       use_kernel=use_kernel)[0]

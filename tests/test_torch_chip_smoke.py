@@ -25,7 +25,10 @@ def test_phase_functions_importable():
                  "phase_flow", "phase_suite_eval", "phase_profile",
                  "phase_equiv",
                  "phase_levels", "main_path_shapes", "full_suites",
-                 "fig9_workload", "card_line"):
+                 "fig9_workload", "card_line", "lm_kernel_parity",
+                 "flash_parity", "bitplane_parity", "flash_bound_ms",
+                 "bitplane_bound_ms", "phase_serve", "phase_quantized",
+                 "phase_profile_serve", "profile_summary", "sdpa_backend"):
         assert callable(getattr(cs, name)), name
 
 
@@ -63,7 +66,8 @@ def test_phases_rehearsed_on_cpu():
     lanes = cs.suite_lanes(nets, 2)
     rec = cs.phase_suite_eval(nets, lanes, 2, CPU, n_oracle_words=2)
     assert rec["circuits"] == 3 and rec["launches"]["grouped"] == \
-        {"lut_eval6": 0, "lut_eval": 0}
+        {"lut_eval6": 0, "lut_eval": 0, "flash_attention": 0,
+         "bitplane_matmul": 0}
     assert set(rec["lut_eval6_launches_per_circuit"]) == \
         {n.name for n in nets}
     rec = cs.phase_profile(nets, lanes, 2, CPU)
@@ -84,3 +88,52 @@ def test_check_raises():
     cs.check(True, "fine")
     assert cs.geomean([2.0, 8.0]) == pytest.approx(4.0)
     assert np.isclose(cs.geomean([1.0]), 1.0)
+
+
+def test_lm_bounds():
+    # causal tail queries: S = T gives the triangle, one tail query all keys
+    assert cs.visible_pairs(4, 4, True, None) == 10
+    assert cs.visible_pairs(1, 9, True, None) == 9
+    assert cs.visible_pairs(4, 4, False, None) == 16
+    assert cs.visible_pairs(5, 5, True, 2) == 9
+    assert cs.visible_pairs(3, 5, False, 2) == 4 + 3 + 2
+    assert cs.visible_pairs(6, 6, True, cs.HUGE_WINDOW) == 21
+    b = cs.flash_bound_ms(8, 12, 12, 512, 512, 64, 2, True, cs.HUGE_WINDOW)
+    assert b["flops"] == 4 * 8 * 12 * (512 * 513 // 2) * 64
+    assert b["bytes"] == 2 * (2 * 8 * 12 * 512 * 64 + 2 * 8 * 12 * 512 * 64)
+    assert b["bound_ms"] == max(b["ops_ms"], b["bytes_ms"])
+    b = cs.bitplane_bound_ms(4096, 768, 4096, 6)
+    assert b["flops"] == 2 * 4096 * 768 * 4096
+    assert b["bound_by"] == "operations" and 0.38 < b["bound_ms"] < 0.39
+    b = cs.bitplane_bound_ms(8, 768, 4096, 6)
+    assert b["bound_by"] == "bytes" and 0.022 < b["bound_ms"] < 0.023
+
+
+def test_lm_kernel_parity_rehearsed_on_cpu():
+    err = cs.flash_parity(CPU, dims=(16, 32))
+    assert set(err) == {"float32", "bfloat16"}
+    assert cs.bitplane_parity(CPU, cases=cs.BITPLANE_CASES[:6]) == 0.0
+    planes, scale = cs.quantized_planes(torch.Generator().manual_seed(0),
+                                        64, 32, 6, CPU)
+    assert planes.shape == (6, 64, 32) and scale.shape == (32,)
+    assert all(len(c) == 12 for c in cs.FLASH_MAIN)
+
+
+def test_serve_phases_rehearsed_on_cpu():
+    from repro_torch.configs.base import get_config
+
+    for arch, gate in (("kratos-dd", (2, 12, 3)), ("gemma2-2b", (1, 20, 3))):
+        cfg = get_config(arch).smoke()
+        rec, params = cs.phase_serve("serve", cfg, CPU, gate=gate,
+                                     timed=(2, 10, 3))
+        assert rec["gate"]["tokens_identical"]
+        assert rec["gate"]["max_abs_logit_diff_vs_forward"] <= cs.SERVE_TOL
+        assert rec["timed"]["launches"]["flash_attention"] == 0
+        assert rec["flash_launches_expected"] == cfg.n_layers * 3
+        prof = cs.phase_profile_serve(cfg, params, 2, 10, CPU)
+        assert prof["decode_step"]["device_busy_ms"] == 0
+        assert prof["prefill"]["host_self_ms_by_name"]
+    q = cs.phase_quantized(cs.as_float32(get_config("kratos-dd").smoke()),
+                           CPU, rows=(8, 16))
+    assert q["worst_mean_rel_err"] < q["bound"]
+    assert set(q["mean_rel_err"]) == {"8", "16"}

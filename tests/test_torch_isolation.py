@@ -98,5 +98,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
         eval_netlist_levels(net, lanes, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flow.eval_mode_cost_model([net])
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import quantized_serve, serve
+    from repro_torch.serve.kvcache import init_cache
+
+    argv = ["--arch", "kratos-dd", "--smoke", "--max-new", "2"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantized_serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(get_config("kratos-dd").smoke(), 1, 4)
+    assert serve.main(argv + ["--device", "cpu"]).shape == (4, 2)
     assert flow.evaluate_netlist(net, lanes, 1, device="cpu").shape == \
         (net.n_signals, 1)
