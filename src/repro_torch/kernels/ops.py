@@ -1,5 +1,6 @@
 """Dispatch for the port's kernels (the port of ``repro/kernels/ops.py``'s
-``lut_eval``, ``lut_eval6``, ``bitplane_matmul`` and ``flash_attention``).
+``lut_eval``, ``lut_eval6``, ``bitplane_matmul``, ``flash_attention``,
+``ssd_scan`` and ``popcount_matmul``).
 
 ``use_kernel`` mirrors the reference's ``use_pallas``:
 
@@ -88,7 +89,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    softcap=softcap, scale=scale)
 
 
-_COUNTED = (lut_eval6, lut_eval, flash_attention, bitplane_matmul)
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor,
+             use_kernel: bool = True) -> torch.Tensor:
+    """Mamba-2 SSD scan: ``x[Bb, L, H, P]``, ``dt[Bb, L, H]`` float32,
+    ``A[H]`` float32, ``B / C[Bb, L, N]`` -> ``y[Bb, L, H, P]`` in x's
+    type (see :func:`repro_torch.kernels.ref.ssd_scan_ref`).  The
+    reference kernel's contract holds on every device: L must be a
+    multiple of its chunk ``min(128, L)``."""
+    from .ssd_scan import chunk_of, ssd_scan_cuda
+
+    chunk_of(x.shape[1])
+    if _wants_kernel(x, use_kernel):
+        out = ssd_scan_cuda(x, dt, A, B, C)
+        if out.numel():
+            ssd_scan.launches += 1
+        return out
+    return ref.ssd_scan_ref(x, dt, A, B, C)
+
+
+def popcount_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                    mode: str = "and", k_bits: int | None = None,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """Binary GEMM over packed int32 words: ``x_packed[M, W]``,
+    ``w_packed[N, W]`` -> ``int32[M, N]``, ``sum popc(x & w)`` (mode
+    "and") or ``k_bits - 2 sum popc(x ^ w)`` (mode "xnor")."""
+    if _wants_kernel(x_packed, use_kernel):
+        from .popcount_matmul import popcount_matmul_cuda
+
+        out = popcount_matmul_cuda(x_packed, w_packed, mode=mode,
+                                   k_bits=k_bits)
+        if out.numel():
+            popcount_matmul.launches += 1
+        return out
+    return ref.popcount_matmul_ref(x_packed, w_packed, mode=mode,
+                                   k_bits=k_bits)
+
+
+_COUNTED = (lut_eval6, lut_eval, flash_attention, bitplane_matmul, ssd_scan,
+            popcount_matmul)
 for _fn in _COUNTED:
     _fn.launches = 0
 

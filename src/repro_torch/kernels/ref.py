@@ -1,17 +1,58 @@
 """Plain-torch versions of the port's kernels.
 
 They compute what ``repro/kernels/ref.py`` computes.  The LUT evaluators
-(a sum of minterms; for the 6-input layout a Shannon select on pin 5) work
-on int32 bit patterns: lanes cross into torch as
-``np.uint32 -> .view(np.int32)`` because torch's uint32 lacks ``~``, ``>>``
-and ``index_copy_``.  ``bitplane_matmul_ref`` and ``flash_attention_ref``
-keep the reference's float32 arithmetic and order of operations.  These
-functions are the CPU path of :mod:`repro_torch.kernels.ops` and the
-yardstick the CUDA kernels are held to on the card.
+(a sum of minterms; for the 6-input layout a Shannon select on pin 5) and
+``popcount_matmul_ref`` work on int32 bit patterns: lanes and packed words
+cross into torch as ``np.uint32 -> .view(np.int32)`` because torch's
+uint32 lacks ``~``, ``>>`` and ``index_copy_``.  ``bitplane_matmul_ref``,
+``flash_attention_ref`` and the SSD scans keep the reference's float32
+arithmetic and order of operations.  These functions are the CPU path of
+:mod:`repro_torch.kernels.ops` and the yardstick the CUDA kernels are held
+to on the card; they are never ``torch.compile``d.
 """
 from __future__ import annotations
 
 import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def _popc64(v: torch.Tensor) -> torch.Tensor:
+    """SWAR population count of int64 values below 2^32."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24) & 0xFF
+
+
+def popcount_matmul_ref(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                        mode: str = "and", k_bits: int | None = None
+                        ) -> torch.Tensor:
+    """``x_packed[M, W]`` and ``w_packed[N, W]`` int32 bit patterns hold K
+    bits packed into W = ceil(K/32) words -> ``int32[M, N]``.
+
+    mode "and":  y[m, n] = sum_k x[m, k] & w[n, k]   (0/1 weights)
+    mode "xnor": y[m, n] = K - 2 * popcount(x ^ w)   (+/-1 weights)
+
+    The words are widened to int64 (the low 32 bits, so no sign bit) and
+    counted word by word, as the reference's kernel loops over W."""
+    if mode not in ("and", "xnor"):
+        raise ValueError(mode)
+    if mode == "xnor" and k_bits is None:
+        raise ValueError("mode 'xnor' needs k_bits")
+    M, W = x_packed.shape
+    N, W2 = w_packed.shape
+    if W != W2:
+        raise ValueError(f"word counts differ: {W} and {W2}")
+    x = x_packed.to(torch.int64) & _M32
+    w = w_packed.to(torch.int64) & _M32
+    acc = torch.zeros((M, N), dtype=torch.int64, device=x_packed.device)
+    for i in range(W):
+        xi, wi = x[:, i, None], w[None, :, i]
+        acc += _popc64(xi & wi if mode == "and" else xi ^ wi)
+    if mode == "xnor":
+        acc = k_bits - 2 * acc
+    return acc.to(torch.int32)
 
 
 def lut_eval_ref(inputs: torch.Tensor, tts: torch.Tensor) -> torch.Tensor:
@@ -99,3 +140,79 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          torch.tensor(-1e30, device=q.device))
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p, vv).to(q.dtype)
+
+
+def ssd_recurrence(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor,
+                   h: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD recurrence step by step from the float32 state ``h``
+    ``[Bb, H, P, N]`` (zeros when None): for each t,
+    ``h = h * exp(A dt_t) + (dt_t x_t) B_t^T`` and ``y_t = h C_t``.
+    Returns ``(y [Bb, L, H, P] float32, h)``.  The per-step factors are
+    elementwise, so they are formed for all steps at once; the loop carries
+    only the state."""
+    Bb, L, H, P = x.shape
+    N = B.shape[-1]
+    if h is None:
+        h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    dtf = dt.float()
+    decay = torch.exp(A.float()[None, None, :] * dtf)        # [Bb, L, H]
+    dtx = dtf[..., None] * x.float()                          # [Bb, L, H, P]
+    Bf, Cf = B.float(), C.float()
+    ys = []
+    for t in range(L):
+        upd = dtx[:, t, :, :, None] * Bf[:, t, None, None, :]
+        h = h * decay[:, t, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Sequential SSD (Mamba-2) scan, scalar A per head, B / C shared by
+    the heads (G = 1): ``x[Bb, L, H, P]``, ``dt[Bb, L, H]`` > 0, ``A[H]``
+    < 0, ``B / C[Bb, L, N]`` -> ``y[Bb, L, H, P]`` in x's type, with a
+    float32 state carried over the L steps."""
+    return ssd_recurrence(x, dt, A, B, C)[0].to(x.dtype)
+
+
+def ssd_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor,
+                         chunk: int = 128) -> torch.Tensor:
+    """Chunked (state-space dual) form of :func:`ssd_scan_ref`: L / chunk
+    steps of dense intra-chunk products plus the state hand-off between
+    chunks (arXiv:2405.21060 sec. 6).  Falls back to the sequential form
+    when ``chunk`` does not divide L, as the reference does."""
+    Bb, L, H, P = x.shape
+    N = B.shape[-1]
+    if L % chunk:
+        return ssd_scan_ref(x, dt, A, B, C)
+    nc = L // chunk
+    xf = x.float().reshape(Bb, nc, chunk, H, P)
+    dtf = dt.float().reshape(Bb, nc, chunk, H)
+    Bf = B.float().reshape(Bb, nc, chunk, N)
+    Cf = C.float().reshape(Bb, nc, chunk, N)
+    Af = A.float()
+    t_idx = torch.arange(chunk, device=x.device)
+    causal = t_idx[:, None] >= t_idx[None, :]
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
+        cum = torch.cumsum(Af[None, None, :] * dtc, dim=1)     # [Bb, Q, H]
+        y_state = torch.einsum("bqn,bhpn->bqhp", Cc, h) \
+            * torch.exp(cum)[..., None]
+        scores = torch.einsum("btn,bun->btu", Cc, Bc)           # [Bb, Q, Q]
+        seg = cum[:, :, None, :] - cum[:, None, :, :]           # [Bb, Q, Q, H]
+        # the masked branch is formed as the reference forms it; exp of the
+        # unselected (positive) segments may overflow and is discarded
+        w = torch.where(causal[None, :, :, None],
+                        torch.exp(seg) * scores[..., None],
+                        torch.zeros((), device=x.device)) \
+            * dtc[:, None, :, :]
+        ys.append(y_state + torch.einsum("btuh,buhp->bthp", w, xc))
+        wu = torch.exp(cum[:, -1:, :] - cum) * dtc              # [Bb, Q, H]
+        h = torch.exp(cum[:, -1])[..., None, None] * h \
+            + torch.einsum("buhp,bun->bhpn", xc * wu[..., None], Bc)
+    return torch.stack(ys, dim=1).reshape(Bb, L, H, P).to(x.dtype)

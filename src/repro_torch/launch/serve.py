@@ -1,8 +1,11 @@
 """Batched serving entry point: prefill a batch of prompts, decode greedily
-(the port of ``repro/launch/serve.py``, dense family).
+(the port of ``repro/launch/serve.py``) for the dense (kratos-dd,
+gemma2-2b, ...), ssm (mamba2-2.7b) and hybrid (hymba-1.5b) families.
 
     python -m repro_torch.launch.serve --arch kratos-dd [--smoke]
         [--batch 4] [--prompt-len 32] [--max-new 16] [--device cuda]
+    python -m repro_torch.launch.serve --arch mamba2-2.7b
+    python -m repro_torch.launch.serve --arch hymba-1.5b
 
 Weights are random, drawn from a seeded generator on the device; prompts
 come from a seeded numpy generator.  Prints prefill ms, decode ms per

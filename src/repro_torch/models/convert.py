@@ -17,7 +17,10 @@ def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     """Nested dicts of numpy arrays -> the same dicts of tensors on
     ``device`` (cast to ``dtype`` when given).  bfloat16 arrays (numpy's
     ``ml_dtypes`` extension type) are widened to float32 before they cross
-    and keep their type on this side unless ``dtype`` says otherwise."""
+    and keep their type on this side unless ``dtype`` says otherwise.
+    Without ``dtype`` every leaf keeps its own type, so the SSD's float32
+    ``dt_bias``, ``a_log`` and ``d_skip`` stay float32 beside bfloat16
+    weights, as in the reference."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}

@@ -1,13 +1,14 @@
-"""Decoder-LM assembly for the dense family (the port of
-``repro/models/lm.py``): init, embedding, unembedding and the
-teacher-forced forward.
+"""Decoder-LM assembly for the dense, ssm (Mamba-2) and hybrid (Hymba)
+families (the port of ``repro/models/lm.py``): init, embedding,
+unembedding and the teacher-forced forward.
 
-Parameters keep the reference's names and stacked ``[L, ...]`` shapes, so
-weights cross between the packages as a dict map
+Parameters keep the reference's names, stacked ``[L, ...]`` shapes and
+types (the SSD's ``dt_bias``, ``a_log`` and ``d_skip`` are float32 whatever
+``param_dtype`` is), so weights cross between the packages as a dict map
 (:mod:`repro_torch.models.convert`).  Layers run as a Python loop, so each
 layer's attention window is a static int.  The reference's ``constrain``
-calls are sharding hints for a mesh; on one card they are nothing.  Other
-families (moe, ssm, hybrid, encdec, vlm) are not ported yet.
+calls are sharding hints for a mesh; on one card they are nothing.  The
+moe, encdec and vlm families are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,10 +22,20 @@ from .blocks import HUGE_WINDOW
 from .layers import dtype_of, init_dense, rms_norm
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+#: the families the port runs
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+#: leaves that stay float32 whatever ``param_dtype`` is (the SSD's step
+#: bias, log decay and skip weight, as in the reference's ``_init_ssd``)
+FLOAT32_LEAVES = ("dt_bias", "a_log", "d_skip")
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported; only dense")
+            f"family {cfg.family!r} ({cfg.name}) is not ported; only "
+            f"{', '.join(PORTED_FAMILIES)}")
 
 
 def _layer_windows(cfg: ModelConfig, n: int, offset: int = 0) -> list[int]:
@@ -74,12 +85,28 @@ def _init_ffn(gen, cfg: ModelConfig, L: int, dt) -> dict:
     return p
 
 
+def _init_ssd(gen, cfg: ModelConfig, L: int, dt) -> dict:
+    d, H, P, N = cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    dev = gen.device
+    return {
+        "ln1": torch.zeros((L, d), dtype=dt, device=dev),
+        "in_proj": init_dense(gen, (L, d, 2 * H * P + 2 * N + H), dt),
+        "conv_w": init_dense(gen, (L, cfg.conv_kernel, H * P), dt,
+                             scale=0.5),
+        "dt_bias": torch.zeros((L, H), dtype=torch.float32, device=dev),
+        "a_log": torch.zeros((L, H), dtype=torch.float32, device=dev),
+        "d_skip": torch.zeros((L, H), dtype=torch.float32, device=dev),
+        "out_ln": torch.zeros((L, H * P), dtype=dt, device=dev),
+        "out_proj": init_dense(gen, (L, H * P, d), dt),
+    }
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Random weights for a dense config, drawn from ``gen`` on its
-    device.  The layout equals the reference's; the numbers differ (torch
-    and jax generators differ), so parity tests convert the reference's
-    weights instead."""
-    _require_dense(cfg)
+    """Random weights for a dense, ssm or hybrid config, drawn from
+    ``gen`` on its device.  The layout equals the reference's; the numbers
+    differ (torch and jax generators differ), so parity tests convert the
+    reference's weights instead."""
+    require_ported(cfg)
     dt = dtype_of(cfg.param_dtype)
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
     params: dict = {
@@ -88,8 +115,17 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_dense(gen, (d, V), dt)
-    params["blocks"] = {**_init_attn(gen, cfg, L, dt),
-                        **_init_ffn(gen, cfg, L, dt)}
+    if cfg.family == "dense":
+        params["blocks"] = {**_init_attn(gen, cfg, L, dt),
+                            **_init_ffn(gen, cfg, L, dt)}
+    elif cfg.family == "ssm":
+        params["blocks"] = _init_ssd(gen, cfg, L, dt)
+    else:  # hybrid: attention and SSD share ln1, as in the reference
+        p = {**_init_attn(gen, cfg, L, dt), **_init_ssd(gen, cfg, L, dt),
+             **_init_ffn(gen, cfg, L, dt)}
+        p["fuse_ln_a"] = torch.zeros((L, d), dtype=dt, device=gen.device)
+        p["fuse_ln_s"] = torch.zeros((L, d), dtype=dt, device=gen.device)
+        params["blocks"] = p
     return params
 
 
@@ -121,15 +157,26 @@ def forward(cfg: ModelConfig, params, tokens, *, return_hidden=False,
             use_kernel: bool = True):
     """Teacher-forced forward pass -> ``(logits [B, S, V], aux)`` (or the
     hidden states ``[B, S, d]`` with ``return_hidden``).  ``aux`` is the
-    reference's auxiliary loss, 0 for the dense family."""
-    _require_dense(cfg)
+    reference's auxiliary loss, 0 for these families.  With
+    ``use_kernel`` every attention runs through the flash kernel and every
+    SSD layer through the ``ssd_scan`` kernel (their plain versions on a
+    CPU tensor)."""
+    require_ported(cfg)
     x = embed_tokens(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     for i, window in enumerate(_layer_windows(cfg, cfg.n_layers)):
         p = layer_params(params, i)
-        a, _ = blocks.attn_block(cfg, p, x, positions, window=window,
-                                 use_kernel=use_kernel)
+        if cfg.family == "ssm":
+            s, _ = blocks.ssd_block(cfg, p, x, use_kernel=use_kernel)
+            x = x + s
+            continue
+        if cfg.family == "hybrid":
+            a, _ = blocks.hybrid_block(cfg, p, x, positions, window,
+                                       use_kernel=use_kernel)
+        else:
+            a, _ = blocks.attn_block(cfg, p, x, positions, window=window,
+                                     use_kernel=use_kernel)
         x = x + a
         x = x + blocks.ffn_block(cfg, p, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -143,7 +190,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        _require_dense(cfg)
+        require_ported(cfg)
         self.cfg = cfg
         self.params = params
 

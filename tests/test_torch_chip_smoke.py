@@ -28,7 +28,11 @@ def test_phase_functions_importable():
                  "fig9_workload", "card_line", "lm_kernel_parity",
                  "flash_parity", "bitplane_parity", "flash_bound_ms",
                  "bitplane_bound_ms", "phase_serve", "phase_quantized",
-                 "phase_profile_serve", "profile_summary", "sdpa_backend"):
+                 "phase_profile_serve", "profile_summary", "sdpa_backend",
+                 "ssm_kernel_parity", "ssd_parity", "popcount_parity",
+                 "ssd_bound_ms", "popcount_bound_ms", "ssd_inputs",
+                 "unpack_signs", "forward_gate", "forward_timed",
+                 "phase_ssm", "phase_profile_ssm", "cast_params"):
         assert callable(getattr(cs, name)), name
 
 
@@ -67,7 +71,7 @@ def test_phases_rehearsed_on_cpu():
     rec = cs.phase_suite_eval(nets, lanes, 2, CPU, n_oracle_words=2)
     assert rec["circuits"] == 3 and rec["launches"]["grouped"] == \
         {"lut_eval6": 0, "lut_eval": 0, "flash_attention": 0,
-         "bitplane_matmul": 0}
+         "bitplane_matmul": 0, "ssd_scan": 0, "popcount_matmul": 0}
     assert set(rec["lut_eval6_launches_per_circuit"]) == \
         {n.name for n in nets}
     rec = cs.phase_profile(nets, lanes, 2, CPU)
@@ -137,3 +141,72 @@ def test_serve_phases_rehearsed_on_cpu():
                            CPU, rows=(8, 16))
     assert q["worst_mean_rel_err"] < q["bound"]
     assert set(q["mean_rel_err"]) == {"8", "16"}
+
+
+def test_ssm_bounds():
+    b = cs.ssd_bound_ms(2, 4096, 80, 64, 128, 2)
+    assert b["flops"] == 2 * 80 * 32 * (2 * 128 * 128 * 128
+                                        + 2 * 128 * 128 * 64
+                                        + 4 * 128 * 64 * 128)
+    assert 53e9 < b["flops"] < 54e9 and 0.054 < b["ops_ms"] < 0.055
+    assert 172e6 < b["bytes"] < 176e6 and b["bound_by"] == "operations"
+    short = cs.ssd_bound_ms(1, 24, 4, 16, 8, 4)  # one chunk of 24
+    assert short["flops"] == 4 * (2 * 24 * 24 * 8 + 2 * 24 * 24 * 16
+                                  + 4 * 24 * 16 * 8)
+    p = cs.popcount_bound_ms(4096, 4096, 24)
+    assert p["popcounts"] == 4096 * 4096 * 24
+    assert p["bytes"] == 4 * (2 * 4096 * 24 + 4096 * 4096)
+    assert p["bound_by"] == "operations" and 0.096 < p["bound_ms"] < 0.097
+
+
+def test_ssm_kernel_parity_rehearsed_on_cpu():
+    err = cs.ssd_parity(CPU, cases=cs.SSD_CASES[:2] + cs.SSD_CASES[4:5])
+    assert err == {"float32": 0.0, "bfloat16": 0.0}
+    assert cs.popcount_parity(CPU, cases=cs.POPCOUNT_CASES[:3]) == 0
+    words = torch.tensor([[0b1011, -1]], dtype=torch.int32)
+    bits = cs.unpack_signs(words, 40, signed=False)
+    assert bits.shape == (1, 40) and bits[0, :4].tolist() == [1, 1, 0, 1]
+    signs = cs.unpack_signs(words, 64, signed=True)
+    assert signs[0, 31].item() == -1 and signs[0, 32:].eq(1).all()
+    # the library yardstick computes the same function on these bits
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    x = cs._random_words(rng, (9, 3), CPU)
+    w = cs._random_words(rng, (5, 3), CPU)
+    lib = cs.unpack_signs(x, 96, True).float() @ \
+        cs.unpack_signs(w, 96, True).float().T
+    assert torch.equal(lib.int(), ops.popcount_matmul(x, w, "xnor", 96))
+
+
+def test_cast_params_keeps_float32_leaves():
+    params = {"embed": torch.ones(2), "blocks": {
+        "in_proj": torch.ones(2), "dt_bias": torch.ones(2),
+        "a_log": torch.ones(2), "d_skip": torch.ones(2)}}
+    out = cs.cast_params(params, torch.bfloat16)
+    assert out["embed"].dtype == out["blocks"]["in_proj"].dtype == \
+        torch.bfloat16
+    for name in ("dt_bias", "a_log", "d_skip"):
+        assert out["blocks"][name].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch,gate,forward,timed", [
+    ("mamba2-2.7b", (1, 32, 27, 6), (2, 24), (2, 10, 3)),
+    ("hymba-1.5b", (1, 32, 27, 6), (2, 24), (2, 20, 3))])
+def test_ssm_phases_rehearsed_on_cpu(arch, gate, forward, timed):
+    """The SSM phases at smoke width on the CPU (nothing launches here;
+    the expected counts are checked on the card)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch).smoke()
+    rec, params = cs.phase_ssm("ssm", cfg, CPU, gate=gate, forward=forward,
+                               timed=timed)
+    assert rec["gate"]["serve"]["tokens_identical"]
+    assert rec["gate"]["forward"]["max_abs_logit_diff_vs_plain"] <= \
+        cs.SERVE_TOL
+    assert rec["forward"]["tok_per_s"] > 0
+    assert rec["launches_expected"]["forward"]["ssd_scan"] == cfg.n_layers
+    assert sum(rec["forward"]["launches"].values()) == 0
+    prof = cs.phase_profile_ssm(cfg, params, 2, 16, CPU)
+    assert prof["decode_step"]["device_busy_ms"] == 0
+    assert prof["forward"]["host_self_ms_by_name"]

@@ -128,7 +128,7 @@ def test_build_paths_and_missing_nvcc(monkeypatch, tmp_path):
     """Libraries land under build/repro_torch_kernels/ named by their
     source hash; with no nvcc the build raises."""
     assert build.sources() == ["bitplane_matmul", "flash_attention",
-                               "lut_eval"]
+                               "lut_eval", "popcount_matmul", "ssd_scan"]
     p = build.library_path("lut_eval")
     assert p.parent == build.BUILD_DIR
     assert p.parent.parts[-2:] == ("build", "repro_torch_kernels")

@@ -173,7 +173,7 @@ def test_params_round_trip_and_layout():
 
 
 def test_other_families_are_refused():
-    for arch in ("deepseek-moe-16b", "mamba2-2.7b", "whisper-small"):
+    for arch in ("deepseek-moe-16b", "llava-next-34b", "whisper-small"):
         cfg = get_config(arch).smoke()
         with pytest.raises(NotImplementedError):
             lm.init_params(torch.Generator(), cfg)

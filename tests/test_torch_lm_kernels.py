@@ -104,7 +104,8 @@ def test_cpu_dispatch_counts_no_launches():
     ops.bitplane_matmul(x, planes, torch.ones(5))
     assert ops.launch_counts() == {"lut_eval6": 0, "lut_eval": 0,
                                    "flash_attention": 0,
-                                   "bitplane_matmul": 0}
+                                   "bitplane_matmul": 0, "ssd_scan": 0,
+                                   "popcount_matmul": 0}
 
 
 def test_cuda_launchers_refuse_host_tensors():
