@@ -7,6 +7,8 @@ it (``device="cpu"``, as the tests do).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -19,3 +21,10 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run on the host")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the launchers
+    size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled on first use by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, under
 ``build/repro_torch_kernels/`` at the root of the checkout.  The library's
-file name carries a hash of its source (and of the flags), so an edited
-source is rebuilt and a stale library is never loaded.  Nothing here runs
+file name carries a hash of its source, of the shared ``csrc/*.cuh``
+headers and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  Nothing here runs
 at import time: the CPU tests import every module of the port.
 
 A build or load failure raises; there is no fallback.
@@ -52,7 +53,8 @@ def sources() -> list[str]:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.blake2b(src + repr(NVCC_FLAGS).encode(),
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.blake2b(src + headers + repr(NVCC_FLAGS).encode(),
                         digest_size=8).hexdigest()
     return BUILD_DIR / f"{name}-{h}.so"
 

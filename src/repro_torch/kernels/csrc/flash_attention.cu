@@ -11,52 +11,75 @@
 //
 // Order of operations, as in the reference: s = (q . k) * scale ->
 // softcap -> mask to -1e30 -> online softmax with float32 running max m,
-// sum l and accumulator -> acc / max(l, 1e-30) -> cast.  Keys past T (the
-// ragged last tile) are -inf, so they add nothing, as in the reference
-// where they do not exist.  expf / tanhf, not the fast intrinsics.
+// sum l and accumulator -> acc / max(l, 1e-30) -> cast.  Keys past the
+// end (the ragged last tile, or the end of a key split) are -inf, so they
+// add nothing, as in the reference where they do not exist.  tanhf, and
+// expf (FFMA) or exp2f of the log2(e)-scaled argument (mma, split), not
+// the fast intrinsics.  Tiles wholly outside the causal /
+// window band of a CTA's rows are skipped: every row keeps its own key
+// (causal) or the last key, so its running max is a real logit, and
+// exp(-1e30 - m) is exactly 0 for what a skipped tile would have added.
+// Inputs are read through explicit strides (last dimension contiguous),
+// so a KV cache sliced along time is read in place.
 //
-// Design.  The TPU's 128 x 128 blocks with a VMEM accumulator carried
-// across a sequential kv grid axis are not carried over.  One CTA of 256
-// threads owns a tile of 64 query rows of one (batch, head) and walks the
-// key/value tiles itself, in order, with the running statistics in
-// registers.  Threads form 16 row groups x 16 column lanes: each thread
-// holds 4 query rows; for a BK-key tile it computes 4 x BK/16 scores and
-// keeps 4 x D/16 output accumulators.  Row max and row sum are reduced
-// over the 16 lanes of a half-warp with shuffles.  Q is staged once,
-// transposed, in shared memory; each K tile is staged transposed and each
-// V tile row-major (padded strides keep the accesses free of bank
-// conflicts), converted to float32 on the way in.  The products are FFMA
-// on the CUDA cores in float32, so float32 inputs keep the reference's
-// precision and bfloat16 inputs are computed exactly as the reference
-// computes them (upcast, float32 math, one rounding at the end).
-// Tiles wholly outside the causal / window band of the CTA's rows are
-// skipped: every row keeps its own key (causal) or the last key, so its
-// running max is a real logit before any skipped tile would have been
-// added, and exp(-1e30 - m) is exactly 0.  Query tiles are launched
-// heaviest (latest) first.  Inputs are read through explicit strides
-// (last dimension contiguous), so a KV cache sliced along time is read in
-// place.
+// What bounds it.  kratos-dd prefill ([8, 12, 512, 64] bf16, causal):
+// 3.2 GFLOP of visible (q, k) pairs against 25 MB of q, k, v and o, so
+// the bytes bound it (7.5 us; the bf16 tensor-core operations take 3.3
+// us).  gemma2-2b's local prefill ([2, 8, 4608, 256], window 4096): 172
+// GFLOP, operations (0.174 ms).  Decode (S = 1) reads the whole cache
+// slice for one query row per head: bytes, 4.2 us at kratos-dd's 576
+// keys.
 //
-// What bounds it.  At the main path's prefill shape (kratos-dd,
-// [8, 12, 512, 64] bf16, causal) the visible (q, k) pairs need ~3.3 GFLOP
-// against 6.3 MB of q, k, v and o: far above the card's ridge, so the
-// operations bound it: against the bf16 tensor-core peak the bound is
-// ~3 us.  This kernel does FFMA at the float32 CUDA-core rate, and one
-// shared-memory load feeds two FMAs in the inner loops, so it runs well
-// below even that rate.  Tensor cores (mma / wgmma on bf16 tiles), TMA
-// and a split-K decode are later work.  Decode (S = 1) launches only
-// B * Hq CTAs with one live row each.
+// Design: three variants, chosen by the launcher from the type, S and
+// G = Hq / Hkv.
+//
+// * mma (bfloat16, G * S > 16).  One CTA of 4 warps owns 64 query rows
+//   of one (batch, head), 16 per warp, and walks the key / value tiles of
+//   its band in order.  Q.K^T and P.V run on the tensor cores (mma.sync
+//   m16n8k16, operands from shared memory through ldmatrix, float32
+//   accumulators); the online-softmax state (m, l and the 16 x D output
+//   per warp) stays in float32 registers, and P is rounded to bf16 for
+//   P.V (about 2^-9 relative).  Q is staged once; K and V tiles are
+//   double-buffered with 16-byte cp.async (rows padded by 16 bytes, so
+//   ldmatrix is free of bank conflicts).  Query tiles are launched
+//   heaviest (latest) first.  BK = 64 keys per tile up to D = 128, 32 at
+//   D = 256 (the register budget: 128 accumulators per thread).  At
+//   D = 64 the softmax's scalar work per score costs as much as the
+//   products, so blocks of keys that every row of a warp sees skip the
+//   mask, and exp is exp2f of a log2(e)-scaled argument.
+// * split (bfloat16, G * S <= 16: decode), as in flash-decoding.  The grid
+//   is (batch x kv head, key split): one CTA takes all G * S query rows of
+//   its kv group (one 16-row tile) and a contiguous slice of the keys
+//   visible to them; its 4 warps take 16 keys each of every 64-key tile.
+//   The warps' states are merged in shared memory, in warp order, into a
+//   float32 partial (m, l, acc) per split; a second launch combines the
+//   splits in split order, so every run gives the same bits (a single
+//   split writes the output itself).  The launcher picks the split count
+//   so that the grid fills the card once with two CTAs per SM, or one
+//   where only one fits (D = 256: its 64-key K / V double buffer takes
+//   135 KB); more, shorter splits lose more to each CTA's fixed costs
+//   and to the partials than they gain in parallelism.
+// * FFMA (float32).  One CTA of 256 threads owns 64 query rows of one
+//   (batch, head); threads form 16 row groups x 16 column lanes, each
+//   with 4 rows x BK/16 scores and 4 x D/16 accumulators; Q, K (both
+//   transposed) and V are staged in shared memory as float32 and the
+//   products are FFMA, so float32 inputs keep the reference's precision.
+//   Only the float32 gates take it; it is left as it was on purpose.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kRows = 4;       // query rows per thread
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;  // FFMA: 16 row groups x 16 column lanes
+constexpr int kBQ = 64;        // FFMA: query rows per CTA
+constexpr int kRows = 4;       // FFMA: query rows per thread
 constexpr float kMasked = -1e30f;
 
 struct Params {
@@ -76,22 +99,26 @@ struct Params {
   int has_softcap;
   int causal;
   int has_window;
-  int64_t window;
+  int64_t window;  // at most T + 1 (a wider window masks nothing)
+  // split variant: the first key any query can see, keys per split, the
+  // number of splits, and float32 partials m / l [B * Hkv, n_splits, R]
+  // and acc [B * Hkv, n_splits, R, D], R = G * S rows
+  int64_t k_first, kps, n_splits;
+  float* part_m;
+  float* part_l;
+  float* part_acc;
 };
 
+// ---------------------------------------------------------------------------
+// FFMA variant (float32)
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
 template <int D, int BK>
@@ -267,40 +294,540 @@ int launch_typed(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dim(int64_t D, const Params& p, cudaStream_t stream) {
+int launch_ffma(int64_t D, const Params& p, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_typed<T, 16, 64>(p, stream);
-    case 32: return launch_typed<T, 32, 64>(p, stream);
-    case 64: return launch_typed<T, 64, 64>(p, stream);
-    case 128: return launch_typed<T, 128, 32>(p, stream);
-    case 256: return launch_typed<T, 256, 32>(p, stream);
+    case 16: return launch_typed<float, 16, 64>(p, stream);
+    case 32: return launch_typed<float, 32, 64>(p, stream);
+    case 64: return launch_typed<float, 64, 64>(p, stream);
+    case 128: return launch_typed<float, 128, 32>(p, stream);
+    case 256: return launch_typed<float, 256, 32>(p, stream);
     default: return -1;
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// tensor-core variants (bfloat16)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kSplitBK = 64;      // split variant: 16 keys per warp
+constexpr int kSplitRows = 16;    // split variant: one 16-row tile
+
+// The (scaled, softcapped) logit x of (query at qpos, key at kpos) after
+// the mask; keys at or past k_stop do not exist (-inf).
+__device__ __forceinline__ float masked(float x, int qpos, int kpos,
+                                        int k_stop, const Params& p) {
+  bool vis = true;
+  if (p.causal) vis = kpos <= qpos;
+  if (p.has_window) vis = vis && kpos > qpos - static_cast<int>(p.window);
+  x = vis ? x : kMasked;
+  return kpos >= k_stop ? -INFINITY : x;
+}
+
+// One warp: its 16 query rows (Qs) against NK keys (rows of Ks and Vs,
+// the first at position key0), updating the online-softmax state of rows
+// g = lane / 4 and g + 8: running max m, this thread's part of the row
+// sum l (summed over the quad at the end) and acc (the C fragments of the
+// 16 x D output).  The warp's rows sit at positions [q_lo, q_hi]: when
+// every key of the block is visible to all of them (and exists), the mask
+// is skipped.  Shared-memory rows are D + 8 bf16 apart.
+template <int D, int NK>
+__device__ __forceinline__ void warp_attend(
+    const bf16* Qs, const bf16* Ks, const bf16* Vs, int key0, int k_stop,
+    const int (&qpos)[2], int q_lo, int q_hi, const Params& p, int lane,
+    float (&m)[2], float (&l)[2], float (&acc)[D / 8][4]) {
+  constexpr int RS = D + 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  float s[NK / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < NK / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+  // S = Q K^T: A from Q rows, B from K rows (k = d), both without .trans
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t qa[4];
+    sm90::ldsm_x4(qa, Qs + (lane & 15) * RS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int nb2 = 0; nb2 < NK / 16; ++nb2) {
+      uint32_t kb[4];
+      sm90::ldsm_x4(kb, Ks + (nb2 * 16 + (lane >> 4) * 8 + (lane & 7)) * RS +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+      sm90::mma_bf16(s[2 * nb2], qa, kb[0], kb[1], s[2 * nb2]);
+      sm90::mma_bf16(s[2 * nb2 + 1], qa, kb[2], kb[3], s[2 * nb2 + 1]);
+    }
+  }
+  // scale -> softcap -> mask, each a loop of its own behind a uniform
+  // branch, so that every step's code exists once
+#pragma unroll
+  for (int nb = 0; nb < NK / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] *= p.scale;
+  if (p.has_softcap) {
+#pragma unroll
+    for (int nb = 0; nb < NK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nb][e] = p.softcap * tanhf(s[nb][e] / p.softcap);
+  }
+  const bool interior =
+      key0 + NK <= k_stop && (!p.causal || key0 + NK - 1 <= q_lo) &&
+      (!p.has_window || key0 > q_hi - static_cast<int>(p.window));
+  if (!interior) {
+#pragma unroll
+    for (int nb = 0; nb < NK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = key0 + nb * 8 + 2 * (lane & 3) + (e & 1);
+        s[nb][e] = masked(s[nb][e], qpos[e >> 1], kpos, k_stop, p);
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nb = 0; nb < NK / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    alpha[i] = exp2f((m[i] - m_new) * kLog2e);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int nb = 0; nb < NK / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = exp2f((s[nb][e] - m[e >> 1]) * kLog2e);
+      l[e >> 1] += pv;
+      s[nb][e] = pv;
+    }
+#pragma unroll
+  for (int db = 0; db < D / 8; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[db][e] *= alpha[e >> 1];
+  // O += P V: the C fragments of two key blocks are the A fragment of a
+  // 16-key step; B from V rows (k = key) through ldmatrix .trans
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    const uint32_t pa[4] = {sm90::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                            sm90::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                            sm90::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            sm90::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int db2 = 0; db2 < D / 16; ++db2) {
+      uint32_t vb[4];
+      sm90::ldsm_x4_trans(vb, Vs + (kk * 16 + (lane & 15)) * RS + db2 * 16 +
+                                  (lane >> 4) * 8);
+      sm90::mma_bf16(acc[2 * db2], pa, vb[0], vb[1], acc[2 * db2]);
+      sm90::mma_bf16(acc[2 * db2 + 1], pa, vb[2], vb[3], acc[2 * db2 + 1]);
+    }
+  }
+}
+
+// rows [t0, t0 + n) of a [*, D] bf16 tensor (row stride ld) into shared
+// rows D + 8 apart; rows at or past t_stop are zero-filled
+template <int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          int64_t ld, int t0, int n,
+                                          int t_stop, int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  for (int c = tid; c < n * CH; c += kMmaThreads) {
+    const int r = c / CH;
+    const int ch = c - r * CH;
+    const int t = t0 + r;
+    const bool valid = t < t_stop;
+    sm90::cp_async16(dst + r * (D + 8) + ch * 8,
+                     src + (valid ? static_cast<int64_t>(t) * ld : 0) + ch * 8,
+                     valid);
+  }
+}
+
+constexpr int kMmaRows = 64;  // query rows per mma CTA: 4 warps x 16
+
+template <int D, int BK>
+constexpr size_t mma_smem_bytes() {
+  return static_cast<size_t>(kMmaRows + 4 * BK) * (D + 8) * sizeof(bf16);
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(Params p) {
+  constexpr int RS = D + 8;
+  constexpr int BQ = kMmaRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BQ * RS;      // [2][BK][RS]
+  bf16* Vs = Ks + 2 * BK * RS;  // [2][BK][RS]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / p.Hq;
+  const int64_t h = bh - b * p.Hq;
+  const int64_t hk = h / (p.Hq / p.Hkv);
+  const int S = static_cast<int>(p.S);
+  const int T = static_cast<int>(p.T);
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * BQ;
+  const int t_off = T - S;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // keys any live row of this tile can see
+  const int q_last = (q0 + BQ < S ? q0 + BQ : S) - 1;
+  int k_begin = 0;
+  int k_end = T;
+  if (p.causal && q_last + t_off + 1 < k_end) k_end = q_last + t_off + 1;
+  if (p.has_window) {
+    const int first = q0 + t_off - static_cast<int>(p.window) + 1;
+    if (first > k_begin) k_begin = first;
+  }
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  load_rows<D>(Qs, qb, p.q_ss, q0, BQ, S, tid);
+  if (n_tiles > 0) {
+    load_rows<D>(Ks, kb, p.k_ss, k_begin, BK, k_end, tid);
+    load_rows<D>(Vs, vb, p.v_ss, k_begin, BK, k_end, tid);
+  }
+  sm90::cp_async_commit();
+
+  float m[2] = {kMasked, kMasked};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int db = 0; db < D / 8; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[db][e] = 0.f;
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const int qpos[2] = {row0 + t_off, row0 + 8 + t_off};
+  const int q_lo = q0 + warp * 16 + t_off;  // the warp's 16 positions
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {  // prefetch the next tile into the other buffer
+      const int nb = (j + 1) & 1;
+      load_rows<D>(Ks + nb * BK * RS, kb, p.k_ss, k_begin + (j + 1) * BK,
+                   BK, k_end, tid);
+      load_rows<D>(Vs + nb * BK * RS, vb, p.v_ss, k_begin + (j + 1) * BK,
+                   BK, k_end, tid);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int cb = j & 1;
+    warp_attend<D, BK>(Qs + warp * 16 * RS, Ks + cb * BK * RS,
+                       Vs + cb * BK * RS, k_begin + j * BK, T, qpos, q_lo,
+                       q_lo + 15, p, lane, m, l, acc);
+    __syncthreads();  // the buffer is free for the prefetch after next
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int srow = row0 + 8 * i;
+    if (srow < S) {
+      const float den = fmaxf(l[i], 1e-30f);
+      bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh +
+                static_cast<int64_t>(srow) * p.o_ss + 2 * (lane & 3);
+#pragma unroll
+      for (int db = 0; db < D / 8; ++db)
+        *reinterpret_cast<uint32_t*>(o + db * 8) = sm90::pack_bf16(
+            acc[db][2 * i] / den, acc[db][2 * i + 1] / den);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t split_smem_bytes() {
+  return static_cast<size_t>(kSplitRows + 4 * kSplitBK) * (D + 8) *
+         sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_split_kernel(Params p) {
+  constexpr int RS = D + 8;
+  constexpr int CH = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + kSplitRows * RS;  // [2][kSplitBK][RS]
+  bf16* Vs = Ks + 2 * kSplitBK * RS;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t bh = blockIdx.x;  // (batch, kv head)
+  const int64_t b = bh / p.Hkv;
+  const int64_t hk = bh - b * p.Hkv;
+  const int64_t split = blockIdx.y;
+  const int G = static_cast<int>(p.Hq / p.Hkv);
+  const int S = static_cast<int>(p.S);
+  const int T = static_cast<int>(p.T);
+  const int R = G * S;  // live rows: row r is head hk * G + r / S, query r % S
+  const int t_off = T - S;
+  const int ks0 = static_cast<int>(p.k_first + split * p.kps);
+  const int ks1 = ks0 + static_cast<int>(p.kps) < T
+                      ? ks0 + static_cast<int>(p.kps) : T;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  for (int c = tid; c < kSplitRows * CH; c += kMmaThreads) {
+    const int r = c / CH;
+    const int ch = c - r * CH;
+    const bool valid = r < R;
+    const bf16* src = static_cast<const bf16*>(p.q);
+    if (valid)
+      src += b * p.q_sb + (hk * G + r / S) * p.q_sh + (r % S) * p.q_ss;
+    sm90::cp_async16(Qs + r * RS + ch * 8, src + ch * 8, valid);
+  }
+  const int n_tiles = (ks1 - ks0 + kSplitBK - 1) / kSplitBK;
+  load_rows<D>(Ks, kb, p.k_ss, ks0, kSplitBK, ks1, tid);
+  load_rows<D>(Vs, vb, p.v_ss, ks0, kSplitBK, ks1, tid);
+  sm90::cp_async_commit();
+
+  float m[2] = {kMasked, kMasked};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int db = 0; db < D / 8; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[db][e] = 0.f;
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = (lane >> 2) + 8 * i;
+    qpos[i] = (r < R ? r % S : 0) + t_off;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      const int nb = (j + 1) & 1;
+      const int t0 = ks0 + (j + 1) * kSplitBK;
+      load_rows<D>(Ks + nb * kSplitBK * RS, kb, p.k_ss, t0, kSplitBK, ks1,
+                   tid);
+      load_rows<D>(Vs + nb * kSplitBK * RS, vb, p.v_ss, t0, kSplitBK, ks1,
+                   tid);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int key0 = ks0 + j * kSplitBK + warp * 16;
+    if (key0 < ks1) {  // warp-uniform: a ragged last tile idles warps
+      const int cb = j & 1;
+      warp_attend<D, 16>(Qs, Ks + (cb * kSplitBK + warp * 16) * RS,
+                         Vs + (cb * kSplitBK + warp * 16) * RS, key0, ks1,
+                         qpos, t_off, t_off + S - 1, p, lane, m, l, acc);
+    }
+    __syncthreads();
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+
+  // merge the four warps' states, in warp order, through the K / V buffers
+  float* cacc = reinterpret_cast<float*>(Ks);  // [4][16][D]
+  float* cm = cacc + 4 * kSplitRows * D;       // [4][16]
+  float* cl = cm + 4 * kSplitRows;             // [4][16]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int r = (lane >> 2) + 8 * i;
+    float* dst = cacc + (warp * kSplitRows + r) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int db = 0; db < D / 8; ++db)
+      *reinterpret_cast<float2*>(dst + db * 8) =
+          make_float2(acc[db][2 * i], acc[db][2 * i + 1]);
+    if ((lane & 3) == 0) {
+      cm[warp * kSplitRows + r] = m[i];
+      cl[warp * kSplitRows + r] = li;
+    }
+  }
+  __syncthreads();
+  const int64_t slot = (bh * p.n_splits + split) * R;
+  for (int idx = tid; idx < R * D; idx += kMmaThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    float mm = cm[r];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) mm = fmaxf(mm, cm[w * kSplitRows + r]);
+    float ll = 0.f;
+    float aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float f = expf(cm[w * kSplitRows + r] - mm);
+      ll += cl[w * kSplitRows + r] * f;
+      aa += cacc[(w * kSplitRows + r) * D + d] * f;
+    }
+    if (p.n_splits == 1) {  // the only split: the output itself
+      bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb +
+                (hk * G + r / S) * p.o_sh + (r % S) * p.o_ss;
+      o[d] = __float2bfloat16(aa / fmaxf(ll, 1e-30f));
+      continue;
+    }
+    p.part_acc[(slot + r) * D + d] = aa;
+    if (d == 0) {
+      p.part_m[slot + r] = mm;
+      p.part_l[slot + r] = ll;
+    }
+  }
+}
+
+// One CTA per (batch x kv head, row), one thread per output column: the
+// splits' partials combined in split order, normalised and cast.
+__global__ void flash_combine_kernel(Params p) {
+  const int G = static_cast<int>(p.Hq / p.Hkv);
+  const int S = static_cast<int>(p.S);
+  const int R = G * S;
+  const int64_t bh = blockIdx.x / R;
+  const int r = static_cast<int>(blockIdx.x - bh * R);
+  const int d = threadIdx.x;
+  const int D = blockDim.x;
+  const int64_t b = bh / p.Hkv;
+  const int64_t hk = bh - b * p.Hkv;
+  const int64_t base = bh * p.n_splits * R + r;
+  float mm = p.part_m[base];
+#pragma unroll 8  // independent loads, issued together
+  for (int64_t i = 1; i < p.n_splits; ++i)
+    mm = fmaxf(mm, p.part_m[base + i * R]);
+  float ll = 0.f;
+  float aa = 0.f;
+#pragma unroll 8
+  for (int64_t i = 0; i < p.n_splits; ++i) {
+    const float f = expf(p.part_m[base + i * R] - mm);
+    ll += p.part_l[base + i * R] * f;
+    aa += p.part_acc[(base + i * R) * D + d] * f;
+  }
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + (hk * G + r / S) * p.o_sh +
+            (r % S) * p.o_ss;
+  o[d] = __float2bfloat16(aa / fmaxf(ll, 1e-30f));
+}
+
+template <int D, int BK>
+int launch_mma(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D, BK>();
+  auto* kern = flash_mma_kernel<D, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>(p.B * p.Hq),
+                  static_cast<unsigned int>((p.S + kMmaRows - 1) / kMmaRows));
+  kern<<<grid, kMmaThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_split(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = split_smem_bytes<D>();
+  static_assert(4 * kSplitRows * (D + 2) * sizeof(float) <=
+                    4 * kSplitBK * (D + 8) * sizeof(bf16),
+                "the warps' merge must fit in the K / V buffers");
+  auto* kern = flash_split_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>(p.B * p.Hkv),
+                  static_cast<unsigned int>(p.n_splits));
+  kern<<<grid, kMmaThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_splits == 1) return static_cast<int>(err);
+  const int64_t rows = p.B * p.Hkv * (p.Hq / p.Hkv) * p.S;
+  flash_combine_kernel<<<static_cast<unsigned int>(rows), D, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int split_blocks_per_sm() {
+  constexpr size_t smem = split_smem_bytes<D>();
+  auto* kern = flash_split_kernel<D>;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kMmaThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+int launch_bf16(int variant, int64_t D, const Params& p,
+                cudaStream_t stream) {
+  if (variant == 1) {
+    switch (D) {
+      case 16: return launch_mma<16, 64>(p, stream);
+      case 32: return launch_mma<32, 64>(p, stream);
+      case 64: return launch_mma<64, 64>(p, stream);
+      case 128: return launch_mma<128, 64>(p, stream);
+      case 256: return launch_mma<256, 32>(p, stream);
+      default: return -1;
+    }
+  }
+  if (variant == 2) {
+    switch (D) {
+      case 16: return launch_split<16>(p, stream);
+      case 32: return launch_split<32>(p, stream);
+      case 64: return launch_split<64>(p, stream);
+      case 128: return launch_split<128>(p, stream);
+      case 256: return launch_split<256>(p, stream);
+      default: return -1;
+    }
+  }
+  return -1;
+}
+
 }  // namespace
 
+// Split CTAs one SM holds at once for head dimension D (-1 on an error or
+// a D that is not instantiated): the launcher caps its split count by it.
+extern "C" int flash_split_blocks_per_sm(int64_t D) {
+  switch (D) {
+    case 16: return split_blocks_per_sm<16>();
+    case 32: return split_blocks_per_sm<32>();
+    case 64: return split_blocks_per_sm<64>();
+    case 128: return split_blocks_per_sm<128>();
+    case 256: return split_blocks_per_sm<256>();
+    default: return -1;
+  }
+}
+
 // C entry point.  Launches on the caller's stream, does not synchronise,
-// and returns cudaGetLastError() (0 on success; -1 for a head dimension
-// or type that is not instantiated) so that a refused launch surfaces in
-// the Python wrapper.  ``strides`` holds the 12 element strides
-// (q_sb, q_sh, q_ss, k_*, v_*, o_*).  dtype: 0 = float32, 1 = bfloat16.
-// The caller guarantees the shapes (Hq % Hkv == 0, T >= S >= 1) and the
-// grid limits.
+// and returns cudaGetLastError() (0 on success; -1 for a head dimension,
+// variant or type that is not instantiated) so that a refused launch
+// surfaces in the Python wrapper.  variant: 0 = FFMA (float32), 1 = mma
+// (bfloat16), 2 = split (bfloat16; k_first, kps, n_splits and the float32
+// partials part_m / part_l [B * Hkv * n_splits * G * S] and part_acc
+// [... * D] are used only here).  ``strides`` holds the 12 element strides
+// (q_sb, q_sh, q_ss, k_*, v_*, o_*).  The caller guarantees the shapes
+// (Hq % Hkv == 0, T >= S >= 1, T < 2^31, window <= T + 1, G * S <= 16 for
+// the split), 16-byte aligned rows for the bf16 variants, and the grid
+// limits.
 extern "C" int flash_attention_launch(
-    int dtype, const void* q, const void* k, const void* v, void* o,
+    int variant, const void* q, const void* k, const void* v, void* o,
     int64_t B, int64_t Hq, int64_t Hkv, int64_t S, int64_t T, int64_t D,
     const int64_t* strides, float scale, int has_softcap, float softcap,
-    int causal, int has_window, int64_t window, void* stream) {
+    int causal, int has_window, int64_t window, int64_t k_first,
+    int64_t kps, int64_t n_splits, void* part_m, void* part_l,
+    void* part_acc, void* stream) {
   Params p{q, k, v, o, B, Hq, Hkv, S, T,
            strides[0], strides[1], strides[2],
            strides[3], strides[4], strides[5],
            strides[6], strides[7], strides[8],
            strides[9], strides[10], strides[11],
-           scale, softcap, has_softcap, causal, has_window, window};
+           scale, softcap, has_softcap, causal, has_window, window,
+           k_first, kps, n_splits, static_cast<float*>(part_m),
+           static_cast<float*>(part_l), static_cast<float*>(part_acc)};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dim<float>(D, p, s);
-  if (dtype == 1) return launch_dim<__nv_bfloat16>(D, p, s);
-  return -1;
+  if (variant == 0) return launch_ffma(D, p, s);
+  return launch_bf16(variant, D, p, s);
 }

@@ -13,7 +13,12 @@
 Each wrapper counts its kernel launches in a plain integer attribute
 (``lut_eval6.launches``, ``lut_eval.launches``, ...), incremented where the
 kernel launches and nowhere else, so a run can show which path it took.
-Lanes are int32 bit patterns (see :mod:`repro_torch.kernels.ref`).
+The count is of calls of the op, however many launches a call takes (the
+tensor-core bit-plane product folds and splits first; the split attention
+combines after).  ``bitplane_matmul`` and ``flash_attention`` have
+several kernels, chosen by shape and type alone; each call also adds one
+to its variant's count in ``.variants`` (:func:`variant_counts`).  Lanes
+are int32 bit patterns (see :mod:`repro_torch.kernels.ref`).
 """
 from __future__ import annotations
 
@@ -61,11 +66,13 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
     ``y[M, N] = (x @ W) * scale`` with W the two's-complement sum of the
     planes."""
     if _wants_kernel(x, use_kernel):
-        from .bitplane_matmul import bitplane_matmul_cuda
+        from .bitplane_matmul import bitplane_matmul_cuda, variant
 
         out = bitplane_matmul_cuda(x, planes, scale)
         if out.numel():
             bitplane_matmul.launches += 1
+            bitplane_matmul.variants[variant(x.shape[0],
+                                             planes.shape[0])] += 1
         return out
     return ref.bitplane_matmul_ref(x, planes, scale)
 
@@ -78,12 +85,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention with the queries at the tail of the keys (causal, GQA,
     sliding window, logit softcap)."""
     if _wants_kernel(q, use_kernel):
-        from .flash_attention import flash_attention_cuda
+        from .flash_attention import flash_attention_cuda, variant
 
         out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
         if out.numel():
             flash_attention.launches += 1
+            flash_attention.variants[variant(q.dtype, q.shape[2],
+                                             q.shape[1] // k.shape[1])] += 1
         return out
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
@@ -128,14 +137,26 @@ def popcount_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor,
 
 _COUNTED = (lut_eval6, lut_eval, flash_attention, bitplane_matmul, ssd_scan,
             popcount_matmul)
-for _fn in _COUNTED:
-    _fn.launches = 0
+#: the kernels of the ops that have more than one
+_VARIANTS = {flash_attention: ("mma", "split", "ffma"),
+             bitplane_matmul: ("tensor_core", "small_m", "ffma")}
 
 
 def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
+    for fn, names in _VARIANTS.items():
+        fn.variants = dict.fromkeys(names, 0)
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def variant_counts() -> dict[str, dict[str, int]]:
+    """Calls per kernel variant of ``flash_attention`` and
+    ``bitplane_matmul`` since the last :func:`reset_launch_counts`."""
+    return {fn.__name__: dict(fn.variants) for fn in _VARIANTS}

@@ -6,9 +6,11 @@ They compute what ``repro/kernels/ref.py`` computes.  The LUT evaluators
 cross into torch as ``np.uint32 -> .view(np.int32)`` because torch's
 uint32 lacks ``~``, ``>>`` and ``index_copy_``.  ``bitplane_matmul_ref``,
 ``flash_attention_ref`` and the SSD scans keep the reference's float32
-arithmetic and order of operations.  These functions are the CPU path of
-:mod:`repro_torch.kernels.ops` and the yardstick the CUDA kernels are held
-to on the card; they are never ``torch.compile``d.
+arithmetic and order of operations; ``flash_attention_split_ref`` is the
+same attention summed as the split (decode) kernel sums it.  These
+functions are the CPU path of :mod:`repro_torch.kernels.ops` and the
+yardstick the CUDA kernels are held to on the card; they are never
+``torch.compile``d.
 """
 from __future__ import annotations
 
@@ -110,22 +112,30 @@ def bitplane_matmul_ref(x: torch.Tensor, planes: torch.Tensor,
     return y
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int | None = None,
-                        softcap: float | None = None,
-                        scale: float | None = None) -> torch.Tensor:
-    """``q[B, Hq, S, D]``, ``k/v[B, Hkv, T, D]`` with ``Hq % Hkv == 0``
-    (query head h reads kv head ``h // (Hq // Hkv)``).  The queries sit at
-    the tail of the sequence: query i is at position ``i + T - S``.
-    Float32 logits: ``scale`` -> softcap ``c * tanh(s / c)`` -> mask with
-    -1e30 -> softmax -> cast to q's dtype."""
+def split_bf16x3(x: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tensor-core bit-plane product's split of float32 ``x`` into
+    bfloat16 ``hi, mid, lo`` (the kernel's ``split_x_kernel`` does the same
+    arithmetic): ``hi + (mid + lo) == x`` exactly for normal floats whose
+    ``lo`` is not subnormal in bfloat16, since each difference is exact in
+    float32 and three parts hold 24 significant bits."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def _attention_logits(q, k, causal, window, softcap, scale):
+    """Float32 ``[B, Hq, S, T]`` logits of the tail queries: ``scale`` ->
+    softcap ``c * tanh(s / c)`` -> mask with -1e30."""
     S, D = q.shape[2], q.shape[3]
     T = k.shape[2]
     G = q.shape[1] // k.shape[1]
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     kk = k.repeat_interleave(G, dim=1).float()
-    vv = v.repeat_interleave(G, dim=1).float()
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), kk) * scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
@@ -136,10 +146,63 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = mask & (kpos <= qpos)
     if window is not None:
         mask = mask & (kpos > qpos - window)
-    logits = torch.where(mask[None, None], logits,
-                         torch.tensor(-1e30, device=q.device))
-    p = torch.softmax(logits, dim=-1)
+    return torch.where(mask[None, None], logits,
+                       torch.tensor(-1e30, device=q.device))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """``q[B, Hq, S, D]``, ``k/v[B, Hkv, T, D]`` with ``Hq % Hkv == 0``
+    (query head h reads kv head ``h // (Hq // Hkv)``).  The queries sit at
+    the tail of the sequence: query i is at position ``i + T - S``.
+    Float32 logits: ``scale`` -> softcap ``c * tanh(s / c)`` -> mask with
+    -1e30 -> softmax -> cast to q's dtype."""
+    G = q.shape[1] // k.shape[1]
+    vv = v.repeat_interleave(G, dim=1).float()
+    p = torch.softmax(_attention_logits(q, k, causal, window, softcap,
+                                        scale), dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p, vv).to(q.dtype)
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              window: int | None = None,
+                              softcap: float | None = None,
+                              scale: float | None = None, k_first: int = 0,
+                              keys_per_split: int | None = None
+                              ) -> torch.Tensor:
+    """:func:`flash_attention_ref` computed as the split (decode) kernel
+    computes it: the keys ``[k_first, T)`` cut into splits of
+    ``keys_per_split`` (the last one ragged), each split's float32 partial
+    ``(m, l, acc)`` over the same logits, then the partials combined in
+    split order: ``m = max m_i``, ``l = sum l_i exp(m_i - m)``, ``acc =
+    sum acc_i exp(m_i - m)``, out ``acc / max(l, 1e-30)``.  ``k_first``
+    must not pass a key any query can see (the launcher's ``split_plan``
+    gives the first such key)."""
+    T = k.shape[2]
+    G = q.shape[1] // k.shape[1]
+    if keys_per_split is None:
+        keys_per_split = T - k_first
+    vv = v.repeat_interleave(G, dim=1).float()
+    logits = _attention_logits(q, k, causal, window, softcap, scale)
+    parts = []
+    for a in range(k_first, T, keys_per_split):
+        s = logits[..., a:a + keys_per_split]
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      torch.einsum("bhst,bhtd->bhsd", p,
+                                   vv[:, :, a:a + keys_per_split])))
+    m = torch.stack([mi for mi, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for mi, li, ai in parts:
+        f = torch.exp(mi - m)
+        l = l + li * f
+        acc = acc + ai * f
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
 def ssd_recurrence(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -107,8 +107,9 @@ def test_lm_bounds():
     assert b["bytes"] == 2 * (2 * 8 * 12 * 512 * 64 + 2 * 8 * 12 * 512 * 64)
     assert b["bound_ms"] == max(b["ops_ms"], b["bytes_ms"])
     b = cs.bitplane_bound_ms(4096, 768, 4096, 6)
-    assert b["flops"] == 2 * 4096 * 768 * 4096
-    assert b["bound_by"] == "operations" and 0.38 < b["bound_ms"] < 0.39
+    assert b["fp32_flops"] == 2 * 4096 * 768 * 4096
+    assert b["fp32_bound_by"] == "operations"
+    assert 0.38 < b["fp32_bound_ms"] < 0.39
     b = cs.bitplane_bound_ms(8, 768, 4096, 6)
     assert b["bound_by"] == "bytes" and 0.022 < b["bound_ms"] < 0.023
 
