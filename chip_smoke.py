@@ -29,11 +29,17 @@ exits non-zero:
    under the profiler) beside the plain version, the bound and one
    library call (SDPA; ``torch.matmul`` on the dequantized weight);
 4. SSM kernel parity: ``ssd_scan`` (the reference test's shapes, L < 128,
-   the smoke heads, mamba2's and hymba's layer shapes; float32 within
-   3e-4, bfloat16 within 2e-2) and ``popcount_matmul`` (both modes, ragged
-   shapes, a binarised kratos-dd FFN ``wi``; bit-exact) against their
-   plain versions on the card, timed beside the plain version, the bound
-   and, for the binary GEMM, ``torch.matmul`` on the unpacked bits;
+   the smoke heads, ragged P blocks, N = 16 and 128, B and C sliced from
+   an odd-width projection, mamba2's and hymba's layer shapes; float32
+   (ffma) within 3e-4, bfloat16 (mma, also against the plain version that
+   rounds as it does) within 2e-2; model-like inputs at both layer shapes
+   held normwise) and ``popcount_matmul`` (both modes, ragged shapes, one
+   word, k_bits < 32 words, a binarised kratos-dd FFN ``wi``; bit-exact)
+   against their plain versions on the card, each main shape timed (CUDA
+   events and device time) beside the plain version, the bound and, for
+   the binary GEMM, ``torch.matmul`` on the unpacked bits; the SSD scan
+   also on the score path it did not choose (shared across heads or
+   formed per CTA);
 5. flow: Kratos + Koios + VTR at scale 1.0 packed under baseline / DD5 /
    DD6 with the equivalence gate on, geomean area / critical-path / ADP
    ratios per suite;
@@ -68,8 +74,12 @@ exits non-zero:
     kernel-path forward against the plain forward at 512 tokens; cached
     serving of a 497-token prompt and 16 new tokens against the plain
     serving run and the kernel-path forward, within 5e-3, identical
-    greedy tokens), a timed bfloat16 forward (2 x 4096, 64 ``ssd_scan``
-    launches) and a timed bfloat16 serving run (8 x 512, 32 new tokens);
+    greedy tokens; ``ssd_scan`` on its ffma variant), a bfloat16 forward
+    gate at 512 tokens (the kernel path, on the mma variant, against the
+    bfloat16 plain forward within ``max(5e-3, 4 x`` the plain path's
+    disagreement with float32 activations``)``, argmax bounded alike), a
+    timed bfloat16 forward (2 x 4096, 64 ``ssd_scan`` launches, all mma)
+    and a timed bfloat16 serving run (8 x 512, 32 new tokens);
 14. profile_ssm: a warm mamba2 forward and decode step under
     ``torch.profiler``;
 15. ssm_hymba: ``hymba-1.5b`` at full width, the same gate, a timed
@@ -643,35 +653,62 @@ def lm_kernel_parity(device) -> dict:
 # timing
 # ---------------------------------------------------------------------------
 
-#: (Bb, L, H, P, N): the reference test's shapes, lengths under one chunk,
-#: the smoke configs' heads (H 4, P 16, N 8); each in float32 and bfloat16
+#: (Bb, L, H, P, N): the reference test's shapes, lengths under one chunk
+#: (L = 24: one short chunk), the smoke configs' heads (H 4, P 16, N 8),
+#: P that is not a multiple of the P block (40 in 16-wide blocks, 48 in
+#: 32-wide ones: 72 heads give the mma variant those; 21: odd, staged and
+#: stored element by element) and N = 16 and 128; each in float32 (ffma)
+#: and bfloat16 (mma)
 SSD_CASES = [(1, 128, 2, 16, 8), (2, 256, 2, 32, 16), (1, 512, 4, 16, 32),
-             (2, 64, 3, 16, 8), (1, 24, 4, 16, 8), (2, 256, 4, 16, 8)]
+             (2, 64, 3, 16, 8), (1, 24, 4, 16, 8), (2, 256, 4, 16, 8),
+             (2, 256, 4, 40, 16), (2, 128, 72, 48, 16), (1, 128, 2, 21, 16),
+             (1, 256, 3, 64, 128)]
+#: B and C as column slices of an odd-width projection, as hymba's are
+#: (rows 2N + 3 elements apart, odd offsets): the mma variant stages them
+#: element by element
+SSD_SLICED_CASES = [(2, 256, 5, 64, 16)]
 #: the model paths' layer shapes: (label, Bb, L, H, P, N)
 SSD_MAIN = [("mamba2-2.7b", 2, 4096, 80, 64, 128),
             ("hymba-1.5b", 2, 2048, 25, 64, 16)]
 #: the reference's own kernel-test tolerance (rtol = atol) in float32;
 #: bfloat16 output rounding in bfloat16
 SSD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
-#: (M, N, words): the reference test's shapes and the microbenchmark's
+#: (rtol, atol) of the mma variant against ``ref.ssd_scan_mma_ref``, which
+#: rounds where the kernel rounds: two to four bfloat16 ulps of the output
+#: (2^-6 of it), and 2^-8 beyond, 2.7x the largest absolute part measured
+#: beyond one ulp (1.46e-3 over every case and main shape on an H100,
+#: where the largest difference was 2^-8; PERF.md)
+MMA_REF_TOL = (2.0 ** -6, 2.0 ** -8)
+#: (M, N, words): the reference test's shapes and the microbenchmark's,
+#: then M and N off the 128 x 128 tile, one word, more words than the
+#: kernel stages at once; both modes, xnor with k_bits = 32 words
 POPCOUNT_CASES = [(4, 4, 1), (16, 8, 2), (130, 70, 3), (256, 128, 4),
-                  (256, 256, 8)]
+                  (256, 256, 8), (257, 129, 1), (33, 17, 3), (300, 200, 40)]
+#: (M, N, words, k_bits): xnor with k_bits < 32 words (the padding bits
+#: are counted as the reference counts them)
+POPCOUNT_KBITS_CASES = [(130, 70, 3, 70), (257, 129, 1, 20),
+                        (64, 136, 24, 700)]
 #: a binarised kratos-dd FFN wi: 4096 rows of 768 bits against 4096
 #: output columns, xnor
 POPCOUNT_MAIN = (4096, 4096, 24)
 #: population counts per second: 16 per clock per SM for compute
 #: capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
-#: throughput table) x 132 SMs x 1.98 GHz boost (H100 SXM)
+#: throughput table) x 132 SMs x 1.98 GHz boost (H100 SXM): the bound of
+#: the first port's __popc kernel, kept beside the tensor-core one
 POPC_PER_S = 16 * 132 * 1.98e9
+#: dense int8 tensor-core peak (NVIDIA H100 SXM data sheet)
+INT8_OPS_PER_S = 1979e12
 
 
-def ssd_inputs(gen, Bb, L, H, P, N, dtype, device, model_like=False):
+def ssd_inputs(gen, Bb, L, H, P, N, dtype, device, model_like=False,
+               sliced=False):
     """Random SSD inputs.  By default drawn as the reference's kernel test
     draws them: x, B, C normal * 0.5 in ``dtype``, dt in [0.001, 0.051),
     A in (-1.5, -0.5], both float32.  With ``model_like`` as a layer of
     the models at init hands them over: x = silu(normal), dt =
     softplus(normal) (steps up to ~4, so a chunk's decay underflows), A =
-    -1 (``a_log = 0``), B and C unit normal."""
+    -1 (``a_log = 0``), B and C unit normal.  With ``sliced`` B and C
+    are column slices of a ``[Bb, L, 2N + 3]`` tensor."""
     import torch
     import torch.nn.functional as F
 
@@ -688,16 +725,22 @@ def ssd_inputs(gen, Bb, L, H, P, N, dtype, device, model_like=False):
     x = normal((Bb, L, H, P))
     dt = 0.001 + 0.05 * torch.rand((Bb, L, H), generator=gen, device=device)
     A = -0.5 - torch.rand((H,), generator=gen, device=device)
+    if sliced:
+        proj = normal((Bb, L, 2 * N + 3))
+        return x, dt, A, proj[..., 1:1 + N], proj[..., 1 + N:1 + 2 * N]
     return x, dt, A, normal((Bb, L, N)), normal((Bb, L, N))
 
 
 def ssd_bound_ms(Bb, L, H, P, N, elem_bytes) -> dict:
-    """Least time for one SSD scan: the chunked algorithm's FLOPs, Bb H
-    (L / Q) (2 Q^2 N + 2 Q^2 P + 4 Q P N) with Q = min(128, L), at the
-    peak of the input type, against x, dt, B, C read once and y written
-    once."""
+    """Least time for one SSD scan: the chunked algorithm's FLOPs with the
+    score tile C . B^T formed once per (batch, chunk), since B and C are
+    shared by the heads: Bb (L / Q) 2 Q^2 N + Bb H (L / Q) (2 Q^2 P +
+    4 Q P N) with Q = min(128, L), at the peak of the input type, against
+    x, dt, B, C read once and y written once."""
     Q = min(128, L)
-    flops = Bb * H * (L // Q) * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * P * N)
+    nc = L // Q
+    flops = Bb * nc * 2 * Q * Q * N \
+        + Bb * H * nc * (2 * Q * Q * P + 4 * Q * P * N)
     nbytes = elem_bytes * (2 * Bb * L * H * P + 2 * Bb * L * N) \
         + 4 * (Bb * L * H + H)
     peak = BF16_FLOPS if elem_bytes == 2 else FP32_FLOPS
@@ -705,66 +748,114 @@ def ssd_bound_ms(Bb, L, H, P, N, elem_bytes) -> dict:
 
 
 def popcount_bound_ms(M: int, N: int, W: int) -> dict:
-    """Least time for ``[M, W] x [N, W]`` packed words: M N W population
-    counts at the card's ``__popc`` rate, against x and w read once and y
-    written once."""
-    t_ops = M * N * W / POPC_PER_S * 1e3
+    """Least time for ``[M, W] x [N, W]`` packed words: the exact integer
+    product of the 32 W bits, 2 M N 32 W operations at the dense int8
+    tensor-core peak, against x and w read once and y written once.  The
+    ``popc_*`` figures are the bound of M N W population counts at the
+    card's ``__popc`` rate (the first port's kernel)."""
+    ops = 2 * M * N * 32 * W
+    t_ops = ops / INT8_OPS_PER_S * 1e3
     nbytes = 4 * (M * W + N * W + M * N)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"popcounts": M * N * W, "bytes": nbytes, "ops_ms": t_ops,
+    t_popc = M * N * W / POPC_PER_S * 1e3
+    return {"ops": ops, "bytes": nbytes, "ops_ms": t_ops,
             "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "popc_popcounts": M * N * W, "popc_ops_ms": t_popc,
+            "popc_bound_ms": max(t_popc, t_bytes)}
+
+
+def mma_ref_reading(got, want) -> dict:
+    """How far an mma call lies from ``ref.ssd_scan_mma_ref``: the largest
+    absolute difference, and the absolute part left beyond one bfloat16
+    ulp of the output (2^-7 of it), the slack a tolerance needs there."""
+    g, w = got.float(), want.float()
+    e = (g - w).abs()
+    return {"max_abs_err": float(e.max()),
+            "beyond_one_ulp": float((e - 2.0 ** -7 * w.abs()).max())}
+
+
+def check_mma_ref(got, want, label: str) -> dict:
+    """An mma call ``got`` held to ``want``, ``ref.ssd_scan_mma_ref`` on
+    its inputs, within ``MMA_REF_TOL``; raises otherwise.  Returns the
+    :func:`mma_ref_reading`."""
+    ok, _ = _within(got, want, *MMA_REF_TOL)
+    reading = mma_ref_reading(got, want)
+    check(ok and got.shape == want.shape,
+          f"ssd_scan {label} (mma) differs from ref.ssd_scan_mma_ref "
+          f"beyond {MMA_REF_TOL} ({reading})")
+    return reading
+
+
+def _worse(a: dict, b: dict) -> dict:
+    """The keywise maximum of two readings."""
+    return {k: max(a.get(k, v), v) for k, v in b.items()}
 
 
 def ssd_parity(device, cases=SSD_CASES, dtypes=("float32", "bfloat16"),
-               seed: int = 0) -> dict:
-    """``ssd_scan`` against its plain version on every case and type;
-    raises on the first disagreement.  Returns the largest error per
-    type."""
+               seed: int = 0, sliced_cases=SSD_SLICED_CASES) -> dict:
+    """``ssd_scan`` against its plain version on every case and type (the
+    mma variant's calls on the card also against ``ref.ssd_scan_mma_ref``
+    with :func:`check_mma_ref`); raises on the first disagreement.
+    Returns the largest error per type and, where mma calls were checked,
+    their largest :func:`mma_ref_reading` under ``mma_ref``."""
     import torch
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import variant
 
     gen = torch.Generator(device=device).manual_seed(seed)
     worst = {}
+    near = {}
+    runs = [(c, False) for c in cases] + [(c, True) for c in sliced_cases]
     for dt_name in dtypes:
         worst[dt_name] = 0.0
-        for case in cases:
-            args = ssd_inputs(gen, *case, _dtype(dt_name), device)
+        for case, sliced in runs:
+            args = ssd_inputs(gen, *case, _dtype(dt_name), device,
+                              sliced=sliced)
             got = ops.ssd_scan(*args)
-            want = ops.ssd_scan(*args, use_kernel=False)
+            kind = variant(got.dtype, case[4])
             tol = SSD_TOL[dt_name]
+            want = ops.ssd_scan(*args, use_kernel=False)
             ok, err = _within(got, want, tol, tol)
             check(ok and got.dtype == want.dtype
                   and got.shape == want.shape,
-                  f"ssd_scan {case} {dt_name} differs from its plain "
-                  f"version (max abs err {err})")
+                  f"ssd_scan {case} {dt_name} ({kind}) differs from its "
+                  f"plain version (max abs err {err})")
             worst[dt_name] = max(worst[dt_name], err)
+            if got.is_cuda and kind == "mma":
+                near = _worse(near, check_mma_ref(
+                    got, ref.ssd_scan_mma_ref(*args), f"{case}"))
+    if near:
+        worst["mma_ref"] = near
     return worst
 
 
-def popcount_parity(device, cases=POPCOUNT_CASES, seed: int = 0) -> int:
+def popcount_parity(device, cases=POPCOUNT_CASES,
+                    kbits_cases=POPCOUNT_KBITS_CASES, seed: int = 0) -> int:
     """``popcount_matmul`` bit-exact against its plain version in both
-    modes on every case; raises on the first difference.  Returns the
-    largest error (0)."""
+    modes on every case (and in mode "xnor" with k_bits < 32 W); raises
+    on the first difference.  Returns the largest error (0)."""
     import torch
 
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(seed)
     worst = 0
-    for M, N, W in cases:
+    runs = [(M, N, W, mode, 32 * W) for M, N, W in cases
+            for mode in ("and", "xnor")] + \
+        [(M, N, W, "xnor", kb) for M, N, W, kb in kbits_cases]
+    for M, N, W, mode, kb in runs:
         x = _random_words(rng, (M, W), device)
         w = _random_words(rng, (N, W), device)
-        for mode in ("and", "xnor"):
-            got = ops.popcount_matmul(x, w, mode=mode, k_bits=32 * W)
-            want = ops.popcount_matmul(x, w, mode=mode, k_bits=32 * W,
-                                       use_kernel=False)
-            err = int((got.long() - want.long()).abs().max())
-            check(err == 0 and got.dtype == torch.int32,
-                  f"popcount_matmul {mode} M={M} N={N} W={W} differs from "
-                  f"its plain version (max abs err {err})")
-            worst = max(worst, err)
+        got = ops.popcount_matmul(x, w, mode=mode, k_bits=kb)
+        want = ops.popcount_matmul(x, w, mode=mode, k_bits=kb,
+                                   use_kernel=False)
+        err = int((got.long() - want.long()).abs().max())
+        check(err == 0 and got.dtype == torch.int32,
+              f"popcount_matmul {mode} M={M} N={N} W={W} k_bits={kb} "
+              f"differs from its plain version (max abs err {err})")
+        worst = max(worst, err)
     return worst
 
 
@@ -773,27 +864,58 @@ def unpack_signs(words, k_bits: int, signed: bool):
     bits (0 / 1) or of their signs (-1 / +1)."""
     import torch
 
-    shifts = torch.arange(32, device=words.device, dtype=torch.int64)
-    bits = ((words.long()[:, :, None] >> shifts) & 1).reshape(
-        words.shape[0], -1)[:, :k_bits]
+    from repro_torch.kernels.ref import unpack_bits
+
+    bits = unpack_bits(words)[:, :k_bits]
     vals = 2 * bits - 1 if signed else bits
     return vals.to(torch.bfloat16)
 
 
+def at_p_block(args, width: int, want, tol: float) -> dict:
+    """The mma variant on the SSD inputs ``args`` with its P block forced
+    to ``width`` (the one :func:`repro_torch.kernels.ssd_scan.p_block`
+    did not choose), held to the plain output ``want`` within ``tol`` and
+    timed as the chosen width is."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+
+    chosen = ss.p_block
+    ss.p_block = lambda *_, **__: width
+    try:
+        ok, err = _within(ops.ssd_scan(*args), want, tol, tol)
+        check(ok, f"ssd_scan with {width}-wide P blocks differs from its "
+                  f"plain version (max abs err {err})")
+        dev, kernels = device_ms(lambda: ops.ssd_scan(*args))
+        return {"p_block": width, "max_abs_err": err,
+                "ms": time_ms(lambda: ops.ssd_scan(*args)),
+                "device_ms": dev, "kernels": kernels}
+    finally:
+        ss.p_block = chosen
+
+
 def ssm_kernel_parity(device) -> dict:
     """``ssd_scan`` and ``popcount_matmul`` against their plain versions
-    on the card (every case within tolerance / bit-exact, else it
-    raises), then each main shape timed: kernel, plain version, bound and
-    library call (none computes the SSD scan; ``torch.matmul`` on the
-    unpacked bits in bfloat16, timed without the unpacking, for the binary
-    GEMM).  The binary GEMM's main call runs once more with the launch
-    counters set to 0, as a caller of ``ops.popcount_matmul`` would make
-    it."""
+    on the card, every variant (every case within tolerance / bit-exact,
+    else it raises), then each main shape timed: kernel (CUDA events and
+    device time), plain version, bound and library call (none computes the
+    SSD scan; ``torch.matmul`` on the unpacked bits in bfloat16, timed
+    without the unpacking, for the binary GEMM).  At the SSD main shapes
+    the mma variant is also held to ``ref.ssd_scan_mma_ref``, that check
+    must reject the kernel's output with :func:`drop_diagonal` planted,
+    and the variant runs at the P-block width it did not choose
+    (:func:`at_p_block`).  The
+    binary GEMM's main call runs once more with the launch counters set to
+    0, as a caller of ``ops.popcount_matmul`` would make it."""
     import torch
 
-    from repro_torch.kernels import ops
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.popcount_matmul import variant as pop_variant
+    from repro_torch.kernels.ssd_scan import p_block
+    from repro_torch.kernels.ssd_scan import variant as ssd_variant
 
     ssd_err = ssd_parity(device)
+    mma_near = ssd_err.pop("mma_ref", {})
     gen = torch.Generator(device=device).manual_seed(3)
     ssd_main = []
     for label, Bb, L, H, P, N in SSD_MAIN:
@@ -809,33 +931,56 @@ def ssm_kernel_parity(device) -> dict:
             ssd_err[dt_name] = max(ssd_err[dt_name], err)
             if dt_name != "bfloat16":  # the models run in bfloat16
                 continue
-            ssd_main.append({
-                "label": label, "shape": [Bb, L, H, P, N], "dtype": dt_name,
-                "max_abs_err": err,
-                "ms": time_ms(lambda: ops.ssd_scan(*args)),
-                "plain_ms": time_ms(lambda: ops.ssd_scan(
-                    *args, use_kernel=False), reps=3, inner=1, warmup=1),
-                "library_ms": None,
-                **ssd_bound_ms(Bb, L, H, P, N, 2)})
-            del args, got, want
+            mref = ref.ssd_scan_mma_ref(*args)
+            mma_near = _worse(mma_near, check_mma_ref(got, mref, label))
+            faulty = drop_diagonal(lambda *_: got)(*args)
+            fault = {**mma_ref_reading(faulty, mref),
+                     "rejected": not _within(faulty, mref, *MMA_REF_TOL)[0],
+                     "within_plain_tol": _within(faulty, want, tol, tol)[0]}
+            check(fault["rejected"], f"ssd_scan {label}: the check against "
+                                     f"ref.ssd_scan_mma_ref passes a "
+                                     f"planted fault ({fault})")
+            pb = p_block(Bb, H, P, sm_count(device.index))
+            rec = {"label": label, "shape": [Bb, L, H, P, N],
+                   "dtype": dt_name, "variant": ssd_variant(got.dtype, N),
+                   "p_block": pb, "max_abs_err": err,
+                   "ms": time_ms(lambda: ops.ssd_scan(*args)),
+                   "plain_ms": time_ms(lambda: ops.ssd_scan(
+                       *args, use_kernel=False), reps=3, inner=1, warmup=1),
+                   "library_ms": None,
+                   **ssd_bound_ms(Bb, L, H, P, N, 2)}
+            rec["device_ms"], rec["kernels"] = device_ms(
+                lambda: ops.ssd_scan(*args))
+            rec["other_p_block"] = at_p_block(args, 16 if pb == 32 else 32,
+                                              want, tol)
+            rec["planted_fault"] = fault
+            ssd_main.append(rec)
+            del args, got, want, mref, faulty
 
-    # the models' regime: outputs of a few hundred, so the float32 error
-    # is held against the output's scale (normwise), as rounding in a sum
-    # scales with its terms
-    model_regime = []
-    for label, Bb, L, H, P, N in SSD_MAIN:
-        args = ssd_inputs(gen, Bb, L, H, P, N, _dtype("float32"), device,
-                          model_like=True)
-        got = ops.ssd_scan(*args)
-        want = ops.ssd_scan(*args, use_kernel=False)
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        tol = SSD_TOL["float32"] * max(1.0, scale)
-        check(err <= tol, f"ssd_scan {label} model-like inputs differ from "
-                          f"the plain version by {err} (tol {tol})")
-        model_regime.append({"label": label, "max_abs_err": err,
-                             "scale": scale, "tol": tol})
-        del args, got, want
+    # the models' regime: outputs of a few hundred, so the error is held
+    # against the output's scale (normwise), as rounding in a sum scales
+    # with its terms; in bfloat16 the plain version's float32 arithmetic
+    # on the same bfloat16 inputs is rounded once at the output (2^-9 of
+    # it) and the mma variant's W, x w_u and h copies alike, so the
+    # reference's 2e-2 applies to the output's scale
+    model_regime = {}
+    for dt_name in ("float32", "bfloat16"):
+        model_regime[dt_name] = []
+        for label, Bb, L, H, P, N in SSD_MAIN:
+            args = ssd_inputs(gen, Bb, L, H, P, N, _dtype(dt_name), device,
+                              model_like=True)
+            got = ops.ssd_scan(*args).float()
+            want = ops.ssd_scan(*args, use_kernel=False).float()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            tol = SSD_TOL[dt_name] * max(1.0, scale)
+            check(err <= tol, f"ssd_scan {label} model-like {dt_name} "
+                              f"inputs differ from the plain version by "
+                              f"{err} (tol {tol})")
+            model_regime[dt_name].append({"label": label,
+                                          "max_abs_err": err,
+                                          "scale": scale, "tol": tol})
+            del args, got, want
 
     pop_err = popcount_parity(device)
     M, N, W = POPCOUNT_MAIN
@@ -844,6 +989,9 @@ def ssm_kernel_parity(device) -> dict:
     w = _random_words(rng, (N, W), device)
     kb = 32 * W
     got, counts = _counted(lambda: ops.popcount_matmul(x, w, "xnor", kb))
+    variants = _variants()["popcount_matmul"]
+    check(variants == {"tensor_core": 1},
+          f"the popcount main call's variants were {variants}")
     want = ops.popcount_matmul(x, w, "xnor", kb, use_kernel=False)
     err = int((got.long() - want.long()).abs().max())
     check(err == 0, f"popcount_matmul xnor {POPCOUNT_MAIN} differs from its "
@@ -852,20 +1000,27 @@ def ssm_kernel_parity(device) -> dict:
     lib = torch.matmul(xs, ws.T)
     pop_main = {
         "shape": [M, N, W], "mode": "xnor", "max_abs_err": max(err, pop_err),
+        "variant": pop_variant(M, N, W), "variants": variants,
         "launches": counts["popcount_matmul"],
         "ms": time_ms(lambda: ops.popcount_matmul(x, w, "xnor", kb)),
         "plain_ms": time_ms(lambda: ops.popcount_matmul(
             x, w, "xnor", kb, use_kernel=False), reps=3, inner=2),
         "library_ms": time_ms(lambda: torch.matmul(xs, ws.T)),
+        "library_device_ms": device_ms(lambda: torch.matmul(xs, ws.T))[0],
         "library_equal": bool(torch.equal(lib.float(), got.float())),
         **popcount_bound_ms(M, N, W)}
+    pop_main["device_ms"], pop_main["kernels"] = device_ms(
+        lambda: ops.popcount_matmul(x, w, "xnor", kb))
     return {"phase": "ssm_kernel_parity",
             "ssd_scan": {"max_abs_err": ssd_err,
-                         "cases": 2 * (len(SSD_CASES) + len(SSD_MAIN)),
-                         "tol": SSD_TOL, "main": ssd_main,
-                         "model_regime_float32": model_regime},
+                         "cases": 2 * (len(SSD_CASES) + len(SSD_SLICED_CASES)
+                                       + len(SSD_MAIN)),
+                         "tol": SSD_TOL, "mma_ref": mma_near,
+                         "mma_ref_tol": MMA_REF_TOL, "main": ssd_main,
+                         "model_regime": model_regime},
             "popcount_matmul": {"max_abs_err": max(err, pop_err),
-                                "cases": 2 * len(POPCOUNT_CASES) + 1,
+                                "cases": 2 * len(POPCOUNT_CASES)
+                                + len(POPCOUNT_KBITS_CASES) + 1,
                                 "main": pop_main}}
 
 
@@ -1378,6 +1533,7 @@ def forward_gate(cfg32, params32, batch: int, seq_len: int, device) -> dict:
 
     toks = serve.make_prompts(cfg32, batch, seq_len, device, seed=3)
     kern, counts = _counted(lambda: lm.forward(cfg32, params32, toks)[0])
+    variants = _variants()
     kern = kern.float()
     plain = lm.forward(cfg32, params32, toks, use_kernel=False)[0].float()
     chunked = lm.forward(dataclasses.replace(cfg32, ssd_chunk=128),
@@ -1394,7 +1550,143 @@ def forward_gate(cfg32, params32, batch: int, seq_len: int, device) -> dict:
             "logit_scale": float(plain.abs().max()),
             "argmax_agreement": float(
                 (kern.argmax(-1) == plain.argmax(-1)).float().mean()),
-            "launches": counts}
+            "launches": counts, "variants": variants}
+
+
+def drop_diagonal(scan):
+    """An SSD scan ``scan(x, dt, A, B, C)`` with a planted fault: each
+    step's own input left out of its causal sum, as a mask of t > u in
+    place of t >= u would leave it, ``y - (C[t] . B[t]) dt[t] x[t]``.
+    Takes and ignores ``use_kernel``, so it can stand in for
+    ``ops.ssd_scan``.  The bf16 forward gate must reject it."""
+    def faulty(x, dt, A, B, C, use_kernel=True):
+        y = scan(x, dt, A, B, C)
+        own = (C.float() * B.float()).sum(-1)[:, :, None, None] \
+            * dt[..., None] * x.float()
+        return (y.float() - own).to(y.dtype)
+    return faulty
+
+
+def forward_gate_bf16(cfg, params, batch: int, seq_len: int,
+                      device) -> dict:
+    """The bfloat16 teacher-forced forward through the kernels (the SSD
+    layers on ``ssd_scan``'s mma variant, hymba's attention on flash's)
+    against the bfloat16 plain forward (``use_kernel=False``: the
+    sequential scan and the masked attention, float32 arithmetic on the
+    same bfloat16 tensors), on the pattern of :func:`serve_gate_bf16`.
+
+    The plain forward's disagreement with float32 arithmetic on the same
+    bfloat16 weights is the rounding of activations alone: d' in the
+    largest logit, r' in the RMS over all logits, and n' positions whose
+    argmax differs.  The kernel path must agree with the plain one within
+    ``max(SERVE_TOL, NOISE_MARGIN x d')`` in the largest logit and
+    ``max(SERVE_TOL, NOISE_MARGIN x r')`` in RMS, and its argmax may
+    differ at ``n' + 3 sqrt(max(n', 1))`` positions at most (n' with
+    three times the spread of a count).  The kernel-path forward runs
+    once more with :func:`drop_diagonal` planted in every SSD layer; its
+    readings, and the checks that reject it, are kept under
+    ``planted_fault`` (:func:`phase_ssm` requires a rejection where the
+    gate can see the scan: over the first ``BF16_GATE_LAYERS``)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    toks = serve.make_prompts(cfg, batch, seq_len, device, seed=3)
+    kern, counts = _counted(lambda: lm.forward(cfg, params, toks)[0])
+    variants = _variants()
+    plain = lm.forward(cfg, params, toks, use_kernel=False)[0].float()
+    act32 = lm.forward(as_float32(cfg), cast_params(params, torch.float32),
+                       toks, use_kernel=False)[0].float()
+    top_plain = plain.argmax(-1)
+    n_act = int((top_plain != act32.argmax(-1)).sum())
+    positions = top_plain.numel()
+    d_act = float((plain - act32).abs().max())
+    r_act = float((plain - act32).pow(2).mean().sqrt())
+    tol = max(SERVE_TOL, NOISE_MARGIN * d_act)
+    rms_tol = max(SERVE_TOL, NOISE_MARGIN * r_act)
+    flips_tol = (n_act + 3.0 * math.sqrt(max(n_act, 1))) / positions
+
+    def reading(logits) -> dict:
+        logits = logits.float()
+        diff = logits - plain
+        r = {"max_abs": float(diff.abs().max()),
+             "rms": float(diff.pow(2).mean().sqrt()),
+             "argmax_flips": float((logits.argmax(-1) != top_plain)
+                                   .float().mean())}
+        r["rejected_by"] = [k for k, lim in (
+            ("max_abs", tol), ("rms", rms_tol), ("argmax_flips", flips_tol))
+            if not r[k] <= lim]
+        return r
+
+    sound = reading(kern)
+    check(_finite(kern), f"{cfg.name}: non-finite bf16 logits")
+    check(not sound["rejected_by"],
+          f"{cfg.name}: bf16 kernel-path forward differs from the bf16 "
+          f"plain forward ({sound}; tol {tol}, rms {rms_tol}, argmax "
+          f"flips {flips_tol})")
+    rec = {"batch": batch, "seq_len": seq_len, "dtype": cfg.compute_dtype,
+           "max_abs_logit_diff_vs_plain_bf16": sound["max_abs"],
+           "plain_bf16_vs_float32_activations": d_act, "tol": tol,
+           "rms_logit_diff_vs_plain_bf16": sound["rms"],
+           "rms_plain_bf16_vs_float32_activations": r_act,
+           "rms_tol": rms_tol,
+           "logit_scale": float(plain.abs().max()),
+           "logit_rms": float(plain.pow(2).mean().sqrt()),
+           "argmax_agreement_vs_plain_bf16": 1.0 - sound["argmax_flips"],
+           "argmax_agreement_plain_vs_float32_activations":
+               1.0 - n_act / positions,
+           "argmax_disagreement_tol": flips_tol,
+           "launches": counts, "variants": variants}
+    # the fault wraps the kernel (the plain scan on the CPU) beneath
+    # ops.ssd_scan, whose launch counts it leaves alone
+    scan = ops.ssd_scan
+    ops.ssd_scan = drop_diagonal(ssd_scan_cuda if device.type == "cuda"
+                                 else ref.ssd_scan_ref)
+    try:
+        rec["planted_fault"] = reading(lm.forward(cfg, params, toks)[0])
+    finally:
+        ops.ssd_scan = scan
+    return rec
+
+
+#: depth of the second bf16 SSM forward gate.  On an H100, at full depth
+#: on random weights, mamba2's bf16 logits differ from float32
+#: activations' by more than their own RMS (53.9 against 50.6), and a
+#: scan that drops each step's own input (:func:`drop_diagonal`) passes
+#: the gate there; over the first 4 layers that difference is 1.42
+#: (hymba 0.71) against logits of RMS 51 (40), and the same fault moves
+#: them by 56 (28) in RMS (PERF.md, the SSM bf16 gate readings)
+BF16_GATE_LAYERS = 4
+
+
+def first_layers(cfg, params: dict, k: int):
+    """The config and weights of a model's first ``k`` layers (views of
+    the stacked block weights)."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, n_layers=k),
+            {**params, "blocks": {n: v[:k]
+                                  for n, v in params["blocks"].items()}})
+
+
+def check_ssd_variants(rec: dict) -> None:
+    """An SSM phase's SSD calls went through the variant of their type:
+    the float32 gate through ``ffma``; the bfloat16 gates and the timed
+    bfloat16 forward through ``mma``, one call per layer."""
+    L = rec["layers"]
+    cut = rec["gate"]["forward_bf16_first_layers"]
+    for what, run, want in (
+            ("float32 gate", rec["gate"]["forward"], {"mma": 0, "ffma": L}),
+            ("bf16 gate", rec["gate"]["forward_bf16"], {"mma": L, "ffma": 0}),
+            ("bf16 gate over the first layers", cut,
+             {"mma": cut["layers"], "ffma": 0}),
+            ("bf16 forward", rec["forward"], {"mma": L, "ffma": 0})):
+        got = run["variants"]["ssd_scan"]
+        check(got == want, f"{rec['arch']}: the {what}'s ssd_scan variants "
+                           f"were {got}, expected {want}")
 
 
 def _finite(t) -> bool:
@@ -1439,9 +1731,12 @@ def phase_ssm(name: str, cfg, device, gate: tuple, forward: tuple,
               timed: tuple, seed: int = 0) -> tuple[dict, dict]:
     """An ssm or hybrid config at full width: the float32 gate (the
     kernel-path forward against the plain forward; cached serving against
-    the plain serving run and the kernel-path forward), then a timed
-    forward and a timed serving run in the config's own types with the
-    same (cast) weights.  ``gate`` is (batch, forward length, prompt, new
+    the plain serving run and the kernel-path forward), the bfloat16
+    forward gate (:func:`forward_gate_bf16`) at full depth and over the
+    first ``BF16_GATE_LAYERS`` (where, on the card, it must reject the
+    planted fault), then a timed forward and a
+    timed serving run in the config's own types with the same (cast)
+    weights.  ``gate`` is (batch, forward length, prompt, new
     tokens); ``forward`` (batch, length); ``timed`` (batch, prompt, new
     tokens).  Returns the phase record and the cast weights."""
     import torch
@@ -1457,6 +1752,14 @@ def phase_ssm(name: str, cfg, device, gate: tuple, forward: tuple,
     del params32
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    fwd_bf16 = forward_gate_bf16(cfg, params, gate[0], gate[1], device)
+    n_cut = min(BF16_GATE_LAYERS, cfg.n_layers)
+    cut = forward_gate_bf16(*first_layers(cfg, params, n_cut), gate[0],
+                            gate[1], device)
+    check(device.type != "cuda" or bool(cut["planted_fault"]["rejected_by"]),
+          f"{cfg.name}: the bf16 forward gate over the first {n_cut} layers "
+          f"passes a planted fault (each step's own input dropped): "
+          f"{cut['planted_fault']}")
     fwd = forward_timed(cfg, params, *forward, device)
     timed_rec = serve_timed(cfg, params, *timed, device)
     L = cfg.n_layers
@@ -1466,6 +1769,9 @@ def phase_ssm(name: str, cfg, device, gate: tuple, forward: tuple,
                 "serve": {"ssd_scan": 0,
                           "flash_attention": L * timed[2] if attn else 0}}
     runs = [("forward gate", fwd_gate, expected["forward"]),
+            ("bf16 forward gate", fwd_bf16, expected["forward"]),
+            (f"bf16 forward gate over {n_cut} layers", cut,
+             {"ssd_scan": n_cut, "flash_attention": n_cut if attn else 0}),
             ("forward", fwd, expected["forward"]),
             ("serving", timed_rec, expected["serve"])]
     for what, rec, want in runs if device.type == "cuda" else ():
@@ -1478,7 +1784,9 @@ def phase_ssm(name: str, cfg, device, gate: tuple, forward: tuple,
              "ssd": [cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state],
              "heads": [cfg.n_heads, cfg.n_kv_heads] if attn else None,
              "window": cfg.local_window or None, "vocab": cfg.vocab,
-             "gate": {"forward": fwd_gate, "serve": serve_rec},
+             "gate": {"forward": fwd_gate, "forward_bf16": fwd_bf16,
+                      "forward_bf16_first_layers": {"layers": n_cut, **cut},
+                      "serve": serve_rec},
              "forward": fwd, "timed": timed_rec,
              "launches_expected": expected}, params)
 
@@ -1665,6 +1973,7 @@ def main() -> int:
         "ssm_mamba2", get_config("mamba2-2.7b"), device,
         gate=(1, 512, 497, 16), forward=(2, 4096), timed=(8, 512, 32))
     emit(mrec)
+    check_ssd_variants(mrec)
     emit(phase_profile_ssm(get_config("mamba2-2.7b"), mamba_params, 2, 4096,
                            device))
     del mamba_params
@@ -1673,6 +1982,7 @@ def main() -> int:
         "ssm_hymba", get_config("hymba-1.5b"), device,
         gate=(1, 512, 497, 16), forward=(2, 2048), timed=(8, 2048, 32))
     emit(hrec)
+    check_ssd_variants(hrec)
     emit(phase_profile_ssm(get_config("hymba-1.5b"), hymba_params, 2, 2048,
                            device))
     del hymba_params
@@ -1716,13 +2026,20 @@ def main() -> int:
                     ssmrec["ssd_scan"]["max_abs_err"].values())},
             "popcount_matmul": pop_main}
     # the main paths' calls per kernel variant: the timed bf16 serving run
-    # and the float32 gate run (kratos-dd), and the quantized flow
+    # and the float32 gate run (kratos-dd), the quantized flow, the SSM
+    # forwards and the binary GEMM's main call
     variant_launches = {
         "flash_attention": {
             "serve bf16": srec["timed"]["variants"]["flash_attention"],
             "gate float32": srec["gate"]["variants"]["flash_attention"]},
         "bitplane_matmul": {
-            "quantized": qrec["variants"]["bitplane_matmul"]}}
+            "quantized": qrec["variants"]["bitplane_matmul"]},
+        "ssd_scan": {
+            "forward bf16 mamba2": mrec["forward"]["variants"]["ssd_scan"],
+            "forward bf16 hymba": hrec["forward"]["variants"]["ssd_scan"],
+            "gate float32 mamba2":
+                mrec["gate"]["forward"]["variants"]["ssd_scan"]},
+        "popcount_matmul": {"main": pop_main["variants"]}}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k], "launches": launches[k],

@@ -1,8 +1,9 @@
 // Warp-level building blocks shared by the port's tensor-core kernels
-// (bitplane_matmul.cu, flash_attention.cu): 16-byte cp.async with zero
-// fill, ldmatrix, and the bf16 mma.sync m16n8k16 with float32
-// accumulators.  Included by those sources only; build.py hashes this
-// header into every library's name, so an edit here rebuilds them.
+// (bitplane_matmul.cu, flash_attention.cu, ssd_scan.cu,
+// popcount_matmul.cu): 16- and 4-byte cp.async with zero fill, ldmatrix,
+// and the bf16 mma.sync m16n8k16 with float32 accumulators.  Included by
+// those sources only; build.py hashes this header into every library's
+// name, so an edit here rebuilds them.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major):  a[0] (g, 2t..2t+1)    a[1] (g+8, 2t..2t+1)
@@ -26,6 +27,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const int src_bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, through L1; with valid == false nothing is
+// read and the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const int src_bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(smem)),
                "l"(gmem), "r"(src_bytes)
                : "memory");
@@ -72,6 +84,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
         "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// Two 8 x 8 b16 matrices, transposed; lanes 0..15 give the row addresses
+// (lane l: row l % 8 of matrix l / 8), the other lanes' are ignored.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
 }
 
 // two floats -> a bf16 pair (round to nearest even), lo in the low half

@@ -15,9 +15,11 @@ Each wrapper counts its kernel launches in a plain integer attribute
 kernel launches and nowhere else, so a run can show which path it took.
 The count is of calls of the op, however many launches a call takes (the
 tensor-core bit-plane product folds and splits first; the split attention
-combines after).  ``bitplane_matmul`` and ``flash_attention`` have
-several kernels, chosen by shape and type alone; each call also adds one
-to its variant's count in ``.variants`` (:func:`variant_counts`).  Lanes
+combines after; the shared-score SSD scan forms its scores first).
+``bitplane_matmul``, ``flash_attention``, ``ssd_scan`` and
+``popcount_matmul`` name their kernels, chosen by shape and type alone
+(each launcher's ``variant``); each call also adds one to its variant's
+count in ``.variants`` (:func:`variant_counts`).  Lanes
 are int32 bit patterns (see :mod:`repro_torch.kernels.ref`).
 """
 from __future__ import annotations
@@ -106,13 +108,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     type (see :func:`repro_torch.kernels.ref.ssd_scan_ref`).  The
     reference kernel's contract holds on every device: L must be a
     multiple of its chunk ``min(128, L)``."""
-    from .ssd_scan import chunk_of, ssd_scan_cuda
+    from .ssd_scan import chunk_of, ssd_scan_cuda, variant
 
     chunk_of(x.shape[1])
     if _wants_kernel(x, use_kernel):
         out = ssd_scan_cuda(x, dt, A, B, C)
         if out.numel():
             ssd_scan.launches += 1
+            ssd_scan.variants[variant(x.dtype, B.shape[-1])] += 1
         return out
     return ref.ssd_scan_ref(x, dt, A, B, C)
 
@@ -124,12 +127,14 @@ def popcount_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor,
     ``w_packed[N, W]`` -> ``int32[M, N]``, ``sum popc(x & w)`` (mode
     "and") or ``k_bits - 2 sum popc(x ^ w)`` (mode "xnor")."""
     if _wants_kernel(x_packed, use_kernel):
-        from .popcount_matmul import popcount_matmul_cuda
+        from .popcount_matmul import popcount_matmul_cuda, variant
 
         out = popcount_matmul_cuda(x_packed, w_packed, mode=mode,
                                    k_bits=k_bits)
         if out.numel():
             popcount_matmul.launches += 1
+            popcount_matmul.variants[variant(
+                x_packed.shape[0], w_packed.shape[0], x_packed.shape[1])] += 1
         return out
     return ref.popcount_matmul_ref(x_packed, w_packed, mode=mode,
                                    k_bits=k_bits)
@@ -137,9 +142,11 @@ def popcount_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor,
 
 _COUNTED = (lut_eval6, lut_eval, flash_attention, bitplane_matmul, ssd_scan,
             popcount_matmul)
-#: the kernels of the ops that have more than one
+#: the kernels of the ops that name theirs (each call counted per kernel)
 _VARIANTS = {flash_attention: ("mma", "split", "ffma"),
-             bitplane_matmul: ("tensor_core", "small_m", "ffma")}
+             bitplane_matmul: ("tensor_core", "small_m", "ffma"),
+             ssd_scan: ("mma", "ffma"),
+             popcount_matmul: ("tensor_core",)}
 
 
 def reset_launch_counts() -> None:
@@ -157,6 +164,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def variant_counts() -> dict[str, dict[str, int]]:
-    """Calls per kernel variant of ``flash_attention`` and
-    ``bitplane_matmul`` since the last :func:`reset_launch_counts`."""
+    """Calls per kernel variant of ``flash_attention``,
+    ``bitplane_matmul``, ``ssd_scan`` and ``popcount_matmul`` since the
+    last :func:`reset_launch_counts`."""
     return {fn.__name__: dict(fn.variants) for fn in _VARIANTS}

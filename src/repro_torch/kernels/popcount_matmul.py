@@ -6,8 +6,12 @@
 CUDA tensors (packed words as bit patterns) on one device, ``x[M, W]``,
 ``w[N, W]``, mode "and" or "xnor" (with ``k_bits``) — raises on anything
 else, allocates the output, launches on PyTorch's current stream and
-raises if the launch is refused.  The dispatch and the launch counter live
-in :mod:`repro_torch.kernels.ops`.
+raises if the launch is refused.  It has one kernel, :func:`variant`'s
+``"tensor_core"``: the exact integer product of the unpacked 0/1 bits on
+the int8 tensor cores, with mode "xnor" from the identity of
+:func:`repro_torch.kernels.ref.popcount_matmul_bits_ref`, at every M,
+N, W and k_bits.  The dispatch, the launch counter and the per-variant count live in
+:mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -18,11 +22,17 @@ import torch
 from . import build
 
 #: rows of x per CTA (the grid's second axis counts row tiles)
-BLOCK_M = 64
+BLOCK_M = 128
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _MODES = {"and": 0, "xnor": 1}
+
+
+def variant(M: int, N: int, W: int) -> str:
+    """The kernel a call of ``[M, W] x [N, W]`` words launches: the
+    tensor-core product at every shape."""
+    return "tensor_core"
 
 
 def _lib() -> ctypes.CDLL:

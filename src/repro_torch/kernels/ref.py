@@ -6,8 +6,10 @@ They compute what ``repro/kernels/ref.py`` computes.  The LUT evaluators
 cross into torch as ``np.uint32 -> .view(np.int32)`` because torch's
 uint32 lacks ``~``, ``>>`` and ``index_copy_``.  ``bitplane_matmul_ref``,
 ``flash_attention_ref`` and the SSD scans keep the reference's float32
-arithmetic and order of operations; ``flash_attention_split_ref`` is the
-same attention summed as the split (decode) kernel sums it.  These
+arithmetic and order of operations; ``flash_attention_split_ref``,
+``popcount_matmul_bits_ref`` and ``ssd_scan_mma_ref`` are the same
+functions summed and rounded as the split attention, the tensor-core
+binary product and the tensor-core SSD scan compute them.  These
 functions are the CPU path of :mod:`repro_torch.kernels.ops` and the
 yardstick the CUDA kernels are held to on the card; they are never
 ``torch.compile``d.
@@ -55,6 +57,37 @@ def popcount_matmul_ref(x_packed: torch.Tensor, w_packed: torch.Tensor,
     if mode == "xnor":
         acc = k_bits - 2 * acc
     return acc.to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """Packed int32 words ``[R, W]`` -> their ``32 W`` bits ``[R, 32 W]``
+    as int64 0 / 1, bit k of word j at column ``32 j + k``."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int64)
+    bits = ((words.to(torch.int64) & _M32)[:, :, None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)
+
+
+def popcount_matmul_bits_ref(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                             mode: str = "and", k_bits: int | None = None
+                             ) -> torch.Tensor:
+    """:func:`popcount_matmul_ref` summed as the tensor-core kernel sums
+    it: the integer product of the unpacked 0 / 1 bits, ``a = x . w``
+    over all ``32 W`` bits, and for mode "xnor" the identity
+    ``popc(x ^ w) = popc(x) + popc(w) - 2 popc(x & w)``, so
+    ``y = k_bits - 2 (popc(x row) + popc(w row)) + 4 a``.  The product
+    runs in float64, exact for sums below 2^53."""
+    if mode not in ("and", "xnor"):
+        raise ValueError(mode)
+    if mode == "xnor" and k_bits is None:
+        raise ValueError("mode 'xnor' needs k_bits")
+    if x_packed.shape[1] != w_packed.shape[1]:
+        raise ValueError(f"word counts differ: {x_packed.shape[1]} and "
+                         f"{w_packed.shape[1]}")
+    xb, wb = unpack_bits(x_packed), unpack_bits(w_packed)
+    a = (xb.double() @ wb.double().T).to(torch.int64)
+    if mode == "xnor":
+        a = k_bits - 2 * (xb.sum(1)[:, None] + wb.sum(1)[None, :]) + 4 * a
+    return a.to(torch.int32)
 
 
 def lut_eval_ref(inputs: torch.Tensor, tts: torch.Tensor) -> torch.Tensor:
@@ -278,4 +311,52 @@ def ssd_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         wu = torch.exp(cum[:, -1:, :] - cum) * dtc              # [Bb, Q, H]
         h = torch.exp(cum[:, -1])[..., None, None] * h \
             + torch.einsum("buhp,bun->bhpn", xc * wu[..., None], Bc)
+    return torch.stack(ys, dim=1).reshape(Bb, L, H, P).to(x.dtype)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bfloat16 (nearest even) and back."""
+    return t.to(torch.bfloat16).float()
+
+
+def ssd_scan_mma_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """The chunked SSD scan (chunk ``min(128, L)``, which must divide L)
+    rounded where the CUDA kernel's ``mma`` variant rounds: per chunk the
+    weight tile ``W = where(t >= u, exp(cum[t] - cum[u]) s, 0) dt[u]``
+    (exp formed only where t >= u), ``x w_u`` and the state that
+    ``C . h^T`` reads are rounded to bfloat16; x, B and C enter as
+    given (bfloat16 on the models' path), every product and sum is
+    float32, and the carried state stays float32.  ``y = (C . h^T)
+    exp(cum) + W . x`` in x's type."""
+    Bb, L, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(128, L)
+    if L % Q:
+        raise ValueError(f"sequence length {L} is not a multiple of the "
+                         f"chunk {Q}")
+    nc = L // Q
+    xf = x.float().reshape(Bb, nc, Q, H, P)
+    dtf = dt.float().reshape(Bb, nc, Q, H)
+    Bf = B.float().reshape(Bb, nc, Q, N)
+    Cf = C.float().reshape(Bb, nc, Q, N)
+    t_idx = torch.arange(Q, device=x.device)
+    causal = (t_idx[:, None] >= t_idx[None, :])[None, :, :, None]
+    zero = torch.zeros((), device=x.device)
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
+        cum = torch.cumsum(A.float()[None, None, :] * dtc, dim=1)  # [Bb, Q, H]
+        y_state = torch.einsum("bqn,bhpn->bqhp", Cc, _bf16(h)) \
+            * torch.exp(cum)[..., None]
+        scores = torch.einsum("btn,bun->btu", Cc, Bc)[..., None]
+        seg = torch.where(causal, cum[:, :, None, :] - cum[:, None, :, :],
+                          zero)
+        w = _bf16(torch.where(causal, torch.exp(seg) * scores, zero)
+                  * dtc[:, None, :, :])                         # [Bb, Q, Q, H]
+        ys.append(y_state + torch.einsum("btuh,buhp->bthp", w, xc))
+        wu = torch.exp(cum[:, -1:, :] - cum) * dtc              # [Bb, Q, H]
+        h = torch.exp(cum[:, -1])[..., None, None] * h \
+            + torch.einsum("buhp,bun->bhpn", _bf16(xc * wu[..., None]), Bc)
     return torch.stack(ys, dim=1).reshape(Bb, L, H, P).to(x.dtype)

@@ -32,7 +32,9 @@ def test_phase_functions_importable():
                  "ssm_kernel_parity", "ssd_parity", "popcount_parity",
                  "ssd_bound_ms", "popcount_bound_ms", "ssd_inputs",
                  "unpack_signs", "forward_gate", "forward_timed",
-                 "phase_ssm", "phase_profile_ssm", "cast_params"):
+                 "phase_ssm", "phase_profile_ssm", "cast_params",
+                 "forward_gate_bf16", "drop_diagonal", "check_mma_ref",
+                 "at_p_block", "first_layers"):
         assert callable(getattr(cs, name)), name
 
 
@@ -145,19 +147,27 @@ def test_serve_phases_rehearsed_on_cpu():
 
 
 def test_ssm_bounds():
+    """The SSD bound counts the score tile once per (batch, chunk) (B and
+    C are shared by the heads); the binary GEMM's is the int8 tensor-core
+    product's, with the __popc figure beside it."""
     b = cs.ssd_bound_ms(2, 4096, 80, 64, 128, 2)
-    assert b["flops"] == 2 * 80 * 32 * (2 * 128 * 128 * 128
-                                        + 2 * 128 * 128 * 64
-                                        + 4 * 128 * 64 * 128)
-    assert 53e9 < b["flops"] < 54e9 and 0.054 < b["ops_ms"] < 0.055
-    assert 172e6 < b["bytes"] < 176e6 and b["bound_by"] == "operations"
+    assert b["flops"] == 2 * 32 * 2 * 128 * 128 * 128 \
+        + 2 * 80 * 32 * (2 * 128 * 128 * 64 + 4 * 128 * 64 * 128)
+    assert 32e9 < b["flops"] < 33e9 and 0.032 < b["ops_ms"] < 0.033
+    assert 172e6 < b["bytes"] < 176e6 and b["bound_by"] == "bytes"
+    assert 0.0521 < b["bound_ms"] < 0.0522
+    h = cs.ssd_bound_ms(2, 2048, 25, 64, 16, 2)
+    assert h["bound_by"] == "bytes" and 0.0080 < h["bound_ms"] < 0.0081
     short = cs.ssd_bound_ms(1, 24, 4, 16, 8, 4)  # one chunk of 24
-    assert short["flops"] == 4 * (2 * 24 * 24 * 8 + 2 * 24 * 24 * 16
-                                  + 4 * 24 * 16 * 8)
+    assert short["flops"] == 2 * 24 * 24 * 8 + 4 * (2 * 24 * 24 * 16
+                                                    + 4 * 24 * 16 * 8)
     p = cs.popcount_bound_ms(4096, 4096, 24)
-    assert p["popcounts"] == 4096 * 4096 * 24
+    assert p["ops"] == 2 * 4096 * 4096 * 32 * 24
     assert p["bytes"] == 4 * (2 * 4096 * 24 + 4096 * 4096)
-    assert p["bound_by"] == "operations" and 0.096 < p["bound_ms"] < 0.097
+    assert p["bound_by"] == "bytes" and 0.0202 < p["bound_ms"] < 0.0203
+    assert 0.0130 < p["ops_ms"] < 0.0131
+    assert p["popc_popcounts"] == 4096 * 4096 * 24
+    assert 0.096 < p["popc_bound_ms"] < 0.097
 
 
 def test_ssm_kernel_parity_rehearsed_on_cpu():
@@ -205,9 +215,38 @@ def test_ssm_phases_rehearsed_on_cpu(arch, gate, forward, timed):
     assert rec["gate"]["serve"]["tokens_identical"]
     assert rec["gate"]["forward"]["max_abs_logit_diff_vs_plain"] <= \
         cs.SERVE_TOL
+    bf16 = rec["gate"]["forward_bf16"]
+    assert bf16["max_abs_logit_diff_vs_plain_bf16"] == 0  # one path here
+    assert set(bf16["planted_fault"]) >= {"max_abs", "rms", "argmax_flips",
+                                          "rejected_by"}
+    assert bf16["planted_fault"]["rms"] > 0
+    cut = rec["gate"]["forward_bf16_first_layers"]
+    assert cut["layers"] == min(cs.BF16_GATE_LAYERS, cfg.n_layers)
+    assert cut["planted_fault"]["rms"] > 0
     assert rec["forward"]["tok_per_s"] > 0
     assert rec["launches_expected"]["forward"]["ssd_scan"] == cfg.n_layers
     assert sum(rec["forward"]["launches"].values()) == 0
     prof = cs.phase_profile_ssm(cfg, params, 2, 16, CPU)
     assert prof["decode_step"]["device_busy_ms"] == 0
     assert prof["forward"]["host_self_ms_by_name"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b"])
+def test_first_layers_cuts_depth(arch):
+    """The second bf16 gate's model: the first k layers' weights, as
+    views, and a config of k layers that the forward runs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).smoke()
+    params = serve.make_params(cfg, CPU, seed=0)
+    cut_cfg, cut = cs.first_layers(cfg, params, 1)
+    assert cut_cfg.n_layers == 1 and cfg.n_layers == 2
+    for name, v in cut["blocks"].items():
+        assert v.shape[0] == 1 and v.data_ptr() == \
+            params["blocks"][name].data_ptr()
+    toks = serve.make_prompts(cut_cfg, 1, 8, CPU, seed=0)
+    logits = lm.forward(cut_cfg, cut, toks, use_kernel=False)[0]
+    assert logits.shape == (1, 8, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())

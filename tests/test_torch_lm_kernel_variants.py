@@ -245,4 +245,6 @@ def test_cpu_calls_count_no_variant():
     ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert ops.variant_counts() == {
         "flash_attention": {"mma": 0, "split": 0, "ffma": 0},
-        "bitplane_matmul": {"tensor_core": 0, "small_m": 0, "ffma": 0}}
+        "bitplane_matmul": {"tensor_core": 0, "small_m": 0, "ffma": 0},
+        "ssd_scan": {"mma": 0, "ffma": 0},
+        "popcount_matmul": {"tensor_core": 0}}
