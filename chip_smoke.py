@@ -11,10 +11,19 @@ exits non-zero:
 
 1. device and build: the card, its power limit, the nvcc build of every
    kernel source (one nvcc each, started together);
-2. kernel parity: ``lut_eval6`` and ``lut_eval`` (K = 1..5) bit-exact
-   against their plain versions on the card, ragged shapes included, and
-   timed at the main path's shapes beside the plain version and the
-   memory / operation bound;
+2. kernel parity: ``lut_eval6`` (the mux-tree kernel: ragged M, N not a
+   multiple of 4 and an unaligned view, which take the one-word path),
+   its fused level variant ``lut_eval6_level`` (the widest level of the
+   suite's grouped layout over a random buffer of its group's height, and
+   random levels whose padding rows share one sink row) and ``lut_eval``
+   (K = 1..5) bit-exact against their plain versions on the card; the
+   6-input kernels' LOP3.LUT and instruction counts per lane word read
+   from ``cuobjdump -sass`` (both 4-word kernels present, each at 63-66
+   LOP3 per word: the mux tree); the op, the level variant at that widest
+   level (against its data's bound: distinct rows read and written once)
+   and ``lut_eval`` timed at the main path's shapes (CUDA events and
+   device time) beside the plain version and the memory / operation
+   bound;
 3. LM kernel parity: ``flash_attention`` (causal / not, GQA and MQA,
    G = 5, windows, softcap, queries at the tail, ragged S and T, a long
    split decode, every instantiated head dimension, float32 within 2e-4
@@ -44,10 +53,14 @@ exits non-zero:
    DD6 with the equivalence gate on, geomean area / critical-path / ADP
    ratios per suite;
 6. suite evaluation: all 17 circuits at 4096 lane words (131,072 vectors
-   per circuit), grouped and per-circuit, equal to each other, to the
-   plain-version path and to the Python oracle on sampled words;
-7. profile: one warm grouped suite evaluation under ``torch.profiler``
-   (device time by kernel and copy, device idle share, host hot spots);
+   per circuit), grouped and per-circuit, cold and warm, equal to each
+   other, to the plain-version path and to the Python oracle on sampled
+   words; every LUT level one launch of the level variant (launches and
+   variants equal to the plans'), and ``flow.eval_mode_cost_model``'s pick
+   beside both warm walls;
+7. profile: one warm grouped, then one warm per-circuit suite evaluation
+   under ``torch.profiler`` (device time by kernel and copy, the copies by
+   name, kernels launched, device idle share, host hot spots);
 8. equivalence through the card: ``conv2d-fu`` and ``conv1d-fu`` under
    DD5 proven by lane simulation on the fused evaluator;
 9. per-level baseline: the Fig. 9 stress workload through ``lut_eval``,
@@ -86,9 +99,11 @@ exits non-zero:
     forward at 2 x 2048 (the window of 1024 bites; 32 ``ssd_scan`` and 32
     ``flash_attention`` launches) and a timed serving run with 2048-token
     prompts (32 flash launches per step); then its profile_ssm;
-16. summary: the ``kernels`` line (all six kernels; for the two with
-    variants, each variant's calls on the main paths), the card line,
-    and as the last line ``{"ok": true, "device": {...}}``.
+16. summary: the ``kernels`` line (all six kernels; for those with
+    variants, each variant's calls on the main paths; ``lut_eval6``'s
+    times and bound are its level variant's, the one the main paths
+    launch, with the op's beside), the card line, and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each phase that drives the main
 path and read just after; the parity phases' launches are not counted.
@@ -246,29 +261,244 @@ def lut_bound_ms(M: int, K: int, N: int, n_tables: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def kernel_parity(device, main_shapes: dict) -> dict:
-    """Each kernel against its plain version on the card over random
-    inputs (ragged shapes, equal-table rows), then timed at the main
-    path's shapes.  Returns per-kernel records for the summary line."""
+#: lut_eval6 parity shapes beyond the main one: ragged M, N not a multiple
+#: of 4 (the one-word path), one word
+LUT6_CASES = [(2330, 4096), (513, 3), (1, 1), (300, 129), (64, 4098)]
+#: the level variant on random buffers: (rows, LUTs, words), a fifth of
+#: the LUTs padding rows that all write one sink row
+LEVEL_CASES = [(5000, 2330, 4096), (100, 20, 3), (300, 64, 129)]
+
+
+def lut_sass_counts() -> dict:
+    """LOP3.LUT and all instructions of each 6-input LUT kernel in the
+    built library (``cuobjdump -sass``), in all and per lane word (over the
+    words one thread evaluates)."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lut_eval import words_per_thread
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    check(tool.exists(), f"cuobjdump not found at {tool}")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.library_path("lut_eval"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?(lut_eval6(?:_level)?_kernel)ILi(\d)E",
+                      line)
+        if m:
+            fn = f"{m.group(1)}<{m.group(2)}>"
+            counts[fn] = {"vec": int(m.group(2)), "lop3": 0,
+                          "instructions": 0}
+            continue
+        if "Function :" in line:
+            fn = None
+        elif fn and re.search(r"/\*[0-9a-f]{4}\*/", line):
+            counts[fn]["instructions"] += 1
+            counts[fn]["lop3"] += "LOP3.LUT" in line
+    for rec in counts.values():
+        words = words_per_thread(rec["vec"])
+        rec["words_per_thread"] = words
+        rec["lop3_per_word"] = rec["lop3"] / words
+        rec["instructions_per_word"] = rec["instructions"] / words
+    return counts
+
+
+#: LOP3.LUT per lane word the 4-word 6-input kernels may compile to: the
+#: mux tree's 63 selects plus a few of the index arithmetic (a sum of
+#: products takes ~260)
+LOP3_PER_WORD = (63, 66)
+
+
+def check_lut_sass(sass: dict) -> None:
+    """Both 4-word 6-input kernels are in ``sass`` (from
+    :func:`lut_sass_counts`) and each compiled to a mux tree: between
+    ``LOP3_PER_WORD`` LOP3.LUT per lane word."""
+    lo, hi = LOP3_PER_WORD
+    for name in ("lut_eval6_kernel<4>", "lut_eval6_level_kernel<4>"):
+        check(name in sass, f"{name} not found in the SASS of the library")
+        per_word = sass[name]["lop3_per_word"]
+        check(lo <= per_word <= hi,
+              f"{name}: {per_word} LOP3 per word, the mux tree needs "
+              f"{lo}-{hi}")
+
+
+def widest_grouped_level(nets: list, device) -> dict:
+    """The widest LUT level of the suite's grouped layout (the groups that
+    ``evaluate_suite(mode="grouped")`` runs): its index and table tensors
+    on ``device``, the LUT rows it holds (real and padding), and the height
+    of its group's value buffer.  The tensors are uploaded here, apart
+    from the group program's own cache, so that the suite phase's cold run
+    still uploads its plan."""
+    from repro_torch.core.eval_torch import (_device_buckets,
+                                             get_group_program,
+                                             group_plans_by_envelope,
+                                             plan_netlist)
+
+    groups = group_plans_by_envelope([plan_netlist(n) for n in nets])
+    best = None
+    for members in groups:
+        prog = get_group_program([nets[i] for i in members])
+        for bi, bk in enumerate(prog.member_plans[0].buckets):
+            width = bk.shape[1] * len(members)
+            if prog.flags[bi][0] and (best is None or width > best[0]):
+                best = (width, members, prog, bi)
+    width, members, prog, bi = best
+    real = [sum(int((p.buckets[bi].lut_out[r] != p.sink).sum())
+                for p in prog.member_plans)
+            for r in range(prog.member_plans[0].buckets[bi].n_levels)]
+    r = int(np.argmax(real))
+    bk = _device_buckets(prog.member_plans, prog.flags, prog.n_signals + 1,
+                         device)[bi]
+    return {"group": [nets[i].name for i in members], "bucket": bi,
+            "level": r, "luts": width, "real_luts": real[r],
+            "member_rows": prog.n_signals + 1,
+            "rows": len(members) * (prog.n_signals + 1),
+            "ins": bk.lut_ins[r], "tt_lo": bk.tt_lo[r], "tt_hi": bk.tt_hi[r],
+            "out": bk.lut_out[r]}
+
+
+def _level_buffer(rng, rows: int, member_rows: int, n_words: int, device):
+    """A random value buffer whose members' CONST0 / CONST1 rows hold
+    their constants."""
+    vals = _random_words(rng, (rows, n_words), device)
+    vals[0::member_rows] = 0
+    vals[1::member_rows] = -1
+    return vals
+
+
+def level_rows_once_bound(level: dict, n_words: int) -> dict:
+    """The level's bound from what its data needs: the table words, each
+    distinct row that a LUT with a table other than 0 reads (LUTs share
+    fanins) read once and each distinct row it writes written once,
+    against the mux tree's operations on the LUTs whose table is not 0.
+    A zero table (the padding rows, whose pins all read CONST0) gives 0
+    whatever its pins.  ``lut_bound_ms`` of the level's ``[M, 6, N]``
+    counts every pin row of every LUT as read from memory."""
+    live = (level["tt_lo"] != 0) | (level["tt_hi"] != 0)
+    n_live = int(live.sum())
+    rows_in = int(level["ins"][live].unique().numel())
+    rows_out = int(level["out"].unique().numel())
+    nbytes = 4 * n_words * (rows_in + rows_out) + 8 * level["luts"]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = lut_bound_ms(n_live, 6, n_words, 2)["ops_ms"]
+    return {"nonzero_tables": n_live, "rows_read": rows_in,
+            "rows_written": rows_out, "bytes": nbytes,
+            "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def random_level(rng, rows: int, M: int, n_words: int, device,
+                 unaligned: bool = False):
+    """A random level of ``M`` LUTs over a random buffer of ``rows`` rows,
+    laid out as the planner lays one out: outputs on distinct rows that no
+    pin reads, every fifth LUT a padding row (table 0, pins on CONST0,
+    output on the last row, the sink, shared by all of them), and every
+    seventh of the others a real LUT whose table is 0 (its output row
+    must be zeroed over the random buffer's contents).
+    ``unaligned`` puts the buffer one word past a 16-byte boundary."""
+    import torch
+
+    if unaligned:
+        flat = _random_words(rng, (rows * n_words + 1,), device)
+        vals = flat[1:].view(rows, n_words)
+        vals[0], vals[1] = 0, -1
+    else:
+        vals = _level_buffer(rng, rows, rows, n_words, device)
+    perm = torch.from_numpy(rng.permutation(rows - 3) + 2).to(device)
+    out_idx = perm[:M].clone()
+    pool = perm[M:]
+    ins_idx = pool[torch.from_numpy(
+        rng.integers(0, pool.numel(), (M, 6))).to(device)]
+    lo = _random_words(rng, (M,), device)
+    hi = _random_words(rng, (M,), device)
+    pad = torch.arange(M, device=device) % 5 == 0
+    lo[3::7] = 0
+    hi[3::7] = 0
+    out_idx[pad] = rows - 1
+    ins_idx[pad] = 0
+    lo[pad] = 0
+    hi[pad] = 0
+    return vals, ins_idx, lo, hi, out_idx
+
+
+def level_parity(device, level: dict | None, cases=LEVEL_CASES,
+                 n_words: int = N_LANE_WORDS, seed: int = 1) -> dict:
+    """``ops.lut_eval6_level`` (the kernel on the card) against its plain
+    version on copies of the same buffer, bit for bit over the whole
+    buffer: on ``level`` (a real suite level from
+    :func:`widest_grouped_level`) over a random buffer of its group's
+    height, on random levels with duplicate sink rows, and on an
+    unaligned buffer (the one-word path)."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    runs = []
+    if level is not None:
+        vals = _level_buffer(rng, level["rows"], level["member_rows"],
+                             n_words, device)
+        runs.append(("suite level", (vals, level["ins"], level["tt_lo"],
+                                     level["tt_hi"], level["out"])))
+    for rows, M, N in cases:
+        runs.append((f"random {rows}x{N}, {M} LUTs",
+                     random_level(rng, rows, M, N, device)))
+    runs.append(("unaligned 300x128, 64 LUTs",
+                 random_level(rng, 300, 64, 128, device, unaligned=True)))
+    errs = {}
+    for label, (vals, ins, lo, hi, out) in runs:
+        got = ops.lut_eval6_level(vals.clone(), ins, lo, hi, out)
+        want = ops.lut_eval6_level(vals.clone(), ins, lo, hi, out,
+                                   use_kernel=False)
+        _sync(device)
+        e = _max_abs_err(got, want)
+        check(e == 0, f"lut_eval6_level differs from its plain version on "
+                      f"{label} (max abs err {e})")
+        errs[label] = e
+    return errs
+
+
+def kernel_parity(device, main_shapes: dict, level: dict) -> dict:
+    """Each LUT kernel against its plain version on the card over random
+    inputs (ragged shapes, N not a multiple of 4, an unaligned view,
+    equal-table rows, zero-table rows; the level variant on a real suite level and on
+    random levels with duplicate sink rows), then timed at the main
+    path's shapes (CUDA events and device time).  Returns per-kernel
+    records for the summary line."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_eval import vector_width
 
     rng = np.random.default_rng(0)
     M6, N6 = main_shapes["lut_eval6"]
     err6 = 0
-    for M, N in [(M6, N6), (2330, 4096), (513, 3), (1, 1), (300, 129)]:
-        ins = _random_words(rng, (M, 6, N), device)
+    cases = [(M6, N6, False)] + [(M, N, False) for M, N in LUT6_CASES] \
+        + [(300, 128, True)]
+    paths = {}
+    for M, N, unaligned in cases:
+        if unaligned:  # one word past a 16-byte boundary: one-word path
+            flat = _random_words(rng, (M * 6 * N + 1,), device)
+            ins = flat[1:].view(M, 6, N)
+        else:
+            ins = _random_words(rng, (M, 6, N), device)
         lo = _random_words(rng, (M,), device)
         hi = _random_words(rng, (M,), device)
         hi[::2] = lo[::2]   # narrower LUTs replicate their table
+        lo[1::7] = 0        # zero tables (the level kernel skips them)
+        hi[1::7] = 0
         got = ops.lut_eval6(ins, lo, hi, use_kernel=True)
         want = ops.lut_eval6(ins, lo, hi, use_kernel=False)
         torch.cuda.synchronize()
         e = _max_abs_err(got, want)
         check(e == 0, f"lut_eval6 differs from its plain version at "
-                      f"M={M} N={N} (max abs err {e})")
+                      f"M={M} N={N} unaligned={unaligned} (max abs err {e})")
         err6 = max(err6, e)
+        paths[f"{M}x{N}{' unaligned' if unaligned else ''}"] = \
+            vector_width(N, ins)
+    level_errs = level_parity(device, level)
     err = 0
     for K in range(1, 6):
         for M, N in [(main_shapes["lut_eval"][0], N6), (513, 3), (1, 1),
@@ -283,29 +513,57 @@ def kernel_parity(device, main_shapes: dict) -> dict:
                           f"at M={M} N={N} (max abs err {e})")
             err = max(err, e)
 
+    sass = lut_sass_counts()
+    check_lut_sass(sass)
+
     recs = {}
     ins = _random_words(rng, (M6, 6, N6), device)
     lo = _random_words(rng, (M6,), device)
     hi = _random_words(rng, (M6,), device)
-    b6 = lut_bound_ms(M6, 6, N6, 2)
+    dev6, kern6 = device_ms(lambda: ops.lut_eval6(ins, lo, hi))
+    vals = _level_buffer(rng, level["rows"], level["member_rows"], N6,
+                         device)
+    largs = (vals, level["ins"], level["tt_lo"], level["tt_hi"],
+             level["out"])
+    dev_l, kern_l = device_ms(lambda: ops.lut_eval6_level(*largs))
+    # the headline is the level variant's, the one the main paths launch:
+    # its bound is its data's (rows read and written once), with the
+    # [M, 6, N] figure that counts every pin row beside it
+    pin_rows = lut_bound_ms(level["luts"], 6, N6, 2)
     recs["lut_eval6"] = {
-        "shape": [M6, 6, N6], "max_abs_err": err6,
-        "ms": time_ms(lambda: ops.lut_eval6(ins, lo, hi)),
-        "plain_ms": time_ms(lambda: ops.lut_eval6(ins, lo, hi,
-                                                  use_kernel=False),
-                            reps=3, inner=2),
-        **b6}
+        "variant": "level", "group": level["group"],
+        "bucket": level["bucket"], "level": level["level"],
+        "shape": [level["luts"], 6, N6], "real_luts": level["real_luts"],
+        "buffer_rows": level["rows"],
+        "max_abs_err": max(err6, *level_errs.values()),
+        "level_max_abs_err": level_errs,
+        "ms": time_ms(lambda: ops.lut_eval6_level(*largs)),
+        "device_ms": dev_l, "kernels": kern_l,
+        "plain_ms": time_ms(lambda: ops.lut_eval6_level(
+            *largs, use_kernel=False), reps=3, inner=2),
+        **level_rows_once_bound(level, N6),
+        "pin_rows_bound_ms": pin_rows["bound_ms"],
+        "pin_rows_bound_by": pin_rows["bound_by"], "sass": sass,
+        "op": {
+            "shape": [M6, 6, N6], "max_abs_err": err6,
+            "ms": time_ms(lambda: ops.lut_eval6(ins, lo, hi)),
+            "device_ms": dev6, "kernels": kern6,
+            "plain_ms": time_ms(lambda: ops.lut_eval6(ins, lo, hi,
+                                                      use_kernel=False),
+                                reps=3, inner=2),
+            **lut_bound_ms(M6, 6, N6, 2), "vector_width": paths}}
     M5, K5 = main_shapes["lut_eval"]
     ins5 = _random_words(rng, (M5, K5, N6), device)
     tts = _random_words(rng, (M5,), device)
-    b5 = lut_bound_ms(M5, K5, N6, 1)
+    dev5, kern5 = device_ms(lambda: ops.lut_eval(ins5, tts))
     recs["lut_eval"] = {
         "shape": [M5, K5, N6], "max_abs_err": err,
         "ms": time_ms(lambda: ops.lut_eval(ins5, tts)),
+        "device_ms": dev5, "kernels": kern5,
         "plain_ms": time_ms(lambda: ops.lut_eval(ins5, tts,
                                                  use_kernel=False),
                             reps=3, inner=2),
-        **b5}
+        **lut_bound_ms(M5, K5, N6, 1)}
     return recs
 
 
@@ -1097,11 +1355,56 @@ def lut_eval6_launches_per_circuit(nets: list) -> dict:
                         if bk.has_luts) for n in nets}
 
 
+def lut_eval6_launches_grouped(nets: list) -> int:
+    """Launches the grouped suite evaluation makes: one per level of every
+    bucket of each envelope group that holds LUTs."""
+    from repro_torch.core.eval_torch import (get_group_program,
+                                             group_plans_by_envelope,
+                                             plan_netlist)
+
+    groups = group_plans_by_envelope([plan_netlist(n) for n in nets])
+    total = 0
+    for members in groups:
+        prog = get_group_program([nets[i] for i in members])
+        total += sum(bk.n_levels for bk, (luts, _) in
+                     zip(prog.member_plans[0].buckets, prog.flags) if luts)
+    return total
+
+
+def cost_model_reading(nets: list, device, walls_ms: dict) -> dict:
+    """``flow.eval_mode_cost_model``'s pick for the suite on ``device``
+    beside the two measured warm walls, the terms it weighed, and the
+    constants that reproduce both walls in its form ``wall = ms_per_row x
+    padded rows + ms_per_program x programs`` (what the walls imply for
+    the model's dispatch cost; ``None`` when no positive pair fits)."""
+    from repro_torch.core import flow
+
+    model = flow.eval_mode_cost_model(nets, device=device)
+    faster = min(("grouped", "per_circuit"), key=lambda k: walls_ms[k])
+    rg, rp = model["padded_rows_grouped"], model["padded_rows_per_circuit"]
+    pg, pp = model["n_programs_grouped"], model["n_programs_per_circuit"]
+    det = rg * pp - rp * pg
+    per_row = per_prog = 0.0
+    if det:
+        per_row = (walls_ms["grouped"] * pp
+                   - walls_ms["per_circuit"] * pg) / det
+        per_prog = (rg * walls_ms["per_circuit"]
+                    - rp * walls_ms["grouped"]) / det
+    fit = None
+    if per_row > 0 and per_prog > 0:
+        fit = {"ms_per_row": per_row, "ms_per_program": per_prog,
+               "dispatch_row_cost": per_prog / per_row}
+    return {**model, "warm_wall_ms": walls_ms, "faster": faster,
+            "pick_is_faster": model["pick"] == faster, "fit": fit}
+
+
 def phase_suite_eval(nets: list, lanes: list, n_lane_words: int, device,
                      n_oracle_words: int = 4) -> dict:
     """Evaluate the suite grouped and per circuit through the kernels,
     and grouped through the plain version; all three equal, and equal to
-    the Python oracle on sampled lane words of every circuit."""
+    the Python oracle on sampled lane words of every circuit.  On the
+    card every LUT level is one launch of the level kernel, as planned;
+    the cost model's pick is read beside both warm walls."""
     import torch
 
     from repro_torch.core import flow
@@ -1117,7 +1420,9 @@ def phase_suite_eval(nets: list, lanes: list, n_lane_words: int, device,
 
     # cold: first upload of plan tensors; warm: the same call again
     (grouped, gstats, t_g_cold), c_g = _counted(lambda: run("grouped"))
+    v_g = _variants()["lut_eval6"]
     (per, _, t_p_cold), c_p = _counted(lambda: run("per_circuit"))
+    v_p = _variants()["lut_eval6"]
     _, _, t_g = run("grouped")
     _, _, t_p = run("per_circuit")
     plain, _, t_plain = run("grouped", use_kernel=False)
@@ -1132,10 +1437,18 @@ def phase_suite_eval(nets: list, lanes: list, n_lane_words: int, device,
         check(flow.oracle_check(n, ln, vals, n_lane_words, words=words),
               f"{n.name}: differs from the Python oracle")
     per_circuit = lut_eval6_launches_per_circuit(nets)
+    planned_grouped = lut_eval6_launches_grouped(nets)
     if device.type == "cuda":
         check(c_p["lut_eval6"] == sum(per_circuit.values()),
               f"per-circuit launches {c_p['lut_eval6']} != planned "
               f"{sum(per_circuit.values())}")
+        check(c_g["lut_eval6"] == planned_grouped,
+              f"grouped launches {c_g['lut_eval6']} != planned "
+              f"{planned_grouped}")
+        for mode, c, v in (("grouped", c_g, v_g), ("per_circuit", c_p, v_p)):
+            check(v == {"op": 0, "level": c["lut_eval6"]},
+                  f"{mode}: lut_eval6 variants {v}, expected one level "
+                  f"launch per LUT level and no op call")
     luts = sum(n.n_luts for n in nets)
     vectors = 32 * n_lane_words
     return {"phase": "suite_eval", "circuits": len(nets),
@@ -1149,7 +1462,14 @@ def phase_suite_eval(nets: list, lanes: list, n_lane_words: int, device,
             "lut_evals_per_s": {"grouped": luts * vectors / t_g,
                                 "per_circuit": luts * vectors / t_p},
             "launches": {"grouped": c_g, "per_circuit": c_p},
+            "variants": {"grouped": v_g, "per_circuit": v_p},
+            "lut_eval6_launches_planned": {
+                "grouped": planned_grouped,
+                "per_circuit": sum(per_circuit.values())},
             "lut_eval6_launches_per_circuit": per_circuit,
+            "cost_model": cost_model_reading(
+                nets, device, {"grouped": t_g * 1e3,
+                               "per_circuit": t_p * 1e3}),
             "oracle_words_per_circuit": n_oracle_words}
 
 
@@ -1157,28 +1477,35 @@ def phase_profile(nets: list, lanes: list, n_lane_words: int,
                   device, top: int = 10) -> dict:
     """One warm grouped suite evaluation under ``torch.profiler``: device
     time by kernel and copy, busy share of the wall, and the host
-    operations that take the most time."""
+    operations that take the most time; then the same for one warm
+    per-circuit evaluation.  Each run's results are dropped before the
+    next, so the pinned host buffers come from the allocator's cache."""
     import torch
 
     from repro_torch.core import flow
 
-    def run():
-        flow.evaluate_suite(nets, lanes, n_lane_words, mode="grouped",
-                            device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+    def run(mode):
+        def go():
+            flow.evaluate_suite(nets, lanes, n_lane_words, mode=mode,
+                                device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        go()  # warm: plan tensors uploaded, allocators primed
+        return go
 
-    run()  # warm: plan tensors uploaded, allocator primed
-    return {"phase": "profile", "what": "evaluate_suite grouped (warm)",
-            "n_lane_words": n_lane_words,
-            **profile_summary(run, device, top)}
+    rec = {"phase": "profile", "what": "evaluate_suite grouped (warm)",
+           "n_lane_words": n_lane_words,
+           **profile_summary(run("grouped"), device, top)}
+    rec["per_circuit"] = profile_summary(run("per_circuit"), device, top)
+    return rec
 
 
 def profile_summary(run, device, top: int = 10) -> dict:
     """One call of ``run()`` (which ends in a device synchronisation)
     under ``torch.profiler``: its wall, device busy time and idle share,
-    device time by kernel and copy, and the host operations that take the
-    most time."""
+    device time by kernel and copy (the copies and memsets also on their
+    own, by name), the number of kernels launched, and the host operations
+    that take the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1201,8 +1528,14 @@ def profile_summary(run, device, top: int = 10) -> dict:
                    for e in events if e.device_type == DeviceType.CPU),
                   key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in dev)
+    copies = [r for r in dev if r[0].startswith(("Memcpy", "Memset"))]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "device_kernel_launches": sum(c for _, _, c in dev)
+            - sum(c for _, _, c in copies),
+            "copy_ms": sum(ms for _, ms, _ in copies),
+            "copy_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
+                                for k, ms, c in copies],
             "device_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
                                   for k, ms, c in dev[:top]],
             "host_self_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
@@ -1894,7 +2227,7 @@ def main() -> int:
     nets = [n for v in suites.values() for n in v]
     levels_net = fig9_workload()
     shapes = main_path_shapes(nets, levels_net)
-    krec = kernel_parity(device, shapes)
+    krec = kernel_parity(device, shapes, widest_grouped_level(nets, device))
     emit({"phase": "kernel_parity", **krec})
     lmrec = lm_kernel_parity(device)
     emit(lmrec)
@@ -2029,6 +2362,8 @@ def main() -> int:
     # and the float32 gate run (kratos-dd), the quantized flow, the SSM
     # forwards and the binary GEMM's main call
     variant_launches = {
+        "lut_eval6": {"suite grouped": rec["variants"]["grouped"],
+                      "suite per_circuit": rec["variants"]["per_circuit"]},
         "flash_attention": {
             "serve bf16": srec["timed"]["variants"]["flash_attention"],
             "gate float32": srec["gate"]["variants"]["flash_attention"]},
@@ -2049,6 +2384,11 @@ def main() -> int:
          "shape": r["shape"],
          **{key: r[key] for key in ("device_ms", "library_device_ms")
             if key in r},
+         **({"variant": r["variant"],
+             "pin_rows_bound_ms": r["pin_rows_bound_ms"],
+             "op": {key: r["op"][key] for key in (
+                 "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                 "bound_by")}} if "op" in r else {}),
          **({"variant_launches": variant_launches[k]}
             if k in variant_launches else {})}
         for k, r in recs.items()]})

@@ -13,17 +13,22 @@ arrays equal the reference's.
 
 Evaluation walks the buckets in order and, per level:
 
-* gathers the level's LUT input lanes from the value buffer
-  (``vals[ins]`` -> ``[M, 6, N]``), runs one ``lut_eval6`` call — the CUDA
-  kernel on the card — and ``index_copy_``\\ s the outputs back;
+* evaluates the level's LUTs with one ``ops.lut_eval6_level`` call: on
+  the card one launch of the fused level kernel, which reads each LUT's
+  pins straight from the value buffer and writes its output row in place
+  (its plain version, the CPU path, is the reference's gather
+  ``vals[ins]`` -> ``lut_eval6`` -> ``index_copy_``);
 * ripples the level's stacked ``[C, B]`` carry chains as a Python loop
   over the bit positions, in torch ops (the reference ripples in plain
   jnp too; a fused kernel for it is a later, optional slice);
 * padded rows read constant-0 lanes and write a reserved sink row.
 
 The value buffer is updated in place, which the reference obtains by
-donating its buffer to the jit.  Lanes are int32 bit patterns on the
-device and leave as numpy uint32.
+donating its buffer to the jit.  It is built on the device (zeros, the
+``CONST1`` rows, the primary inputs' lanes in one transfer from pinned
+host memory) and leaves through a fresh pinned host buffer per call, so
+no pageable copy of the whole buffer crosses the bus.  Lanes are int32
+bit patterns on the device and leave as numpy uint32.
 
 Suite-scale batched evaluation
 ------------------------------
@@ -31,8 +36,9 @@ Suite-scale batched evaluation
 groups (:func:`repro_torch.core.plan.group_by_envelope`).  The
 reference's ``vmap`` over a group becomes an explicit group dimension:
 the buffer is ``[G, S + 1, N]``, seen as ``[G * (S + 1), N]`` with every
-member's signal indices offset by its row block, so one level of the
-whole group is one gather to ``[G * M, 6, N]`` and one kernel launch.
+member's signal indices offset by its row block, so the LUTs of one
+level of the whole group are one level-kernel launch over ``G * M``
+rows.
 
 The seed per-level dispatcher survives as :func:`eval_netlist_levels`,
 the baseline the fused engine is measured against: one ``lut_eval`` call
@@ -253,10 +259,12 @@ def plan_from_ir(ir: CircuitIR,
 
 
 def plan_netlist(net: Netlist,
-                 max_buckets: int = DEFAULT_MAX_BUCKETS) -> FusedPlan:
+                 max_buckets: int = DEFAULT_MAX_BUCKETS,
+                 digest: str | None = None) -> FusedPlan:
     """Compile a netlist into width-bucketed level tensors (content-cached,
-    via the content-cached functional :class:`CircuitIR`)."""
-    digest = netlist_digest(net)
+    via the content-cached functional :class:`CircuitIR`).  Pass the
+    netlist's ``digest`` when the caller has just taken it."""
+    digest = digest or netlist_digest(net)
     key = (digest, max_buckets)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
@@ -346,34 +354,58 @@ def _run_buckets(vals: torch.Tensor, buckets: list[_DeviceBucket],
                  use_kernel: bool) -> None:
     """Walk the buckets in topological order, updating ``vals[R, N]`` in
     place (the reference donates its buffer to the jit for the same
-    effect): per level, gather -> ``lut_eval6`` -> scatter, then the
-    stacked chain ripple."""
+    effect): per level, one fused LUT level (gather -> ``lut_eval6`` ->
+    scatter), then the stacked chain ripple.
+
+    Reading and writing ``vals`` in one level call is sound because no
+    LUT of a level reads another LUT's output of the same level; padded
+    LUT rows (tables 0, pins on ``CONST0``) all write 0 to their member's
+    sink row, which no real pin reads."""
     for bk in buckets:
         for r in range(bk.n_levels):
             if bk.has_luts:
-                gathered = vals[bk.lut_ins[r]]       # [M, 6, N]
-                out = ops.lut_eval6(gathered, bk.tt_lo[r], bk.tt_hi[r],
+                ops.lut_eval6_level(vals, bk.lut_ins[r], bk.tt_lo[r],
+                                    bk.tt_hi[r], bk.lut_out[r],
                                     use_kernel=use_kernel)
-                vals.index_copy_(0, bk.lut_out[r], out)
             if bk.has_chains:
                 _ripple(vals, bk, r)
 
 
 def _init_vals(n_members: int, n_rows: int, pi_lanes_list,
                n_lane_words: int, device: torch.device) -> torch.Tensor:
-    """Value buffer ``[n_members * n_rows, N]`` int32: CONST1 all-ones,
-    PI rows from the uint32 lanes, everything else 0."""
-    vals = np.zeros((n_members, n_rows, n_lane_words), dtype=np.uint32)
-    vals[:, CONST1] = 0xFFFFFFFF
-    for row, lanes in enumerate(pi_lanes_list):
-        for s, v in lanes.items():
-            vals[row, s] = np.asarray(v, dtype=np.uint32)
-    flat = vals.reshape(n_members * n_rows, n_lane_words)
-    return torch.from_numpy(flat.view(np.int32)).to(device)
+    """Value buffer ``[n_members * n_rows, N]`` int32, built on
+    ``device``: CONST1 all-ones, PI rows from the uint32 lanes, everything
+    else 0.  The PI lanes are stacked into one host tensor (pinned when
+    the buffer is on the card) and cross in a single transfer."""
+    vals = torch.zeros((n_members * n_rows, n_lane_words), dtype=torch.int32,
+                       device=device)
+    vals[CONST1::n_rows] = -1
+    rows = [g * n_rows + s for g, lanes in enumerate(pi_lanes_list)
+            for s in lanes]
+    if rows and n_lane_words:
+        host = torch.empty((len(rows), n_lane_words), dtype=torch.int32,
+                           pin_memory=device.type == "cuda")
+        words = host.numpy().view(np.uint32)
+        i = 0
+        for lanes in pi_lanes_list:
+            for v in lanes.values():
+                words[i] = np.asarray(v, dtype=np.uint32)
+                i += 1
+        idx = torch.tensor(rows, dtype=torch.int64).to(device)
+        vals.index_copy_(0, idx, host.to(device, non_blocking=True))
+    return vals
 
 
 def _to_uint32(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy().view(np.uint32)
+    """``t`` as numpy uint32 on the host.  A CUDA tensor is copied into a
+    pinned host tensor of its own, allocated for this call (PyTorch's
+    caching host allocator makes that cheap once warm): the returned array
+    aliases it, so no later call may reuse it."""
+    if t.device.type == "cpu":
+        return t.numpy().view(np.uint32)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)  # waits for the device
+    return host.numpy().view(np.uint32)
 
 
 def eval_netlist_fused(net: Netlist, pi_lanes: dict[int, np.ndarray],
@@ -477,11 +509,14 @@ def _build_group(nets: list[Netlist], max_buckets: int) -> GroupProgram:
 
 
 def get_group_program(nets: list[Netlist],
-                      max_buckets: int = DEFAULT_MAX_BUCKETS
-                      ) -> GroupProgram:
+                      max_buckets: int = DEFAULT_MAX_BUCKETS,
+                      digests: list[str] | None = None) -> GroupProgram:
     """Cached group layout (and its device tensors) for one envelope group
-    of netlists."""
-    key = (tuple(netlist_digest(net) for net in nets), max_buckets)
+    of netlists (``digests``: their content digests, when the caller has
+    just taken them)."""
+    if digests is None:
+        digests = [netlist_digest(net) for net in nets]
+    key = (tuple(digests), max_buckets)
     cached = _GROUP_CACHE.get(key)
     if cached is None:
         cached = _build_group(nets, max_buckets)
@@ -506,18 +541,33 @@ class SuiteProgram:
 
     def run(self, pi_lanes_list: list[dict[int, np.ndarray]],
             n_lane_words: int, use_kernel: bool = True) -> list[np.ndarray]:
+        """Evaluate every circuit; returns per-circuit ``vals[n_signals,
+        N]`` uint32.  Each member's own rows (not the group's padding
+        rows, nor its sink) go back into one host buffer allocated for
+        this call (pinned on the card), each copy queued behind its
+        group's levels; the results are views of that buffer."""
         outs: list = [None] * len(self.n_signals)
+        on_card = self.device.type == "cuda"
+        host = torch.empty((sum(self.n_signals), n_lane_words),
+                           dtype=torch.int32, pin_memory=on_card)
+        words = host.numpy().view(np.uint32)
+        off = 0
         for members, prog in zip(self.groups, self.programs):
             rows = prog.n_signals + 1
             vals = _init_vals(len(members), rows,
                               [pi_lanes_list[i] for i in members],
                               n_lane_words, self.device)
             _run_buckets(vals, prog.device_buckets(self.device), use_kernel)
-            # the copy to the host waits for the device: timing loops over
-            # run() measure execution, not dispatch
-            out = _to_uint32(vals).reshape(len(members), rows, n_lane_words)
             for row, i in enumerate(members):
-                outs[i] = out[row, :self.n_signals[i]]
+                n = self.n_signals[i]
+                host[off:off + n].copy_(vals[row * rows:row * rows + n],
+                                        non_blocking=on_card)
+                outs[i] = words[off:off + n]
+                off += n
+        # wait for the last copy: timing loops over run() measure
+        # execution, not dispatch
+        if on_card:
+            torch.cuda.current_stream(self.device).synchronize()
         return outs
 
 
@@ -526,18 +576,24 @@ def prepare_suite_program(nets: list[Netlist],
                           max_buckets: int = DEFAULT_MAX_BUCKETS,
                           plans: list[FusedPlan] | None = None,
                           groups: list[list[int]] | None = None,
-                          device=None) -> SuiteProgram:
+                          device=None,
+                          digests: list[str] | None = None) -> SuiteProgram:
     """Cluster a suite into <= ``max_groups`` compatible-envelope groups and
     build (or fetch from the content cache) each group's stacked tensors
     on ``device``.  Pass precomputed ``plans``/``groups`` (e.g. from a
-    cost-model pass) to skip re-planning and the O(n^2) clustering."""
+    cost-model pass) to skip re-planning and the O(n^2) clustering, and
+    the nets' content ``digests`` to take each only once per call."""
     dev = resolve_device(device)
+    if digests is None:
+        digests = [netlist_digest(net) for net in nets]
     if plans is None:
-        plans = [plan_netlist(net, max_buckets=max_buckets) for net in nets]
+        plans = [plan_netlist(net, max_buckets=max_buckets, digest=d)
+                 for net, d in zip(nets, digests)]
     if groups is None:
         groups = group_plans_by_envelope(plans, max_groups=max_groups)
     programs = [get_group_program([nets[i] for i in members],
-                                  max_buckets=max_buckets)
+                                  max_buckets=max_buckets,
+                                  digests=[digests[i] for i in members])
                 for members in groups]
     stats = {"n_groups": len(groups), "groups": []}
     for members, prog in zip(groups, programs):
@@ -600,11 +656,7 @@ def eval_netlist_levels(net: Netlist, pi_lanes: dict[int, np.ndarray],
     by_luts, by_chains, _ = levelize(net)
     levels = sorted(set(by_luts) | set(by_chains))
 
-    vals = np.zeros((net.n_signals, n_lane_words), dtype=np.uint32)
-    vals[CONST1] = 0xFFFFFFFF
-    for s, v in pi_lanes.items():
-        vals[s] = np.asarray(v, dtype=np.uint32)
-    vals = torch.from_numpy(vals.view(np.int32)).to(dev)
+    vals = _init_vals(1, net.n_signals, [pi_lanes], n_lane_words, dev)
 
     def idx(seq) -> torch.Tensor:
         return torch.as_tensor(np.asarray(seq, dtype=np.int64), device=dev)

@@ -37,8 +37,8 @@ from .equiv import check_pack_equivalence
 from .eval_torch import (DEFAULT_MAX_BUCKETS, DEFAULT_MAX_GROUPS, FusedPlan,
                          SuiteProgram, eval_netlist_fused,
                          eval_netlists_batched, group_layout,
-                         group_plans_by_envelope, plan_netlist,
-                         prepare_suite_program)
+                         group_plans_by_envelope, netlist_digest,
+                         plan_netlist, prepare_suite_program)
 from .netlist import Netlist, eval_netlist
 from .packing import PackedCircuit, pack
 from .timing import analyze
@@ -193,8 +193,10 @@ def prepare_suite(nets: list[Netlist],
 
 #: padded-row-equivalents charged per evaluation program (one group, or
 #: one circuit) in the cost model below — the fixed cost of building the
-#: value buffer, uploading it and walking the levels from Python.  The
-#: reference's value, not yet calibrated on the card.
+#: value buffer, uploading it and walking the levels from Python.
+#: The reference's value; on the card it picks grouped for the full
+#: suite, the faster of the two there (``chip_smoke.py`` phase
+#: ``suite_eval`` reads the pick beside both walls).
 EVAL_DISPATCH_ROW_COST = 4096
 
 
@@ -279,8 +281,11 @@ def evaluate_suite(nets: list[Netlist],
         raise ValueError(f"unknown evaluate_suite mode {mode!r}")
     dev = resolve_device(device)
     # plans are registry-cached; the O(n^2) agglomerative grouping runs
-    # at most ONCE and only when a branch actually needs it
-    plans = [plan_netlist(n, max_buckets=max_buckets) for n in nets]
+    # at most ONCE and only when a branch actually needs it; each content
+    # digest is taken once per call
+    digests = [netlist_digest(n) for n in nets]
+    plans = [plan_netlist(n, max_buckets=max_buckets, digest=d)
+             for n, d in zip(nets, digests)]
     model = None
     chosen = mode
     groups = None
@@ -294,7 +299,7 @@ def evaluate_suite(nets: list[Netlist],
             groups = group_plans_by_envelope(plans, max_groups=max_groups)
         program = prepare_suite_program(nets, max_buckets=max_buckets,
                                         plans=plans, groups=groups,
-                                        device=dev)
+                                        device=dev, digests=digests)
         outs, stats = eval_netlists_batched(
             nets, pi_lanes_list, n_lane_words, use_kernel=use_kernel,
             return_stats=True, program=program)

@@ -18,7 +18,9 @@ tensor-core bit-plane product folds and splits first; the split attention
 combines after; the shared-score SSD scan forms its scores first).
 ``bitplane_matmul``, ``flash_attention``, ``ssd_scan`` and
 ``popcount_matmul`` name their kernels, chosen by shape and type alone
-(each launcher's ``variant``); each call also adds one to its variant's
+(each launcher's ``variant``); ``lut_eval6`` names its entry point (the
+op, ``"op"``, or the evaluator's fused level, ``"level"``, both counted
+in ``lut_eval6.launches``); each call also adds one to its variant's
 count in ``.variants`` (:func:`variant_counts`).  Lanes
 are int32 bit patterns (see :mod:`repro_torch.kernels.ref`).
 """
@@ -57,8 +59,31 @@ def lut_eval6(inputs: torch.Tensor, tt_lo: torch.Tensor, tt_hi: torch.Tensor,
         out = lut_eval6_cuda(inputs, tt_lo, tt_hi)
         if out.numel():  # an empty call launches nothing
             lut_eval6.launches += 1
+            lut_eval6.variants["op"] += 1
         return out
     return ref.lut_eval6_ref(inputs, tt_lo, tt_hi)
+
+
+def lut_eval6_level(vals: torch.Tensor, ins_idx: torch.Tensor,
+                    tt_lo: torch.Tensor, tt_hi: torch.Tensor,
+                    out_idx: torch.Tensor, use_kernel: bool = True
+                    ) -> torch.Tensor:
+    """One fused LUT level of the evaluator, in place on the value buffer
+    ``vals[R, N]``: ``vals[out_idx] = lut_eval6(vals[ins_idx], tt_lo,
+    tt_hi)`` with ``ins_idx[M, 6]`` / ``out_idx[M]`` int64.  On the card
+    one launch of the level kernel, counted in ``lut_eval6.launches``
+    (variant ``"level"``); its plain version is that composition
+    (:func:`repro_torch.kernels.ref.lut_eval6_level_ref`).  Returns
+    ``vals``."""
+    if _wants_kernel(vals, use_kernel):
+        from .lut_eval import lut_eval6_level_cuda
+
+        lut_eval6_level_cuda(vals, ins_idx, tt_lo, tt_hi, out_idx)
+        if out_idx.numel() and vals.shape[1]:
+            lut_eval6.launches += 1
+            lut_eval6.variants["level"] += 1
+        return vals
+    return ref.lut_eval6_level_ref(vals, ins_idx, tt_lo, tt_hi, out_idx)
 
 
 def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
@@ -143,7 +168,8 @@ def popcount_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor,
 _COUNTED = (lut_eval6, lut_eval, flash_attention, bitplane_matmul, ssd_scan,
             popcount_matmul)
 #: the kernels of the ops that name theirs (each call counted per kernel)
-_VARIANTS = {flash_attention: ("mma", "split", "ffma"),
+_VARIANTS = {lut_eval6: ("op", "level"),
+             flash_attention: ("mma", "split", "ffma"),
              bitplane_matmul: ("tensor_core", "small_m", "ffma"),
              ssd_scan: ("mma", "ffma"),
              popcount_matmul: ("tensor_core",)}
@@ -164,7 +190,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def variant_counts() -> dict[str, dict[str, int]]:
-    """Calls per kernel variant of ``flash_attention``,
+    """Calls per kernel variant of ``lut_eval6``, ``flash_attention``,
     ``bitplane_matmul``, ``ssd_scan`` and ``popcount_matmul`` since the
     last :func:`reset_launch_counts`."""
     return {fn.__name__: dict(fn.variants) for fn in _VARIANTS}

@@ -123,6 +123,17 @@ def lut_eval6_ref(inputs: torch.Tensor, tt_lo: torch.Tensor,
     return (sel & hi) | (~sel & lo)
 
 
+def lut_eval6_level_ref(vals: torch.Tensor, ins_idx: torch.Tensor,
+                        tt_lo: torch.Tensor, tt_hi: torch.Tensor,
+                        out_idx: torch.Tensor) -> torch.Tensor:
+    """One LUT level of the fused evaluator in place on ``vals[R, N]``:
+    gather the pins ``vals[ins_idx]`` (``[M, 6, N]``), evaluate them with
+    :func:`lut_eval6_ref` and ``index_copy_`` the rows to ``out_idx``
+    (the reference's ``_fused_body`` LUT half).  Returns ``vals``."""
+    return vals.index_copy_(0, out_idx,
+                            lut_eval6_ref(vals[ins_idx], tt_lo, tt_hi))
+
+
 def bitplane_coeffs(n_planes: int) -> list[float]:
     """Two's-complement plane weights: ``2^b``, the top plane ``-2^(B-1)``."""
     return [-(2.0 ** (n_planes - 1)) if b == n_planes - 1 else 2.0 ** b

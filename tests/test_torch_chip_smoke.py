@@ -34,7 +34,10 @@ def test_phase_functions_importable():
                  "unpack_signs", "forward_gate", "forward_timed",
                  "phase_ssm", "phase_profile_ssm", "cast_params",
                  "forward_gate_bf16", "drop_diagonal", "check_mma_ref",
-                 "at_p_block", "first_layers"):
+                 "at_p_block", "first_layers", "lut_sass_counts",
+                 "widest_grouped_level", "level_parity", "random_level",
+                 "lut_eval6_launches_grouped", "cost_model_reading",
+                 "check_lut_sass", "level_rows_once_bound"):
         assert callable(getattr(cs, name)), name
 
 
@@ -65,6 +68,53 @@ def test_bounds():
     assert 0.07 < b["bound_ms"] < 0.09
 
 
+def _sass(per_word: float) -> dict:
+    return {"vec": 4, "lop3": per_word * 8, "instructions": 800,
+            "words_per_thread": 8, "lop3_per_word": per_word}
+
+
+@pytest.mark.parametrize("counts, ok", [
+    ({"lut_eval6_kernel<4>": 63.25, "lut_eval6_level_kernel<4>": 63.25},
+     True),
+    ({"lut_eval6_kernel<4>": 63.0, "lut_eval6_level_kernel<4>": 66.0}, True),
+    # a sum of products (~260 logic ops per word) fails
+    ({"lut_eval6_kernel<4>": 260.0, "lut_eval6_level_kernel<4>": 63.25},
+     False),
+    # a tree the compiler cut short fails
+    ({"lut_eval6_kernel<4>": 63.25, "lut_eval6_level_kernel<4>": 40.0},
+     False),
+    # a kernel the reading did not find fails
+    ({"lut_eval6_kernel<4>": 63.25}, False),
+    ({}, False),
+])
+def test_check_lut_sass(counts, ok):
+    sass = {name: _sass(v) for name, v in counts.items()}
+    if ok:
+        cs.check_lut_sass(sass)
+    else:
+        with pytest.raises(cs.SmokeFailure):
+            cs.check_lut_sass(sass)
+
+
+def test_level_bound_counts_what_the_data_needs():
+    """The level's data bound reads each distinct row of a LUT with a
+    table other than 0 once, writes each distinct output row once, and
+    charges the tree's operations to those LUTs only; the [M, 6, N]
+    figure counts every pin row."""
+    ins = torch.tensor([[2, 3, 3, 4, 0, 0], [2, 2, 5, 5, 5, 0],
+                        [0] * 6, [0] * 6])
+    level = {"luts": 4, "ins": ins, "out": torch.tensor([6, 7, 9, 9]),
+             "tt_lo": torch.tensor([5, 0, 0, 0], dtype=torch.int32),
+             "tt_hi": torch.tensor([0, 1, 0, 0], dtype=torch.int32)}
+    b = cs.level_rows_once_bound(level, 1024)
+    assert b["nonzero_tables"] == 2
+    assert b["rows_read"] == 5 and b["rows_written"] == 3
+    assert b["bytes"] == 4 * 1024 * (5 + 3) + 8 * 4
+    assert b["ops_ms"] == cs.lut_bound_ms(2, 6, 1024, 2)["ops_ms"]
+    assert b["bound_ms"] == max(b["bytes_ms"], b["ops_ms"])
+    assert b["bound_ms"] < cs.lut_bound_ms(4, 6, 1024, 2)["bound_ms"]
+
+
 def test_phases_rehearsed_on_cpu():
     nets = circuits.vtr_suite(scale=0.3)[:3]
     rec = cs.phase_flow({"vtr": nets[:2]}, CPU)
@@ -76,8 +126,15 @@ def test_phases_rehearsed_on_cpu():
          "bitplane_matmul": 0, "ssd_scan": 0, "popcount_matmul": 0}
     assert set(rec["lut_eval6_launches_per_circuit"]) == \
         {n.name for n in nets}
+    assert rec["variants"]["grouped"] == {"op": 0, "level": 0}
+    assert rec["lut_eval6_launches_planned"]["grouped"] > 0
+    model = rec["cost_model"]
+    assert model["backend"] == "cpu" and model["faster"] in \
+        ("grouped", "per_circuit")
+    assert model["pick_is_faster"] == (model["pick"] == model["faster"])
     rec = cs.phase_profile(nets, lanes, 2, CPU)
     assert rec["device_busy_ms"] == 0 and rec["host_self_ms_by_name"]
+    assert rec["copy_ms"] == 0 and rec["device_kernel_launches"] == 0
     rec = cs.phase_equiv(nets[:2], CPU, n_vectors=64)
     assert all(c["equivalent"] for c in rec["circuits"])
     stress = packing_stress_circuit(n_adders=20, n_luts=20, depth=2)
@@ -86,6 +143,31 @@ def test_phases_rehearsed_on_cpu():
     shapes = cs.main_path_shapes(nets, stress)
     assert shapes["lut_eval6"][1] == cs.N_LANE_WORDS
     assert 1 <= shapes["lut_eval"][1] <= 5
+
+
+def test_level_parity_rehearsed_on_cpu():
+    """The level variant's parity inputs on the CPU (both sides run the
+    plain version here): the widest grouped level of a small suite, and
+    random levels laid out as the planner lays one out."""
+    nets = circuits.vtr_suite(scale=0.3)
+    level = cs.widest_grouped_level(nets, CPU)
+    M = level["luts"]
+    assert level["ins"].shape == (M, 6) and level["out"].shape == (M,)
+    assert 0 < level["real_luts"] <= M
+    assert int(level["ins"].max()) < level["rows"]
+    assert int(level["out"].max()) < level["rows"]
+    # no pin of the level reads a row the level writes
+    assert not set(level["ins"].flatten().tolist()) & \
+        set(level["out"].tolist())
+    errs = cs.level_parity(CPU, level, cases=[(100, 20, 3)], n_words=2)
+    assert set(errs.values()) == {0} and len(errs) == 3
+    rng = np.random.default_rng(0)
+    vals, ins, lo, hi, out = cs.random_level(rng, 50, 10, 3, CPU,
+                                             unaligned=True)
+    pad = out == 49
+    assert pad.sum() == 2 and (ins[pad] == 0).all() and (lo[pad] == 0).all()
+    assert not set(ins.flatten().tolist()) & set(out[~pad].tolist())
+    assert vals[0].eq(0).all() and vals[1].eq(-1).all()
 
 
 def test_check_raises():

@@ -5,6 +5,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import circuits as rcirc
 from repro.core import eval_jax as rev
@@ -209,3 +210,77 @@ def test_cost_model_backend_from_device():
     assert m["padded_rows_grouped"] == ref["padded_rows_grouped"]
     assert m["padded_rows_per_circuit"] == ref["padded_rows_per_circuit"]
     assert m["pick"] == ref["pick"]
+
+
+def _assert_level_reads_no_output(ins: np.ndarray, out: np.ndarray,
+                                  sinks: set, where: str):
+    """No pin of the level reads a row the level writes, nor any sink:
+    what makes the level kernel's in-place reads and writes sound."""
+    real_out = set(out.tolist()) - sinks
+    read = set(ins.flatten().tolist())
+    assert not read & real_out, where
+    assert not read & sinks, where
+
+
+def test_plan_levels_never_read_their_own_outputs():
+    """For every bucket level of the 17 suite circuits (scale 0.3), on
+    their own and in their grouped layouts, no ``lut_ins`` index equals
+    one of that level's real ``lut_out`` rows or a sink."""
+    nets = tcirc.kratos_suite(scale=0.3) + tcirc.koios_suite(scale=0.3) + \
+        tcirc.vtr_suite(scale=0.3)
+    assert len(nets) == 17
+    plans = [tev.plan_netlist(n) for n in nets]
+    for net, plan in zip(nets, plans):
+        for b, bk in enumerate(plan.buckets):
+            if not bk.has_luts:
+                continue
+            for r in range(bk.n_levels):
+                _assert_level_reads_no_output(
+                    bk.lut_ins[r], bk.lut_out[r], {plan.sink},
+                    f"{net.name} bucket {b} level {r}")
+    for members in tev.group_plans_by_envelope(plans):
+        prog = tev.get_group_program([nets[i] for i in members])
+        rows = prog.n_signals + 1
+        sinks = {g * rows + prog.n_signals for g in range(len(members))}
+        for b, dbk in enumerate(prog.device_buckets(torch.device(CPU))):
+            if not dbk.has_luts:
+                continue
+            for r in range(dbk.n_levels):
+                _assert_level_reads_no_output(
+                    dbk.lut_ins[r].numpy(), dbk.lut_out[r].numpy(), sinks,
+                    f"group {members} bucket {b} level {r}")
+
+
+def test_device_built_value_buffer_equals_numpy():
+    """``_init_vals`` builds on the device what the numpy construction it
+    replaced built on the host: CONST1 rows all-ones, PI rows from the
+    lanes, every other row 0, per member."""
+    nets = [both(n)[0] for n in ("dla-like", "gemm", "sha-like")]
+    NW, rows = 3, max(n.n_signals for n in nets) + 1
+    lanes = [lanes_for(n, NW, seed=i) for i, n in enumerate(nets)]
+    want = np.zeros((len(nets), rows, NW), dtype=np.uint32)
+    want[:, 1] = 0xFFFFFFFF   # CONST1
+    for g, ln in enumerate(lanes):
+        for s, v in ln.items():
+            want[g, s] = v
+    got = tev._init_vals(len(nets), rows, lanes, NW, torch.device(CPU))
+    assert got.dtype == torch.int32 and got.shape == (len(nets) * rows, NW)
+    assert np.array_equal(got.numpy().view(np.uint32),
+                          want.reshape(-1, NW))
+
+
+def test_suite_runs_do_not_alias():
+    """Two successive ``SuiteProgram.run`` calls return arrays that do not
+    share memory: the first result is unchanged after the second."""
+    nets = tcirc.vtr_suite(scale=0.3)[:3]
+    NW = 2
+    prog = tev.prepare_suite_program(nets, max_groups=2, device=CPU)
+    first = prog.run([lanes_for(n, NW, seed=i) for i, n in enumerate(nets)],
+                     NW)
+    kept = [a.copy() for a in first]
+    second = prog.run([lanes_for(n, NW, seed=10 + i)
+                       for i, n in enumerate(nets)], NW)
+    for a, k, b in zip(first, kept, second):
+        assert np.array_equal(a, k)
+        assert not np.shares_memory(a, b)
+        assert not np.array_equal(a, b)

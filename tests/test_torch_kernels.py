@@ -137,3 +137,99 @@ def test_build_paths_and_missing_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(build.KernelBuildError):
         build.nvcc_path()
+
+
+def _level_inputs(seed: int, R: int = 40, M: int = 12, N: int = 3):
+    """A LUT level laid out as the evaluator's planner lays one out, over
+    a random value buffer ``vals[R, N]``: outputs on distinct rows that no
+    pin reads, some real pins on CONST0 / CONST1, every fourth LUT a
+    padding row (table 0, pins on CONST0) writing the sink row R - 1, so
+    the sink is written several times in one call."""
+    r = rng(seed)
+    vals = r.integers(0, 2**32, size=(R, N), dtype=np.uint32)
+    vals[0], vals[1] = 0, 0xFFFFFFFF
+    rows = r.permutation(R - 3) + 2
+    out_idx = rows[:M].astype(np.int64)
+    ins = r.choice(rows[M:], size=(M, 6)).astype(np.int64)
+    ins[1, 3], ins[2, 0] = 0, 1
+    tt_lo = r.integers(0, 2**32, size=M, dtype=np.uint32)
+    tt_hi = r.integers(0, 2**32, size=M, dtype=np.uint32)
+    tt_hi[1::3] = tt_lo[1::3]
+    pad = np.arange(M) % 4 == 0
+    out_idx[pad], ins[pad], tt_lo[pad], tt_hi[pad] = R - 1, 0, 0, 0
+    assert (out_idx == R - 1).sum() >= 2
+    return vals, ins, tt_lo, tt_hi, out_idx
+
+
+@pytest.mark.parametrize("seed,R,M,N", [(0, 40, 12, 3), (1, 300, 64, 8),
+                                        (2, 20, 5, 1)])
+def test_lut_eval6_level_matches_composition_and_reference(seed, R, M, N):
+    """The fused level on the CPU equals gather -> ``lut_eval6_ref`` ->
+    ``index_copy_``, and the reference's level body ``_fused_body`` (its
+    LUT half, the Pallas kernel in interpret mode) on the same inputs,
+    duplicate sink writes and CONST0 pins included."""
+    from repro.core.eval_jax import _fused_body
+
+    vals, ins, tt_lo, tt_hi, out_idx = _level_inputs(seed, R, M, N)
+    args = (torch.from_numpy(ins), t32(tt_lo), t32(tt_hi),
+            torch.from_numpy(out_idx))
+    got = ops.lut_eval6_level(t32(vals).clone(), *args)
+    v = t32(vals).clone()
+    v.index_copy_(0, args[3], ref.lut_eval6_ref(v[args[0]], args[1],
+                                                args[2]))
+    assert torch.equal(got, v)
+    assert torch.equal(ops.lut_eval6_level(t32(vals).clone(), *args,
+                                           use_kernel=False), v)
+    xs = (jnp.asarray(ins.astype(np.int32)), jnp.asarray(tt_lo),
+          jnp.asarray(tt_hi), jnp.asarray(out_idx.astype(np.int32)),
+          None, None, None, None, None, None)
+    want, _ = _fused_body(jnp.asarray(vals), xs, has_luts=True,
+                          has_chains=False, use_pallas=True)
+    assert np.array_equal(u32(got), np.asarray(want))
+    # rows no LUT writes are untouched, the sink holds 0
+    untouched = np.setdiff1d(np.arange(R), out_idx)
+    assert np.array_equal(u32(got)[untouched], vals[untouched])
+    assert (u32(got)[R - 1] == 0).all()
+
+
+def test_cpu_dispatch_moves_no_variant_counter():
+    """On CPU tensors neither ``lut_eval6`` nor its level variant moves
+    a launch or variant counter, whatever ``use_kernel`` says."""
+    ops.reset_launch_counts()
+    vals, ins, lo, hi, out = _level_inputs(3)
+    ti = t32(np.random.default_rng(3).integers(
+        0, 2**32, size=(4, 6, 2), dtype=np.uint32))
+    for use_kernel in (True, False):
+        ops.lut_eval6_level(t32(vals), torch.from_numpy(ins), t32(lo),
+                            t32(hi), torch.from_numpy(out),
+                            use_kernel=use_kernel)
+        ops.lut_eval6(ti, t32(lo[:4]), t32(hi[:4]), use_kernel=use_kernel)
+    assert ops.launch_counts()["lut_eval6"] == 0
+    assert ops.variant_counts()["lut_eval6"] == {"op": 0, "level": 0}
+
+
+def test_level_launcher_refuses_host_tensors():
+    """The level kernel's launcher takes CUDA tensors only; it raises
+    rather than fall back."""
+    from repro_torch.kernels.lut_eval import lut_eval6_level_cuda
+
+    vals = torch.zeros((8, 4), dtype=torch.int32)
+    idx = torch.zeros((2, 6), dtype=torch.int64)
+    tt = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        lut_eval6_level_cuda(vals, idx, tt, tt, idx[:, 0].contiguous())
+
+
+def test_vector_width_rule():
+    """The 6-input kernels take 128-bit accesses only where every row of
+    every lane tensor starts 16-byte aligned: N a multiple of 4 and
+    aligned base pointers."""
+    from repro_torch.kernels.lut_eval import vector_width
+
+    base = torch.zeros(4 * 64 + 1, dtype=torch.int32)
+    assert base.data_ptr() % 16 == 0
+    assert vector_width(8, base) == 4
+    assert vector_width(6, base) == 1
+    assert vector_width(8, base[1:]) == 1
+    assert vector_width(8, base, base[4:]) == 4
+    assert vector_width(8, base, base[2:]) == 1

@@ -244,6 +244,7 @@ def test_cpu_calls_count_no_variant():
     q, k, v = (t(a) for a in _inputs((1, 2, 1, 1, 9, 16)))
     ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert ops.variant_counts() == {
+        "lut_eval6": {"op": 0, "level": 0},
         "flash_attention": {"mma": 0, "split": 0, "ffma": 0},
         "bitplane_matmul": {"tensor_core": 0, "small_m": 0, "ffma": 0},
         "ssd_scan": {"mma": 0, "ffma": 0},
