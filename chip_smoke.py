@@ -63,9 +63,25 @@ exits non-zero:
    name, kernels launched, device idle share, host hot spots);
 8. equivalence through the card: ``conv2d-fu`` and ``conv1d-fu`` under
    DD5 proven by lane simulation on the fused evaluator;
-9. per-level baseline: the Fig. 9 stress workload through ``lut_eval``,
-   equal to the fused evaluator;
-10. serve: ``kratos-dd`` at full width — a float32 gate run (kernel path
+9. sweep: ``flow.sweep_architectures`` over the default 7-point arch
+   grid through the torch timing program on the card, cold and warm
+   (caller-owned packs and programs; the warm call also under
+   ``torch.profiler``): its wall split, programs built, kernels launched
+   and idle share; every record equal to the numpy sweep and the Python
+   oracle, the ``b0`` / ``b2_f10`` / ``b2_f10_l6`` rows equal to the flow
+   phase's baseline / DD5 / DD6 records; the frontier rows;
+10. sweep_placed: the 14-point grid (two wire-tier profiles) on the
+    Kratos suite, placed and anneal-refined, equal to the placed Python
+    oracle, its zero-wire rows equal to the unplaced sweep's; the place /
+    anneal / timing walls;
+11. search: ``flow.search_design_space`` over the full 1,920-point grid
+    (budget 12,000, eta 4, at least 8 survivors) with the torch backend
+    and ``verify=True``, equal rung by rung to a numpy-backend rerun; the
+    winners verified, and the winner's packs of the two smallest circuits
+    proven equivalent by lane simulation through ``lut_eval6``;
+12. per-level baseline: the Fig. 9 stress workload through ``lut_eval``,
+    equal to the fused evaluator;
+13. serve: ``kratos-dd`` at full width — a float32 gate run (kernel path
     against the plain path and the teacher-forced forward, within 5e-3,
     identical greedy tokens), a bfloat16 gate (the float32 plain run's
     tokens forced through the bfloat16 kernel and plain paths: kernel
@@ -77,13 +93,13 @@ exits non-zero:
     one mma call per layer for the prefill, split calls for the decode
     steps); then profile_decode, a warm bfloat16 prefill and decode step
     under ``torch.profiler``;
-11. serve_gemma2: ``gemma2-2b`` at full width, the same gates with a
+14. serve_gemma2: ``gemma2-2b`` at full width, the same gates with a
     prompt of 4608 tokens so that the local layers' window of 4096 bites,
     a timed bfloat16 run, and its profile_decode;
-12. quantized: the quantized-serving flow on ``kratos-dd`` — every
+15. quantized: the quantized-serving flow on ``kratos-dd`` — every
     layer's FFN ``wi`` as 6 bit-planes through ``bitplane_matmul`` at 8
     rows (the small_m variant) and 4096 rows (tensor_core);
-13. ssm_mamba2: ``mamba2-2.7b`` at full width — a float32 gate (the
+16. ssm_mamba2: ``mamba2-2.7b`` at full width — a float32 gate (the
     kernel-path forward against the plain forward at 512 tokens; cached
     serving of a 497-token prompt and 16 new tokens against the plain
     serving run and the kernel-path forward, within 5e-3, identical
@@ -93,16 +109,17 @@ exits non-zero:
     disagreement with float32 activations``)``, argmax bounded alike), a
     timed bfloat16 forward (2 x 4096, 64 ``ssd_scan`` launches, all mma)
     and a timed bfloat16 serving run (8 x 512, 32 new tokens);
-14. profile_ssm: a warm mamba2 forward and decode step under
+17. profile_ssm: a warm mamba2 forward and decode step under
     ``torch.profiler``;
-15. ssm_hymba: ``hymba-1.5b`` at full width, the same gate, a timed
+18. ssm_hymba: ``hymba-1.5b`` at full width, the same gate, a timed
     forward at 2 x 2048 (the window of 1024 bites; 32 ``ssd_scan`` and 32
     ``flash_attention`` launches) and a timed serving run with 2048-token
     prompts (32 flash launches per step); then its profile_ssm;
-16. summary: the ``kernels`` line (all six kernels; for those with
+19. summary: the ``kernels`` line (all six kernels; for those with
     variants, each variant's calls on the main paths; ``lut_eval6``'s
     times and bound are its level variant's, the one the main paths
-    launch, with the op's beside), the card line, and as the last line
+    launch, with the op's beside, and its launches include the search
+    phase's), the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each phase that drives the main
@@ -1316,7 +1333,9 @@ def _variants() -> dict:
 
 def phase_flow(suites: dict, device, seeds=(0,)) -> dict:
     """Pack + analyze every circuit under baseline / DD5 / DD6 with the
-    equivalence gate; geomean ratios against the baseline per suite."""
+    equivalence gate; geomean ratios against the baseline per suite, and
+    each circuit's critical path and area per arch (``records``, which
+    the sweep phase holds its paper rows to)."""
     from repro_torch.core import flow
 
     t0 = time.perf_counter()
@@ -1324,9 +1343,14 @@ def phase_flow(suites: dict, device, seeds=(0,)) -> dict:
         suites, ARCH_NAMES, seeds=seeds, check_equiv=True, device=device))
     wall = time.perf_counter() - t0
     ratios = {}
+    records = {}
     for suite, rows in res.items():
         per = [flow.ratios_vs_baseline(r["per_arch"]) for r in rows]
         for r in rows:
+            check(r["net"] not in records, f"circuit name {r['net']} twice")
+            records[r["net"]] = {
+                arch: {k: rec[k] for k in ("critical_path_ps", "area_mwta")}
+                for arch, rec in r["per_arch"].items()}
             for arch, rec in r["per_arch"].items():
                 check(rec["equivalent"], f"{r['net']}@{arch} not equivalent")
         ratios[suite] = {
@@ -1336,7 +1360,7 @@ def phase_flow(suites: dict, device, seeds=(0,)) -> dict:
     return {"phase": "flow", "wall_s": wall, "circuits":
             sum(len(v) for v in suites.values()), "archs": list(ARCH_NAMES),
             "seeds": list(seeds), "geomean_ratios_vs_baseline": ratios,
-            "launches": counts}
+            "launches": counts, "records": records}
 
 
 def suite_lanes(nets: list, n_lane_words: int) -> list:
@@ -1562,6 +1586,197 @@ def phase_equiv(nets: list, device, n_vectors: int) -> dict:
                      "launches": counts})
     return {"phase": "equiv", "arch": "dd5", "n_vectors": n_vectors,
             "wall_s": time.perf_counter() - t0, "circuits": recs}
+
+
+#: the placed sweep's wire-tier profiles (ps): zero, which reproduces the
+#: unplaced timing, and the routed hierarchy of ``benchmarks/place_sweep.py``
+SWEEP_WIRE_PROFILES = ((0.0, 0.0, 0.0), (25.0, 40.0, 120.0))
+#: the grid rows with the paper's three architectures' parameters
+CANONICAL_ROWS = {"baseline": "b0", "dd5": "b2_f10", "dd6": "b2_f10_l6"}
+#: the placed sweep runs on the Kratos suite alone, which keeps the whole
+#: script near half its time limit (its oracle gate packs each circuit
+#: afresh at every point: 98 packs here, 238 on all three suites)
+PLACED_SUITES = ("kratos",)
+#: the design-space search's parameters (``benchmarks/search_frontier.py``)
+SEARCH_PARAMS = {"budget": 12000, "eta": 4, "min_survivors": 8}
+
+
+def stable_payload(payload: dict) -> dict:
+    """A search payload without its walls (the deterministic part)."""
+    return {**payload, "rungs": [{k: v for k, v in r.items() if k != "walls"}
+                                 for r in payload["rungs"]]}
+
+
+def phase_sweep(suites: dict, device, flow_rec: dict, archs=None
+                ) -> tuple[dict, dict]:
+    """``flow.sweep_architectures`` over the default 7-point grid through
+    the torch timing program: cold, then warm with caller-owned packs and
+    programs, then warm under ``torch.profiler`` (device busy, idle share,
+    kernels launched).  Every record equals the numpy sweep's and the
+    Python oracle's, and the rows with the paper's parameters equal the
+    flow phase's records.  Returns the record and what the placed phase
+    reuses (the unplaced result and the packs)."""
+    from repro_torch.core import flow, sweep, timing_vec
+    from repro_torch.core.alm import arch_grid
+
+    archs = arch_grid() if archs is None else archs
+    packs, programs = {}, {}
+
+    def run():
+        res = flow.sweep_architectures(suites, archs=archs, backend="torch",
+                                       packs=packs, programs=programs,
+                                       device=device)
+        _sync(device)
+        return res
+
+    built0 = timing_vec.read_compile_counts()["programs"]
+    t0 = time.perf_counter()
+    cold = run()
+    t_cold = time.perf_counter() - t0
+    built = timing_vec.read_compile_counts()["programs"] - built0
+    t0 = time.perf_counter()
+    warm = run()
+    t_warm = time.perf_counter() - t0
+    check(timing_vec.read_compile_counts()["programs"] == built0 + built,
+          "the warm sweep built a timing program again")
+    prof = profile_summary(run, device)
+    t0 = time.perf_counter()
+    plain = flow.sweep_architectures(suites, archs=archs, backend="numpy",
+                                     packs=packs)
+    t_numpy = time.perf_counter() - t0
+    for res, what in ((cold, "cold"), (warm, "warm")):
+        check(res.records == plain.records,
+              f"the {what} torch sweep differs from the numpy sweep")
+    t0 = time.perf_counter()
+    check(sweep.oracle_parity(cold, suites, archs),
+          "a sweep record differs from the Python oracle")
+    t_oracle = time.perf_counter() - t0
+    for g, net in enumerate(cold.circuits):
+        for arch, row in CANONICAL_ROWS.items():
+            got, want = cold.by_arch(row)[g], flow_rec["records"][net][arch]
+            check(all(got[k] == want[k] for k in want),
+                  f"{net}: sweep row {row} differs from the flow's {arch}")
+    rec = {"phase": "sweep", "circuits": len(cold.circuits),
+           "archs": cold.archs, "structural_classes": cold.n_classes,
+           "wall_s": {"cold": t_cold, "warm": t_warm, "numpy": t_numpy,
+                      "oracle_parity": t_oracle},
+           "wall_split": {"cold": cold.wall, "warm": warm.wall,
+                          "numpy": plain.wall},
+           "programs_built": {"cold": built, "warm": 0},
+           "profile_warm": {k: prof[k] for k in (
+               "wall_ms", "device_busy_ms", "device_idle_share",
+               "device_kernel_launches", "copy_ms", "device_ms_by_name")},
+           "equal_numpy": True, "oracle_parity": True,
+           "canonical_rows_equal_flow": dict(CANONICAL_ROWS),
+           "frontier": flow.sweep_frontier(cold, baseline="b0")}
+    return rec, {"result": cold, "packs": packs}
+
+
+def phase_sweep_placed(suites: dict, device, unplaced, packs: dict,
+                       archs=None) -> dict:
+    """The placed sweep over the 14-point grid (the 7 points x two
+    wire-tier profiles), anneal-refined placements, through the torch
+    program: every record equal to the placed Python oracle, the
+    zero-wire rows equal to the unplaced sweep's (``unplaced`` may cover
+    more circuits than ``suites``)."""
+    from repro_torch.core import flow, sweep
+    from repro_torch.core.alm import arch_grid
+
+    archs = arch_grid(wire_delays=SWEEP_WIRE_PROFILES) if archs is None \
+        else archs
+    t0 = time.perf_counter()
+    res = flow.sweep_architectures(suites, archs=archs, backend="torch",
+                                   packs=packs, place=True, refine="anneal",
+                                   device=device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(sweep.oracle_parity(res, suites, archs, place=True,
+                              refine="anneal"),
+          "a placed sweep record differs from the placed Python oracle")
+    t_oracle = time.perf_counter() - t0
+    zero = [a.name for a in archs
+            if (a.t_wire_hop1, a.t_wire_hop2, a.t_wire_long) == (0, 0, 0)]
+    for name in zero:
+        flat = {r["net"]: r for r in unplaced.by_arch(name)}
+        check(all(r == flat[r["net"]] for r in res.by_arch(name)),
+              f"placed zero-wire row {name} differs from the unplaced one")
+    return {"phase": "sweep_placed", "suites": list(suites),
+            "circuits": len(res.circuits),
+            "archs": res.archs, "structural_classes": res.n_classes,
+            "wall_s": wall, "oracle_parity_s": t_oracle,
+            "wall_split": res.wall, "oracle_parity": True,
+            "zero_wire_rows_equal_unplaced": zero,
+            "frontier": flow.sweep_frontier(res, baseline="b0")}
+
+
+def phase_search(suites: dict, device, archs=None, params=None) -> dict:
+    """``flow.search_design_space`` over the full grid with the torch
+    backend and ``verify=True``, then again with the numpy backend (its
+    packs are cache hits): equal rungs, survivors, frontier and winner,
+    the winners verified.  The winner's packs of the two smallest
+    circuits are then proven equivalent by lane simulation on the fused
+    evaluator (``lut_eval6`` launches counted)."""
+    from repro_torch.core import flow, timing_vec
+    from repro_torch.core.alm import full_arch_grid
+    from repro_torch.core.equiv import check_pack_equivalence
+    from repro_torch.core.search import net_size
+
+    archs = full_arch_grid() if archs is None else archs
+    params = SEARCH_PARAMS if params is None else params
+    kw = dict(params, archs=archs)
+    built0 = timing_vec.read_compile_counts()["programs"]
+    t0 = time.perf_counter()
+    res, counts = _counted(lambda: flow.search_design_space(
+        suites, backend="torch", device=device, verify=True, **kw))
+    t_torch = time.perf_counter() - t0
+    variants = _variants()["lut_eval6"]
+    built = timing_vec.read_compile_counts()["programs"] - built0
+    t0 = time.perf_counter()
+    plain = flow.search_design_space(suites, backend="numpy", **kw)
+    t_numpy = time.perf_counter() - t0
+    check(res.survivor_trajectory() == plain.survivor_trajectory(),
+          "search survivors differ between the torch and numpy backends")
+    check((res.frontier, res.pareto, res.winner)
+          == (plain.frontier, plain.pareto, plain.winner),
+          "search frontier or winner differs between the backends")
+    check(stable_payload(res.payload()) == stable_payload(plain.payload()),
+          "search payloads differ between the backends")
+    check(res.verify["oracle_match"] and res.verify["equivalent"],
+          f"search winners failed verification: {res.verify}")
+    winner = {a.name: a for a in archs}[res.winner]
+    nets = sorted((n for ns in suites.values() for n in ns),
+                  key=lambda n: (net_size(n), n.name))[:2]
+    simulated = []
+    for net in nets:
+        rep, c = _counted(lambda: check_pack_equivalence(
+            net, winner, method="simulate", use_fused=True, device=device))
+        check(rep["equivalent"], f"{net.name}@{res.winner} not equivalent: "
+                                 f"{rep['mismatches'][:1]}")
+        simulated.append({"net": net.name, "signals": net.n_signals,
+                          "lut_eval6_launches": c["lut_eval6"]})
+    sim_launches = sum(r["lut_eval6_launches"] for r in simulated)
+    if device.type == "cuda":
+        check(sim_launches > 0, "the winner's simulated equivalence did not "
+                                "launch lut_eval6")
+
+    def rungs(r):
+        return [{"n_archs": g["n_archs"], "n_classes": g["n_classes"],
+                 "n_circuits": g["n_circuits"],
+                 "n_survivors": len(g["survivors"]), "best": g["best"],
+                 "walls": g["walls"]} for g in r.rungs]
+
+    return {"phase": "search", "n_archs": len(archs), "params": params,
+            "winner": res.winner,
+            "budget_ledger": res.budget,
+            "wall_s": {"torch": t_torch, "numpy": t_numpy},
+            "walls": {"torch": res.walls, "numpy": plain.walls},
+            "rungs": rungs(res), "final_survivors": res.rungs[-1]["survivors"],
+            "frontier": res.frontier[:8], "pareto": res.pareto,
+            "programs_built": built, "equal_backends": True,
+            "verify": res.verify, "verify_launches": counts,
+            "verify_variants": variants, "winner_simulated": simulated,
+            "launches": {"lut_eval6": counts["lut_eval6"] + sim_launches}}
 
 
 def phase_levels(net, n_lane_words: int, device) -> dict:
@@ -2234,7 +2449,8 @@ def main() -> int:
     ssmrec = ssm_kernel_parity(device)
     emit(ssmrec)
 
-    emit(phase_flow(suites, device))
+    frec = phase_flow(suites, device)
+    emit(frec)
     lanes = suite_lanes(nets, N_LANE_WORDS)
     rec = phase_suite_eval(nets, lanes, N_LANE_WORDS, device)
     emit(rec)
@@ -2252,6 +2468,15 @@ def main() -> int:
     emit(erec)
     check(all(c["launches"]["lut_eval6"] > 0 for c in erec["circuits"]),
           "equivalence did not go through lut_eval6")
+
+    swrec, unplaced = phase_sweep(suites, device, frec)
+    emit(swrec)
+    emit(phase_sweep_placed({k: suites[k] for k in PLACED_SUITES}, device,
+                            unplaced["result"], unplaced["packs"]))
+    del unplaced
+    serec = phase_search(suites, device)
+    emit(serec)
+    launches6 += serec["launches"]["lut_eval6"]
 
     lrec = phase_levels(levels_net, N_LANE_WORDS, device)
     emit(lrec)
@@ -2363,7 +2588,11 @@ def main() -> int:
     # forwards and the binary GEMM's main call
     variant_launches = {
         "lut_eval6": {"suite grouped": rec["variants"]["grouped"],
-                      "suite per_circuit": rec["variants"]["per_circuit"]},
+                      "suite per_circuit": rec["variants"]["per_circuit"],
+                      "search verify": serec["verify_variants"],
+                      "search winner simulated": sum(
+                          r["lut_eval6_launches"]
+                          for r in serec["winner_simulated"])},
         "flash_attention": {
             "serve bf16": srec["timed"]["variants"]["flash_attention"],
             "gate float32": srec["gate"]["variants"]["flash_attention"]},

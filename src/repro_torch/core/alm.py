@@ -30,7 +30,7 @@ Design-space parameterization
 ``BASELINE``/``DD5``/``DD6`` are literally three rows of an architecture
 grid (:func:`arch_grid`) and the DD5-vs-DD6 design-space question
 ("how many bypass inputs, how much AddMux crossbar") becomes a sweep
-axis (see :mod:`repro.core.sweep`).
+axis (see :mod:`repro_torch.core.sweep`).
 
 Two views matter to the rest of the stack:
 
@@ -101,7 +101,7 @@ class ArchParams:
     t_out_mux_extra: float = 0.0  # DD6 output-mux penalty
     t_route_global: float = 620.0
     t_route_local: float = 160.0
-    # routed-fabric model (see repro.core.place): the LB grid the placer
+    # routed-fabric model (see repro_torch.core.place): the LB grid the placer
     # legalizes onto and the tiered wire hierarchy an inter-LB edge rides
     # (tile-local / 1-hop / 2-hop / long wires, apicula-style).  Wire-tier
     # delays default to ZERO so the placement-free timing numbers are
@@ -243,7 +243,7 @@ def arch_grid(bypass_inputs=(0, 2), addmux_fanin=(5, 10, 20),
     the historical 7-point grid is unchanged; widening any of them
     multiplies the grid (the incremental repacker in
     :mod:`repro_torch.core.repack` and the placement cache in
-    :mod:`repro.core.place` are what keep that affordable).  Infeasible
+    :mod:`repro_torch.core.place` are what keep that affordable).  Infeasible
     corners (lut6 without full bypass) and redundant baseline fan-in
     points are dropped; the canonical baseline/DD5/DD6 rows appear under
     grid names (``b0``, ``b2_f10``, ``b2_f10_l6``) with identical
@@ -310,7 +310,7 @@ def full_arch_grid(wire_delays=((0.0, 0.0, 0.0),)) -> list[ArchParams]:
     placements price the tiers, so the wire rows stop tying and the
     axis becomes searchable.
 
-    This is the search space :mod:`repro.core.search` halves over —
+    This is the search space :mod:`repro_torch.core.search` halves over —
     dense-sweeping it costs ~1200 re-clusterings per circuit, which is
     exactly what the successive-halving driver avoids.
     """

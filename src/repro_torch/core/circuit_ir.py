@@ -101,7 +101,7 @@ PIN_NULL, PIN_AH, PIN_Z = 0, 1, 2
 PATH_NULL, PATH_AH, PATH_Z = 0, 1, 2
 N_EDGE_CLASSES = 27
 
-# wire tiers of a placed inter-LB edge (repro.core.place): tier 0 is the
+# wire tiers of a placed inter-LB edge (repro_torch.core.place): tier 0 is the
 # null/tile-local wire (zero delay — also every edge of an unplaced IR),
 # 1-hop and 2-hop wires carry Manhattan-distance-1/-2 routes, and any
 # longer route rides one long wire (the 8-hop spans of the apicula-style
@@ -828,7 +828,7 @@ def lower_pack_ir_incremental(packed: "PackedCircuit",
 def apply_placement(ir: CircuitIR, placement) -> CircuitIR:
     """Fill the grid-placement columns of a packed :class:`CircuitIR`.
 
-    ``placement`` is a :class:`repro.core.place.GridPlacement` (anything
+    ``placement`` is a :class:`repro_torch.core.place.GridPlacement` (anything
     with ``lb_x``/``lb_y``/``grid_w``/``grid_h``/``seed`` works) of the
     same pack — one slot per LB.  A third, orthogonal patch stage on top
     of the functional lowering and the placement-derived edge classes:

@@ -8,6 +8,13 @@
   :func:`~repro_torch.core.timing.analyze` metrics (the paper averages
   three seeds); :func:`pack_and_analyze_one` keeps the packed circuit for
   callers that need structural access (stress capacity sweeps).
+* **design-space sweeps** — :func:`sweep_architectures` /
+  :func:`sweep_frontier` drive :mod:`repro_torch.core.sweep`: pack once
+  per structural class, re-time the whole suite across an arch grid
+  (:func:`repro_torch.core.alm.arch_grid`) as one batched torch program
+  per class on the card, and reduce to geomean ADP-frontier rows;
+  :func:`search_design_space` runs the successive-halving search
+  (:mod:`repro_torch.core.search`) over the full grid.
 * **equivalence gate** — :func:`run_circuit` optionally proves pack
   equivalence per arch through :mod:`repro_torch.core.equiv` (symbolic
   fast path first, lane simulation on the fused evaluator as fallback).
@@ -21,8 +28,8 @@
 
 Ratios against a baseline arch (the shape of Figs. 5-7) come from
 :func:`ratios_vs_baseline`; :func:`run_suites` maps the whole pipeline
-over named suites.  The reference's design-space sweeps, search and
-serving entry points are not ported yet.
+over named suites.  The reference's serving entry point (``serve``) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -114,6 +121,92 @@ def run_circuit(net: Netlist, archs: Sequence[str | ArchParams],
             rec["equiv_method"] = rep.get("method", "simulate")
         out[ap.name] = rec
     return out
+
+
+def sweep_architectures(suites_or_nets, archs=None, seed: int = 0,
+                        backend: str = "torch", max_buckets: int = 3,
+                        max_groups: int = 4,
+                        packs: dict | None = None,
+                        programs: dict | None = None,
+                        prefixes: dict | None = None,
+                        grid_axes: dict | None = None,
+                        place: bool = False,
+                        refine: str | None = "anneal", device=None):
+    """Design-space sweep over an architecture grid (see
+    :func:`repro_torch.core.sweep.sweep_suite`).  ``archs`` defaults to
+    the bypass-width x crossbar-population grid; pass any list of
+    :class:`~repro_torch.core.alm.ArchParams` rows (e.g. the canonical
+    baseline/DD5/DD6 triple plus ablations), or ``grid_axes`` — keyword
+    arguments for :func:`repro_torch.core.alm.arch_grid` (e.g.
+    ``{"alms_per_lb": (8, 10), "lb_inputs": (48, 60)}``) — to grow the
+    grid along the structural cluster-geometry axes.
+
+    ``max_groups`` (the timing-program envelope-grouping knob) is
+    forwarded verbatim, so a flow caller can match a direct
+    ``sweep_suite`` configuration and hit a ``programs`` cache warmed
+    with a non-default grouping.  ``packs``/``programs``/``prefixes``
+    are the caller-owned content-keyed caches of ``sweep_suite``.
+    ``place=True`` grid-places every circuit and includes the wire-tier
+    delay term (placements registry-cached per placement key, anneal-
+    refined by default — ``refine`` forwards to
+    :func:`repro_torch.core.sweep.sweep_suite`; see
+    :mod:`repro_torch.core.place` and :mod:`repro_torch.core.anneal`).
+    ``backend="torch"`` times on ``device`` (default: the card)."""
+    from .alm import arch_grid
+    from .sweep import sweep_suite
+
+    if archs is None:
+        archs = arch_grid(**(grid_axes or {}))
+    elif grid_axes is not None:
+        raise ValueError("pass either archs or grid_axes, not both")
+    return sweep_suite(suites_or_nets, archs, seed=seed, backend=backend,
+                       max_buckets=max_buckets, max_groups=max_groups,
+                       packs=packs, programs=programs, prefixes=prefixes,
+                       place=place, refine=refine, device=device)
+
+
+def sweep_frontier(result, baseline: str | None = None):
+    """Geomean area/cpd/ADP ratio rows vs a baseline grid point."""
+    from .sweep import adp_frontier
+
+    return adp_frontier(result, baseline=baseline)
+
+
+def search_design_space(suites_or_nets, archs=None, seed: int = 0,
+                        eta: int = 4, min_survivors: int = 8,
+                        allocation: str = "halving",
+                        budget: int | None = None,
+                        baseline: str | None = None,
+                        backend: str = "numpy", verify: bool = False,
+                        device=None, **search_kwargs):
+    """Pareto-aware successive-halving search over an arch grid (see
+    :func:`repro_torch.core.search.search_archs`).  ``archs`` defaults to
+    the *full* design-space cross-product
+    (:func:`repro_torch.core.alm.full_arch_grid`, ~2000 points) and
+    ``baseline`` to the grid's ``b0`` row when present.  ``verify=True``
+    additionally proves every Pareto winner oracle-bit-identical and
+    equivalence-gated (:func:`repro_torch.core.search.verify_winners`)
+    and attaches the report as ``result.verify``.  ``device`` is where
+    ``backend="torch"`` times and where verification's lane simulation
+    runs (default: the card)."""
+    from .alm import full_arch_grid
+    from .search import search_archs, verify_winners
+    from .sweep import _flatten
+
+    if archs is None:
+        archs = full_arch_grid()
+    if baseline is None and any(a.name == "b0" for a in archs):
+        baseline = "b0"
+    _, nets = _flatten(suites_or_nets)
+    result = search_archs(nets, archs, seed=seed, eta=eta,
+                          min_survivors=min_survivors,
+                          allocation=allocation, budget=budget,
+                          baseline=baseline, backend=backend,
+                          device=device, **search_kwargs)
+    if verify:
+        result.verify = verify_winners(result, nets, archs, seed=seed,
+                                       device=device)
+    return result
 
 
 def ratios_vs_baseline(per_arch: dict[str, dict], baseline: str = "baseline",

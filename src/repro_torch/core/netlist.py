@@ -310,7 +310,7 @@ class Netlist:
         pack/plan/program cache must use: keys derived from a circuit's
         position in a list silently serve wrong entries when the same
         cache is passed with a different list (see
-        :func:`repro.core.sweep.sweep_suite`).  Deliberately uncached:
+        :func:`repro_torch.core.sweep.sweep_suite`).  Deliberately uncached:
         callers may mutate netlist attributes directly, so a stale
         digest would defeat the content keying this exists for."""
         import hashlib

@@ -34,7 +34,7 @@ object graph into the unified :class:`~repro_torch.core.circuit_ir.CircuitIR` (p
 signal site/LB/kind columns, fanin CSR with timing edge classes, per-ALM
 mode columns, levelized node tables) — the shared substrate of the
 vectorized timing analyzer (:mod:`repro_torch.core.timing_vec`), the architecture
-design-space sweep engine (:mod:`repro.core.sweep`) and the benchmark flow
+design-space sweep engine (:mod:`repro_torch.core.sweep`) and the benchmark flow
 (:mod:`repro_torch.core.flow`).  Only ``ArchParams.structural_key()`` fields steer
 this module; delay parameters never do, which is what lets a sweep reuse one
 pack (and one CircuitIR) across every delay row of a structural class.

@@ -4,7 +4,7 @@ segmentation and envelope grouping.
 Every batched executor in the CAD stack — the fused netlist evaluator
 (:mod:`repro_torch.core.eval_torch`), the vectorized static-timing program
 (:mod:`repro_torch.core.timing_vec`) and the arch design-space sweep
-(:mod:`repro.core.sweep`) — faces the same two planning problems over the
+(:mod:`repro_torch.core.sweep`) — faces the same two planning problems over the
 same levelized :class:`~repro_torch.core.circuit_ir.CircuitIR` substrate:
 
 * **width-bucket segmentation** (:func:`segment_levels`): partition a
@@ -35,7 +35,7 @@ here (:func:`register_cache`) and are cleared together by ONE
   template IR that sibling structural classes patch
   (:attr:`repro_torch.core.repack.PackPrefix.ir_template`);
 * ``placement`` — grid placements per (circuit digest, arch placement
-  key, seed) (:func:`repro.core.place.placement_for`) — shared by every
+  key, seed) (:func:`repro_torch.core.place.placement_for`) — shared by every
   wire-delay row of a structural class x grid aspect.
 
 Invalidation rule: every key starts with a netlist *content digest*

@@ -3,7 +3,7 @@
 Levelized longest-path analysis with the Table II path delays.  An edge
 is *local* (same LB, through the local feedback + crossbar) or *global*
 (fixed inter-LB routing delay); with a grid placement
-(:mod:`repro.core.place`) the global leg additionally pays a wire-tier
+(:mod:`repro_torch.core.place`) the global leg additionally pays a wire-tier
 delay derived from the Manhattan hop distance between the two LB slots
 (1-hop / 2-hop / long wires, zero by default so placement-free numbers
 are unchanged).  This is deliberately coarser than VPR's timing-driven
@@ -114,7 +114,7 @@ def analyze(packed: PackedCircuit, method: str = "vector",
     ``method="vector"`` lowers to CircuitIR and runs the numpy vectorized
     analyzer (bit-identical to the oracle, no per-signal Python walk);
     ``method="oracle"`` runs the original reference implementation.
-    With ``placement`` (a :class:`repro.core.place.GridPlacement` of this
+    With ``placement`` (a :class:`repro_torch.core.place.GridPlacement` of this
     pack) the inter-LB wire-tier term is included on either path.
     """
     with timing_section(calls=1):
@@ -294,7 +294,7 @@ def channel_utilization(packed: PackedCircuit,
     (``ArchParams.channel_width``, 400 tracks on every canonical arch so
     recorded fig8 numbers are reproducible); pass a value to override.
     The placement-derived successor is
-    :func:`repro.core.place.channel_congestion`.
+    :func:`repro_torch.core.place.channel_congestion`.
     """
     if channel_width is None:
         channel_width = packed.arch.channel_width

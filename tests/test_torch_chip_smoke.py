@@ -37,7 +37,9 @@ def test_phase_functions_importable():
                  "at_p_block", "first_layers", "lut_sass_counts",
                  "widest_grouped_level", "level_parity", "random_level",
                  "lut_eval6_launches_grouped", "cost_model_reading",
-                 "check_lut_sass", "level_rows_once_bound"):
+                 "check_lut_sass", "level_rows_once_bound",
+                 "phase_sweep", "phase_sweep_placed", "phase_search",
+                 "stable_payload"):
         assert callable(getattr(cs, name)), name
 
 
@@ -143,6 +145,53 @@ def test_phases_rehearsed_on_cpu():
     shapes = cs.main_path_shapes(nets, stress)
     assert shapes["lut_eval6"][1] == cs.N_LANE_WORDS
     assert 1 <= shapes["lut_eval"][1] <= 5
+
+
+def test_sweep_and_search_phases_rehearsed_on_cpu():
+    """The CAD scale-out phases on two small circuits: the sweep's gates
+    (numpy, oracle, the flow phase's records) and the placed sweep's
+    pass, and the search over a 12-point subgrid agrees across backends
+    with its winners verified (nothing launches on the CPU)."""
+    from repro_torch.core.alm import full_arch_grid, subgrid
+
+    suites = {"vtr": circuits.vtr_suite(scale=0.3)[:2]}
+    frec = cs.phase_flow(suites, CPU)
+    rec, unplaced = cs.phase_sweep(suites, CPU, frec)
+    assert rec["equal_numpy"] and rec["oracle_parity"]
+    assert len(rec["archs"]) == 7 and rec["structural_classes"] == 5
+    assert rec["programs_built"]["cold"] > 0
+    assert rec["profile_warm"]["device_busy_ms"] == 0
+    assert {r["arch"] for r in rec["frontier"]} == set(rec["archs"]) - {"b0"}
+    placed = cs.phase_sweep_placed({"vtr": suites["vtr"][1:]}, CPU,
+                                   unplaced["result"], unplaced["packs"])
+    assert len(placed["archs"]) == 14 and placed["circuits"] == 1
+    assert placed["zero_wire_rows_equal_unplaced"] == rec["archs"]
+    assert placed["wall_split"]["place_s"] >= \
+        placed["wall_split"]["anneal_s"] > 0
+    srec = cs.phase_search(suites, CPU, archs=subgrid(full_arch_grid(), 12),
+                           params={"budget": 200, "eta": 4,
+                                   "min_survivors": 4})
+    assert srec["equal_backends"] and srec["verify"]["equivalent"]
+    assert srec["verify"]["oracle_match"]
+    assert [r["net"] for r in srec["winner_simulated"]] == \
+        sorted((n.name for n in suites["vtr"]),
+               key=lambda name: next(n.n_luts + n.n_adders
+                                     for n in suites["vtr"]
+                                     if n.name == name))
+    assert srec["launches"] == {"lut_eval6": 0}
+    assert srec["budget_ledger"]["used"] <= 200
+
+
+def test_sweep_phase_rejects_a_wrong_flow_record():
+    """The paper-row gate fails when a flow record differs from the
+    sweep's row in its last bit."""
+    suites = {"vtr": circuits.vtr_suite(scale=0.3)[:1]}
+    frec = cs.phase_flow(suites, CPU)
+    net = suites["vtr"][0].name
+    cp = frec["records"][net]["dd5"]["critical_path_ps"]
+    frec["records"][net]["dd5"]["critical_path_ps"] = np.nextafter(cp, 0.0)
+    with pytest.raises(cs.SmokeFailure, match="b2_f10"):
+        cs.phase_sweep(suites, CPU, frec)
 
 
 def test_level_parity_rehearsed_on_cpu():

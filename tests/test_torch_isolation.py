@@ -37,6 +37,15 @@ def test_port_runs_with_jax_and_reference_blocked():
         lanes = flow.random_lanes(net, 2, seed=0)
         vals = flow.evaluate_netlist(net, lanes, 2, device="cpu")
         assert flow.oracle_check(net, lanes, vals, 2)
+        from repro_torch.core import sweep
+        from repro_torch.core.alm import arch_grid
+        grid = arch_grid(wire_delays=((0, 0, 0), (25, 40, 120)))[:4]
+        res = flow.sweep_architectures([net], archs=grid, place=True,
+                                       device="cpu")
+        assert sweep.oracle_parity(res, [net], grid, place=True)
+        found = flow.search_design_space([net], archs=grid, backend="torch",
+                                         device="cpu", min_circuits=1)
+        assert found.winner in {a.name for a in grid}
         assert not any(k == "jax" or k.startswith("jax.")
                        or k == "repro" or k.startswith("repro.")
                        for k, v in sys.modules.items() if v is not None)
@@ -98,6 +107,22 @@ def test_entry_points_default_to_the_card(monkeypatch):
         eval_netlist_levels(net, lanes, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flow.eval_mode_cost_model([net])
+    from repro_torch.core.alm import ARCHS
+    from repro_torch.core.packing import pack
+    from repro_torch.core.timing_vec import (analyze_ir,
+                                             build_suite_timing_program)
+
+    grid = [ARCHS["baseline"], ARCHS["dd5"]]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flow.sweep_architectures([net], archs=grid)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flow.search_design_space([net], archs=grid, backend="torch",
+                                 min_circuits=1)
+    ir = pack(net, ARCHS["dd5"]).lower_ir()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_suite_timing_program([ir])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        analyze_ir(ir, ARCHS["dd5"], backend="torch")
     from repro_torch.configs.base import get_config
     from repro_torch.launch import quantized_serve, serve
     from repro_torch.serve.kvcache import init_cache
@@ -112,3 +137,5 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert serve.main(argv + ["--device", "cpu"]).shape == (4, 2)
     assert flow.evaluate_netlist(net, lanes, 1, device="cpu").shape == \
         (net.n_signals, 1)
+    assert len(flow.sweep_architectures([net], archs=grid,
+                                        device="cpu").records[0]) == 2
