@@ -79,9 +79,28 @@ exits non-zero:
     and ``verify=True``, equal rung by rung to a numpy-backend rerun; the
     winners verified, and the winner's packs of the two smallest circuits
     proven equivalent by lane simulation through ``lut_eval6``;
-12. per-level baseline: the Fig. 9 stress workload through ``lut_eval``,
+12. placement_ensembles: the Kratos suite under baseline and DD5 placed
+    by the ensemble placer and refined by the multi-chain annealer on the
+    card (``place_ir(backend="torch", refine=mode)``, 4 members and 4
+    chains, for both refine modes): every relaxed member
+    within 1e-12 of ``_smooth_numpy`` on the same start and legalized
+    alike, every chain's best placement equal to the numpy chain's with
+    ``_rng(chain=ch)`` (costs ``==`` in ``anneal``, within 1e-12
+    relative in ``anneal_timing``), the final pick the host's over
+    ``[seed] + chains``, legal, deterministic and never worse than the
+    seed; the torch placement's wall per case, taken after the numpy
+    chains' worker pool has drained, and each backend's largest case
+    under ``torch.profiler``;
+13. serve_flow: the flow server with both timing backends — 64 area +
+    timing requests over the reference benchmark's pool at 8 and 32
+    clients, cold and warm; the 17 circuits under DD5 with eval at 4096
+    lane words (``lut_eval6`` level launches counted); a 6-edit stream
+    on ``kratos_gemm(6, 6, 6)`` through the delta path with proofs on —
+    every record equal to the serial flow, the backends' records
+    identical, the lanes equal to ``evaluate_suite`` and the oracle;
+14. per-level baseline: the Fig. 9 stress workload through ``lut_eval``,
     equal to the fused evaluator;
-13. serve: ``kratos-dd`` at full width — a float32 gate run (kernel path
+15. serve: ``kratos-dd`` at full width — a float32 gate run (kernel path
     against the plain path and the teacher-forced forward, within 5e-3,
     identical greedy tokens), a bfloat16 gate (the float32 plain run's
     tokens forced through the bfloat16 kernel and plain paths: kernel
@@ -93,13 +112,13 @@ exits non-zero:
     one mma call per layer for the prefill, split calls for the decode
     steps); then profile_decode, a warm bfloat16 prefill and decode step
     under ``torch.profiler``;
-14. serve_gemma2: ``gemma2-2b`` at full width, the same gates with a
+16. serve_gemma2: ``gemma2-2b`` at full width, the same gates with a
     prompt of 4608 tokens so that the local layers' window of 4096 bites,
     a timed bfloat16 run, and its profile_decode;
-15. quantized: the quantized-serving flow on ``kratos-dd`` — every
+17. quantized: the quantized-serving flow on ``kratos-dd`` — every
     layer's FFN ``wi`` as 6 bit-planes through ``bitplane_matmul`` at 8
     rows (the small_m variant) and 4096 rows (tensor_core);
-16. ssm_mamba2: ``mamba2-2.7b`` at full width — a float32 gate (the
+18. ssm_mamba2: ``mamba2-2.7b`` at full width — a float32 gate (the
     kernel-path forward against the plain forward at 512 tokens; cached
     serving of a 497-token prompt and 16 new tokens against the plain
     serving run and the kernel-path forward, within 5e-3, identical
@@ -109,17 +128,17 @@ exits non-zero:
     disagreement with float32 activations``)``, argmax bounded alike), a
     timed bfloat16 forward (2 x 4096, 64 ``ssd_scan`` launches, all mma)
     and a timed bfloat16 serving run (8 x 512, 32 new tokens);
-17. profile_ssm: a warm mamba2 forward and decode step under
+19. profile_ssm: a warm mamba2 forward and decode step under
     ``torch.profiler``;
-18. ssm_hymba: ``hymba-1.5b`` at full width, the same gate, a timed
+20. ssm_hymba: ``hymba-1.5b`` at full width, the same gate, a timed
     forward at 2 x 2048 (the window of 1024 bites; 32 ``ssd_scan`` and 32
     ``flash_attention`` launches) and a timed serving run with 2048-token
     prompts (32 flash launches per step); then its profile_ssm;
-19. summary: the ``kernels`` line (all six kernels; for those with
+21. summary: the ``kernels`` line (all six kernels; for those with
     variants, each variant's calls on the main paths; ``lut_eval6``'s
     times and bound are its level variant's, the one the main paths
     launch, with the op's beside, and its launches include the search
-    phase's), the card line, and as the last line
+    and serve_flow phases'), the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each phase that drives the main
@@ -1779,6 +1798,454 @@ def phase_search(suites: dict, device, archs=None, params=None) -> dict:
             "launches": {"lut_eval6": counts["lut_eval6"] + sim_launches}}
 
 
+#: the relaxation's float64 tolerance against ``_smooth_numpy`` on the
+#: same start (matmul sums in another order; 32 sweeps amplify ~20x)
+RELAX_TOL = 1e-12
+
+
+def _numpy_chains(ir, arch, seed_pl, mode: str):
+    """The numpy form of the annealer's chains (each chain the canonical
+    one with ``_rng(chain=ch)``) and its wall; the ensemble phase runs it
+    in worker processes."""
+    from repro_torch.core import anneal
+
+    t0 = time.perf_counter()
+    out = anneal._ensemble_chains(ir, arch, seed_pl, mode=mode,
+                                  backend="numpy")
+    return out, time.perf_counter() - t0
+
+
+def _ensemble_case(ir, arch, seed_pl, numpy_chains: dict, device) -> dict:
+    """One (circuit, arch) of the ensemble phase, every gate of it but
+    determinism: the relaxed members against ``_smooth_numpy``, each
+    refine mode's chains against the numpy chains (``numpy_chains[mode]``,
+    a future of :func:`_numpy_chains`), the final pick against the host's
+    pick over ``[seed] + chains``, legality and never worse than the seed
+    (``seed_pl``, the torch ensemble's analytic placement).  The final
+    placements go back under ``"final"`` for :func:`_time_case`."""
+    from repro_torch.core import anneal, place
+
+    W, H = place.grid_shape(ir.n_lbs, arch.grid_aspect)
+    A = place.lb_connectivity(ir)
+    pos0 = place._seed_rng(ir.net_digest, arch.placement_key(), 0) \
+        .random((place.ENSEMBLES, ir.n_lbs, 2))
+    relaxed = place._smooth_torch(A, pos0, device)
+    relax_err = 0.0
+    for e in range(place.ENSEMBLES):
+        want = place._smooth_numpy(A, pos0[e])
+        relax_err = max(relax_err, float(np.abs(relaxed[e] - want).max()))
+        for a, b in zip(place._legalize(relaxed[e], W, H),
+                        place._legalize(want, W, H)):
+            check(np.array_equal(a, b), f"{ir.name}@{arch.name}: member {e} "
+                                        f"legalizes differently")
+    check(relax_err <= RELAX_TOL, f"{ir.name}@{arch.name}: relaxation off "
+                                  f"by {relax_err} (> {RELAX_TOL})")
+    rec = {"net": ir.name, "arch": arch.name, "lbs": ir.n_lbs,
+           "relax_max_abs_err": relax_err,
+           "seed_wirelength": seed_pl.wirelength(ir), "final": {}}
+    for mode in anneal.REFINE_MODES:
+        bc, bx, by = anneal._ensemble_chains(ir, arch, seed_pl, mode=mode,
+                                             device=device)
+        (nc, nx, ny), t_numpy = numpy_chains[mode].result()
+        check(np.array_equal(bx, nx) and np.array_equal(by, ny),
+              f"{ir.name}@{arch.name} {mode}: a chain's best placement "
+              f"differs from the numpy chain's")
+        cost_err = float(np.max(np.abs(bc - nc) / np.maximum(nc, 1.0)))
+        check(cost_err == 0.0 if mode == "anneal" else cost_err <= 1e-12,
+              f"{ir.name}@{arch.name} {mode}: chain costs off by "
+              f"{cost_err} relative")
+        final = place.placement_for(ir, arch, 0, cache=False,
+                                    backend="torch", refine=mode,
+                                    device=device)
+        slots = set(zip(final.lb_x.tolist(), final.lb_y.tolist()))
+        check(len(slots) == ir.n_lbs and final.grid_w * final.grid_h
+              >= ir.n_lbs and (final.lb_x < W).all()
+              and (final.lb_y < H).all(),
+              f"{ir.name}@{arch.name} {mode}: placement not legal")
+        # the refinement objective (the wirelength itself in "anneal",
+        # the criticality-weighted one in "anneal_timing") never loses to
+        # the seed, and the pick is the host's over [seed] + the chains
+        p = anneal._problem(ir, arch, seed_pl, mode, None, None,
+                            anneal._DEF_TIMING_WEIGHT,
+                            anneal._DEF_CRIT_EXP)
+        cands = [(anneal._wirecost(p, p["x0"], p["y0"]), p["x0"], p["y0"])]
+        cands += [(anneal._wirecost(p, nx[c], ny[c]), nx[c], ny[c])
+                  for c in range(nx.shape[0])]
+        cost, px, py = min(cands, key=lambda t: t[0])
+        check(np.array_equal(final.lb_x, px) and np.array_equal(
+            final.lb_y, py), f"{ir.name}@{arch.name} {mode}: the final "
+                             f"pick differs from the host's")
+        check(anneal._wirecost(p, final.lb_x.astype(np.int64),
+                               final.lb_y.astype(np.int64)) <= cands[0][0],
+              f"{ir.name}@{arch.name} {mode}: worse than the seed")
+        rec["final"][mode] = final
+        rec[mode] = {"chain_costs": bc.tolist(), "cost_rel_err": cost_err,
+                     "objective": cost, "seed_objective": cands[0][0],
+                     "wirelength": final.wirelength(ir),
+                     "numpy_chains_pool_s": t_numpy}
+    return rec
+
+
+def _time_case(ir, arch, rec: dict, device) -> dict:
+    """The torch placement of one case, timed with the host to itself
+    (after the numpy chains' pool has closed), once per refine mode, and
+    equal to the gated placement of ``rec`` (determinism)."""
+    from repro_torch.core import place
+    from repro_torch.core.anneal import REFINE_MODES
+
+    for mode in REFINE_MODES:
+        t0 = time.perf_counter()
+        again = place.placement_for(ir, arch, 0, cache=False,
+                                    backend="torch", refine=mode,
+                                    device=device)
+        _sync(device)
+        rec[mode]["torch_place_s"] = time.perf_counter() - t0
+        final = rec["final"][mode]
+        check(np.array_equal(again.lb_x, final.lb_x)
+              and np.array_equal(again.lb_y, final.lb_y),
+              f"{ir.name}@{arch.name} {mode}: not deterministic")
+    del rec["final"]
+    return rec
+
+
+def phase_placement_ensembles(suites: dict, device, archs=("baseline",
+                                                              "dd5"),
+                              workers: int | None = None) -> dict:
+    """The ensemble placer and the multi-chain annealer on the card
+    (``place_ir(backend="torch", refine=mode)``: ``place.ENSEMBLES``
+    members, ``anneal.CHAINS`` chains, default steps and moves, no
+    cache) over every circuit of ``suites`` under ``archs``, gated case
+    by case (:func:`_ensemble_case`).  The numpy chains the gates hold
+    the batch to, independent of each other and of the card, run in
+    ``workers`` processes (default: one per host core), largest case
+    first, while the card works; their walls (``numpy_chains_pool_s``)
+    are taken with every core busy and are the gate's cost, not the numpy
+    path's.  Once the pool has closed, each case's torch placement is
+    timed again with the host to itself and checked for determinism
+    (:func:`_time_case`), and the largest case is placed by each backend
+    in each refine mode under ``torch.profiler`` (wall, kernels
+    launched, idle share) with its final wirelength."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core import anneal, place
+    from repro_torch.core.alm import ARCHS
+    from repro_torch.core.anneal import REFINE_MODES
+    from repro_torch.core.packing import pack
+
+    nets = [n for ns in suites.values() for n in ns]
+    irs = [(pack(n, ARCHS[a]).lower_ir(), ARCHS[a])
+           for a in archs for n in nets]
+    t0 = time.perf_counter()
+    seeds = [place.place_ir(ir, arch, 0, backend="torch", device=device)
+             for ir, arch in irs]
+    workers = workers or os.cpu_count() or 1
+    with ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures: dict = {}
+        for i in sorted(range(len(irs)), key=lambda i: -irs[i][0].n_lbs):
+            for mode in REFINE_MODES:
+                futures[i, mode] = pool.submit(_numpy_chains, *irs[i],
+                                               seeds[i], mode)
+        cases = [_ensemble_case(ir, arch, seeds[i],
+                                {m: futures[i, m] for m in REFINE_MODES},
+                                device)
+                 for i, (ir, arch) in enumerate(irs)]
+    t_gates = time.perf_counter() - t0
+    cases = [_time_case(ir, arch, rec, device)
+             for (ir, arch), rec in zip(irs, cases)]
+    ir, arch = max(irs, key=lambda t: t[0].n_lbs)
+    largest = {"net": ir.name, "arch": arch.name, "lbs": ir.n_lbs}
+    for backend in ("torch", "numpy"):
+        kw = {"device": device} if backend == "torch" else {}
+        for mode in REFINE_MODES:
+            out = []
+
+            def run():
+                out.append(place.place_ir(ir, arch, 0, backend=backend,
+                                          refine=mode, **kw))
+                _sync(device)
+
+            prof = profile_summary(run, device)
+            largest[f"{backend}/{mode}"] = {
+                "wirelength": out[0].wirelength(ir),
+                **{k: prof[k] for k in (
+                    "wall_ms", "device_busy_ms", "device_idle_share",
+                    "device_kernel_launches", "device_ms_by_name")}}
+    per_mode = {mode: {k: sum(c[mode][k] for c in cases) for k in (
+        "torch_place_s", "numpy_chains_pool_s", "wirelength")}
+        for mode in REFINE_MODES}
+    return {"phase": "placement_ensembles", "circuits": len(nets),
+            "archs": list(archs), "ensembles": place.ENSEMBLES,
+            "anneal_chains": anneal.CHAINS, "workers": workers,
+            "wall_s": t_gates,
+            "relax_tol": RELAX_TOL, "totals": per_mode,
+            "largest": largest, "cases": cases}
+
+
+def serve_pool(smoke: bool = False) -> list:
+    """The flow server's request pool: the full mode of the reference's
+    ``benchmarks/serve_latency.py`` (six circuits x baseline / DD5), or
+    two small circuits for the CPU rehearsal."""
+    from repro_torch.core.circuits import kratos_gemm, sha_like, vtr_mixed
+
+    if smoke:
+        nets = [kratos_gemm(m=4, n=4, width=5, sparsity=0.5),
+                sha_like(rounds=1)]
+    else:
+        nets = [kratos_gemm(m=5, n=5, width=5, sparsity=0.5),
+                kratos_gemm(m=6, n=6, width=6, sparsity=0.5),
+                sha_like(rounds=1), sha_like(rounds=2),
+                vtr_mixed(logic_nodes=150, adders=2),
+                vtr_mixed(logic_nodes=300, adders=4)]
+    return [(net, arch) for net in nets for arch in ("baseline", "dd5")]
+
+
+def edit_stream(base_net, n_edits: int, seed: int = 0) -> list:
+    """``n_edits`` single-LUT variants of ``base_net``, as the reference
+    benchmark draws them: fanin rewires (structural, the dirty-set path)
+    with every third a truth-table edit (the tt-only delta)."""
+    import random
+
+    from repro_torch.core.edits import (clone_netlist, edit_lut_tt,
+                                        edit_rewire_fanin,
+                                        safe_rewire_sources)
+
+    rng = random.Random(seed + 1)
+    out = []
+    while len(out) < n_edits:
+        li = rng.randrange(base_net.n_luts)
+        new_net = clone_netlist(base_net)
+        if len(out) % 3 == 2:
+            tt = rng.getrandbits(1 << len(base_net.lut_inputs[li]))
+            if tt == base_net.lut_tt[li]:
+                continue
+            edit_lut_tt(new_net, li, tt)
+            kind = "lut_tt"
+        else:
+            srcs = safe_rewire_sources(base_net, li)
+            if not srcs:
+                continue
+            src = rng.choice(srcs)
+            pin = rng.randrange(len(base_net.lut_inputs[li]))
+            if base_net.lut_inputs[li][pin] == src:
+                continue
+            edit_rewire_fanin(new_net, li, pin, src)
+            kind = "rewire_fanin"
+        out.append((new_net, kind))
+    return out
+
+
+_SERVE_WALLS = ("timing_s", "build_s", "lower_s", "eval_s")
+
+
+def _serve_pass(reqs: list, n_clients: int, server_kwargs: dict):
+    """One closed-loop pass: ``n_clients`` tasks drain ``reqs`` round
+    robin (client ``c`` owns requests ``c, c + n, ...``).  Returns the
+    results in request order and the pass's reading: throughput, p50 /
+    p99 latency, batches, coalesced requests, and the wall split summed
+    over its batches."""
+    import asyncio
+
+    from repro_torch.core.serve_flow import FlowServer
+
+    async def main():
+        server = FlowServer(**server_kwargs)
+        results: list = [None] * len(reqs)
+
+        async def client(ci: int):
+            for j in range(ci, len(reqs), n_clients):
+                results[j] = await server.submit(reqs[j])
+
+        t0 = time.perf_counter()
+        try:
+            await asyncio.gather(*(client(c) for c in range(n_clients)))
+        finally:
+            await server.aclose()
+        return results, time.perf_counter() - t0, dict(server.stats)
+
+    results, wall, stats = asyncio.run(main())
+    lat = np.array([r.walls["total_s"] for r in results]) * 1e3
+    return results, {
+        "wall_s": wall, "throughput_rps": len(reqs) / wall,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "n_batches": stats["n_batches"], "n_jobs": stats["n_jobs"],
+        "n_coalesced": stats["n_coalesced"],
+        "wall_split": _wall_split(results)}
+
+
+def _wall_split(results) -> dict:
+    """The served requests' stage walls, summed over their batches."""
+    batches = {r.batch["id"]: r.walls["stages"] for r in results}
+    return {k: sum(b[k] for b in batches.values()) for k in _SERVE_WALLS}
+
+
+def phase_serve_flow(device, pool=None, n_requests: int = 64,
+                     client_counts=(8, 32), eval_nets=None,
+                     n_lane_words: int = N_LANE_WORDS, edit_net=None,
+                     n_edits: int = 6) -> dict:
+    """The flow server (``flow.serve`` and ``FlowServer``) with both
+    timing backends, in three passes:
+
+    (a) coalescing: ``n_requests`` area + timing requests round robin
+        over ``pool``, ``memoize=False``, at each client count, cold
+        (caches cleared) then warm;
+    (b) eval: ``eval_nets`` under DD5 with area, timing and eval at
+        ``n_lane_words`` lane words, through ``flow.serve`` (counted:
+        one ``lut_eval6_level`` launch per LUT level on the card);
+    (c) an edit stream of ``n_edits`` on ``edit_net`` under DD5 with
+        ``base_digest`` set and ``verify_deltas=True``.
+
+    Every served record equals the serial ``pack_and_analyze(net, arch,
+    seeds=(seed,))``, the two backends' records are identical, the eval
+    lanes equal a direct plain-torch ``evaluate_suite`` (``use_kernel=
+    False``) and the Python oracle on the two smallest circuits, and at least one edit takes the incremental
+    path with no failed proof."""
+    import asyncio
+
+    from repro_torch.core import flow, plan
+    from repro_torch.core.circuits import kratos_gemm
+    from repro_torch.core.flow import _METRIC_KEYS, pack_and_analyze
+    from repro_torch.core.serve_flow import FlowRequest, FlowServer
+
+    pool = serve_pool() if pool is None else pool
+    if eval_nets is None:
+        eval_nets = [n for ns in full_suites().values() for n in ns]
+    if edit_net is None:
+        edit_net = kratos_gemm(m=6, n=6, width=6, sparsity=0.5)
+    serial: dict = {}
+
+    def check_serial(results, reqs, what):
+        for req, res in zip(reqs, results):
+            key = (req.net.content_digest(), req.arch)
+            if key not in serial:
+                serial[key] = pack_and_analyze(req.net, req.arch,
+                                               seeds=(req.seed,))
+            check(all(res.record[k] == serial[key][k]
+                      for k in _METRIC_KEYS),
+                  f"{what}: {req.net.name}@{req.arch} differs from the "
+                  f"serial flow")
+
+    reqs = [FlowRequest(*pool[j % len(pool)], analyses=("area", "timing"))
+            for j in range(n_requests)]
+    coalescing: dict = {}
+    records: dict = {}
+    for backend in ("torch", "numpy"):
+        kw = {"timing_backend": backend, "memoize": False,
+              "device": device}
+        for n_cl in client_counts:
+            for temp in ("cold", "warm"):
+                if temp == "cold":
+                    plan.clear_caches()
+                results, reading = _serve_pass(reqs, n_cl, kw)
+                check_serial(results, reqs, f"{backend}/{n_cl}/{temp}")
+                coalescing[f"{backend}/clients{n_cl}/{temp}"] = reading
+                records.setdefault(backend, [r.record for r in results])
+    check(records["torch"] == records["numpy"],
+          "the torch and numpy timing backends serve different records")
+
+    lanes = [flow.random_lanes(n, n_lane_words, seed=0) for n in eval_nets]
+    ereqs = [FlowRequest(n, "dd5", analyses=("area", "timing", "eval"),
+                         n_lane_words=n_lane_words) for n in eval_nets]
+    # the plain torch evaluator on the same card: the server's kernel
+    # path is held to the plain version
+    direct, _ = flow.evaluate_suite(eval_nets, lanes, n_lane_words,
+                                    use_kernel=False, device=device)
+    evals: dict = {}
+    eval_launches = 0
+    for backend in ("torch", "numpy"):
+        plan.clear_caches()
+        t0 = time.perf_counter()
+        results, counts = _counted(lambda: flow.serve(
+            ereqs, timing_backend=backend, device=device))
+        variants = _variants()["lut_eval6"]
+        _sync(device)
+        wall = time.perf_counter() - t0
+        check_serial(results, ereqs, f"eval/{backend}")
+        for n, res, vals in zip(eval_nets, results, direct):
+            for name, bus in n.pos.items():
+                check(np.array_equal(res.analyses["eval"][name],
+                                     vals[np.asarray(bus, dtype=np.int64)]),
+                      f"eval/{backend}: {n.name} PO {name} differs from "
+                      f"evaluate_suite")
+        records[f"eval/{backend}"] = [r.record for r in results]
+        if device.type == "cuda":
+            check(counts["lut_eval6"] > 0,
+                  f"eval/{backend}: the server did not launch lut_eval6")
+        eval_launches += counts["lut_eval6"]
+        evals[backend] = {"wall_s": wall, "n_batches": len(
+            {r.batch["id"] for r in results}),
+            "wall_split": _wall_split(results), "launches": counts,
+            "variants": variants}
+    check(records["eval/torch"] == records["eval/numpy"],
+          "eval: the torch and numpy timing backends serve different "
+          "records")
+    smallest = sorted(range(len(eval_nets)),
+                      key=lambda i: (eval_nets[i].n_signals,
+                                     eval_nets[i].name))[:2]
+    words = sorted({0, n_lane_words - 1})
+    for i in smallest:
+        check(flow.oracle_check(eval_nets[i], lanes[i], direct[i],
+                                n_lane_words, words=words),
+              f"eval: {eval_nets[i].name} differs from the Python oracle")
+
+    stream = edit_stream(edit_net, n_edits)
+    sreqs = [FlowRequest(n, "dd5", base_digest=edit_net.content_digest())
+             for n, _ in stream]
+    edit_recs: dict = {}
+    for backend in ("torch", "numpy"):
+
+        async def base_then_edits():
+            server = FlowServer(timing_backend=backend, memoize=False,
+                                verify_deltas=True, device=device)
+            try:
+                await server.submit(FlowRequest(edit_net, "dd5"))
+                return [await server.submit(req) for req in sreqs]
+            finally:
+                await server.aclose()
+
+        plan.clear_caches()
+        results = asyncio.run(base_then_edits())
+        check_serial(results, sreqs, f"edits/{backend}")
+        recs = []
+        for (_, kind), r in zip(stream, results):
+            d = r.delta or {}
+            recs.append({"kind": kind,
+                         "latency_ms": r.walls["total_s"] * 1e3,
+                         "delta_mode": d.get("mode"),
+                         "repack_mode": (d.get("repack") or {}).get("mode"),
+                         "verify_method": (d.get("verify") or {})
+                         .get("method"),
+                         "verify_ok": (d.get("verify") or {})
+                         .get("equivalent")})
+        n_inc = sum(r["repack_mode"] == "incremental" for r in recs)
+        check(n_inc >= 1, f"edits/{backend}: no edit took the incremental "
+                          f"path")
+        check(all(r["verify_ok"] is not False for r in recs),
+              f"edits/{backend}: a delta failed its proof")
+        records[f"edits/{backend}"] = [r.record for r in results]
+        edit_recs[backend] = {"edits": recs, "n_incremental": n_inc,
+                              "p50_ms": float(np.percentile(
+                                  [r["latency_ms"] for r in recs], 50))}
+    check(records["edits/torch"] == records["edits/numpy"],
+          "edits: the torch and numpy timing backends serve different "
+          "records")
+    return {"phase": "serve_flow",
+            "pool": [[n.name, a] for n, a in pool],
+            "n_requests": n_requests, "coalescing": coalescing,
+            "eval": {"circuits": len(eval_nets), "arch": "dd5",
+                     "n_lane_words": n_lane_words, **evals,
+                     "oracle_checked": [eval_nets[i].name
+                                        for i in smallest]},
+            "edit_stream": {"circuit": edit_net.name, "arch": "dd5",
+                            **edit_recs},
+            "equal_serial": True, "equal_backends": True,
+            "launches": {"lut_eval6": eval_launches}}
+
+
 def phase_levels(net, n_lane_words: int, device) -> dict:
     """The per-level baseline (``lut_eval`` per level) against the fused
     evaluator on one workload."""
@@ -2477,6 +2944,10 @@ def main() -> int:
     serec = phase_search(suites, device)
     emit(serec)
     launches6 += serec["launches"]["lut_eval6"]
+    emit(phase_placement_ensembles({"kratos": suites["kratos"]}, device))
+    sfrec = phase_serve_flow(device, eval_nets=nets)
+    emit(sfrec)
+    launches6 += sfrec["launches"]["lut_eval6"]
 
     lrec = phase_levels(levels_net, N_LANE_WORDS, device)
     emit(lrec)
@@ -2592,7 +3063,9 @@ def main() -> int:
                       "search verify": serec["verify_variants"],
                       "search winner simulated": sum(
                           r["lut_eval6_launches"]
-                          for r in serec["winner_simulated"])},
+                          for r in serec["winner_simulated"]),
+                      **{f"serve_flow eval {b}": sfrec["eval"][b]["variants"]
+                         for b in ("torch", "numpy")}},
         "flash_attention": {
             "serve bf16": srec["timed"]["variants"]["flash_attention"],
             "gate float32": srec["gate"]["variants"]["flash_attention"]},

@@ -1,5 +1,6 @@
 """Batched simulated-annealing placement refinement over the analytic seed
-(the port of ``repro/core/anneal.py``: its canonical numpy chain, copied).
+(the port of ``repro/core/anneal.py``: its canonical numpy chain copied,
+its jax multi-chain ensemble in torch).
 
 The analytic placer (:mod:`repro_torch.core.place`) is legalization-limited:
 the damped Laplacian relaxation finds a good *relative* ordering, but the
@@ -53,13 +54,21 @@ Z-pin mux delay), the wire tiers never do.
 
 Backends
 --------
-``backend="numpy"`` (canonical, bit-deterministic) runs one chain, and
-is the only backend here so far.  The reference also runs a
-``chains``-wide ensemble of independently seeded chains as one vmapped
-``lax.scan`` program (``backend="jax"``) and keeps the candidate with the
-lowest exact wirelength, seed included; its batched torch counterpart is
-not ported yet (``ROADMAP.md``, Queue 1 item 3), and ``backend="jax"``
-raises ``NotImplementedError``.
+``backend="numpy"`` (canonical, bit-deterministic) runs one chain;
+``backend="torch"`` runs a :data:`CHAINS`-wide ensemble of independently
+seeded chains as one batched program on ``device`` (the port of the
+reference's vmapped ``lax.scan``, ``backend="jax"`` there: chains are a
+batch axis, steps a Python loop over pre-generated move streams, dense
+degree-padded adjacency, a scatter-min claim table, in-loop best
+tracking) and keeps the candidate with the lowest *exact*
+(numpy-recomputed) wirelength, seed included — so legality and the
+never-worse guarantee are backend-independent even though the chains
+explore different trajectories.  Each chain is the canonical numpy
+chain seeded with ``_rng(..., chain=ch)``: :func:`_ensemble_chains` runs
+either form chain by chain, the numpy one being the plain version the
+batch is held to.  The chain count is the module constant
+:data:`CHAINS` (4, the reference's default), not the reference's
+``chains`` argument: no caller, there or here, passes another count.
 
 Determinism: every random stream is a ``blake2b`` of
 ``("anneal", digest, placement_key, seed[, chain])`` — same inputs, same
@@ -75,6 +84,7 @@ import numpy as np
 from . import plan as _planner
 from .alm import DELAY_FIELDS, ArchParams
 from .circuit_ir import CircuitIR
+from ..device import resolve_device
 
 #: instrumentation: refinement solves / criticality solves vs cache hits
 ANNEAL_COUNTS = {"anneal": 0, "crit_solve": 0, "crit_hit": 0}
@@ -92,6 +102,8 @@ _WIRE_FIELDS = ("t_wire_hop1", "t_wire_hop2", "t_wire_long")
 _DEF_T_FINAL = 0.05
 _DEF_TIMING_WEIGHT = 4.0
 _DEF_CRIT_EXP = 2.0
+#: chains of the torch ensemble (the reference's ``chains=4`` default)
+CHAINS = 4
 
 REFINE_MODES = ("anneal", "anneal_timing")
 
@@ -367,8 +379,228 @@ def _anneal_chain_numpy(ptr, nbr, wts, edge_src, edge_dst, edge_w,
 
 
 # ---------------------------------------------------------------------------
-# entry point
+# torch multi-chain ensemble
 # ---------------------------------------------------------------------------
+
+
+def _streams(p: dict, digest, pkey, seed, t_final, chains):
+    """Every chain's move stream, drawn on the host exactly as the
+    canonical chain draws it (the chain index in the generator's seed;
+    the probe batch, then per step the LBs, the two offsets and the
+    uniforms), so each chain of the batch *is* a numpy chain.  Arrays are
+    step-major, ``[steps, chains, moves]`` and temperatures ``[steps,
+    chains]``, so one step's slice is contiguous."""
+    x0, y0, W, H = p["x0"], p["y0"], p["W"], p["H"]
+    steps, moves, L = p["steps"], p["moves"], x0.size
+    occ0 = np.full(W * H, -1, dtype=np.int32)
+    occ0[x0 * H + y0] = np.arange(L, dtype=np.int32)
+    A = np.empty((steps, chains, moves), dtype=np.int64)
+    DX = np.empty((steps, chains, moves), dtype=np.int64)
+    DY = np.empty((steps, chains, moves), dtype=np.int64)
+    U = np.empty((steps, chains, moves), dtype=np.float64)
+    temps = np.empty((steps, chains))
+    for ch in range(chains):
+        rng = _rng(digest, pkey, seed, chain=ch)
+        t0 = _probe_t0(p["ptr"], p["nbr"], p["wts"], x0, y0, occ0, W, H,
+                       rng)
+        temps[:, ch], wins = _schedules(W, H, t0, t_final, steps)
+        for k in range(steps):
+            win = int(wins[k])
+            A[k, ch] = rng.integers(0, L, moves)
+            DX[k, ch] = rng.integers(-win, win + 1, moves)
+            DY[k, ch] = rng.integers(-win, win + 1, moves)
+            U[k, ch] = rng.random(moves)
+    return occ0, A, DX, DY, U, temps
+
+
+def _anneal_chains_torch(p: dict, digest, pkey, seed, t_final, chains,
+                         device):
+    """``chains`` independently seeded annealing trajectories of problem
+    ``p`` (:func:`_problem`) as one batched program on ``device``: chains
+    are the leading axis of every state tensor, steps a Python loop.
+    Coordinates and slots are int64, costs and temperatures float64,
+    adjacency degree-padded dense (pad neighbour 0 with weight 0).
+    Returns per-chain ``(cost, x, y)`` best snapshots as numpy."""
+    import torch
+
+    ptr, x0, y0, W, H = p["ptr"], p["x0"], p["y0"], p["W"], p["H"]
+    L, WH, C, M = x0.size, W * H, chains, p["moves"]
+    deg = np.diff(ptr).astype(np.int64)
+    D = max(int(deg.max(initial=0)), 1)
+    rows = np.repeat(np.arange(L), deg)
+    cols = np.arange(rows.size) - np.repeat(ptr[:-1], deg)
+    nbr_pad = np.zeros((L, D), dtype=np.int64)
+    w_pad = np.zeros((L, D), dtype=np.float64)
+    nbr_pad[rows, cols] = p["nbr"]
+    w_pad[rows, cols] = p["wts"]
+    occ0, A, DX, DY, U, temps = _streams(p, digest, pkey, seed, t_final, C)
+
+    def to(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    A, DX, DY, U, temps = to(A), to(DX), to(DY), to(U), to(temps)
+    nbr_t, w_t = to(nbr_pad), to(w_pad)
+    src = to(p["edge_src"].astype(np.int64))
+    dst = to(p["edge_dst"].astype(np.int64))
+    ew = to(p["edge_w"].astype(np.float64))
+    # one dummy column past the end of x / y (LB L) and occ (slot WH):
+    # commits of moves that do not commit are redirected there
+    x = to(np.append(x0, 0)).repeat(C, 1)
+    y = to(np.append(y0, 0)).repeat(C, 1)
+    occ = to(np.append(occ0.astype(np.int64), 0)).repeat(C, 1)
+    ids = torch.arange(M, device=device).expand(C, M)
+    ids4 = ids[..., None].expand(C, M, 4).reshape(C, -1)
+    dummy = L + WH
+
+    def cost_of():
+        return (ew * ((x[:, src] - x[:, dst]).abs()
+                      + (y[:, src] - y[:, dst]).abs())).sum(1)
+
+    def incident(ent, nx, ny, partner, pnx, pny):
+        n = nbr_t[ent]                                    # [C, M, D]
+        w = w_t[ent]
+        xn = x.gather(1, n.view(C, -1)).view(C, M, -1)
+        yn = y.gather(1, n.view(C, -1)).view(C, M, -1)
+        is_p = n == partner[..., None]
+        cnx = torch.where(is_p, pnx[..., None], xn)
+        cny = torch.where(is_p, pny[..., None], yn)
+        old = (x.gather(1, ent)[..., None] - xn).abs() \
+            + (y.gather(1, ent)[..., None] - yn).abs()
+        new = (nx[..., None] - cnx).abs() + (ny[..., None] - cny).abs()
+        return (w * (new - old)).sum(2)
+
+    cost = cost_of()
+    best_cost, best_x, best_y = cost, x.clone(), y.clone()
+    for k in range(p["steps"]):
+        a = A[k]
+        sx, sy = x.gather(1, a), y.gather(1, a)
+        tx = (sx + DX[k]).clamp_(0, W - 1)
+        ty = (sy + DY[k]).clamp_(0, H - 1)
+        tslot, sslot = tx * H + ty, sx * H + sy
+        b = occ.gather(1, tslot)
+        hasb = b >= 0
+        bb = torch.where(hasb, b, 0)
+        delta = incident(a, tx, ty, b, sx, sy) \
+            + torch.where(hasb, incident(bb, sx, sy, a, tx, ty), 0.0)
+        T = temps[k].clamp_min(1e-9)[:, None]
+        accept = (b != a) & ((delta <= 0.0) | (
+            U[k] < torch.exp(-delta.clamp_min(0.0) / T)))
+        # conflict-free commit: first accepted claimer per resource wins
+        res = torch.stack([a, torch.where(hasb, b, dummy), L + sslot,
+                           L + tslot], dim=2)                 # [C, M, 4]
+        claim = torch.full((C, dummy + 1), M, dtype=torch.int64,
+                           device=device)
+        claim.scatter_reduce_(
+            1, torch.where(accept[..., None], res, dummy).view(C, -1),
+            ids4, reduce="amin", include_self=True)
+        won = claim.gather(1, res.view(C, -1)).view(C, M, 4) \
+            == ids[..., None]
+        kept = accept & (won.all(2) | (~hasb & won[..., 0] & won[..., 2]
+                                       & won[..., 3]))
+        # Dummy-row redirection, as in the reference: the kept moves touch
+        # disjoint LBs and slots, so every duplicate index of these
+        # scatters is the dummy column, and the order in which CUDA
+        # applies duplicate writes cannot change a result.
+        ia = torch.where(kept, a, L)
+        ib = torch.where(kept & hasb, bb, L)
+        x.scatter_(1, ia, tx).scatter_(1, ib, sx)
+        y.scatter_(1, ia, ty).scatter_(1, ib, sy)
+        occ.scatter_(1, torch.where(kept, tslot, WH), a) \
+            .scatter_(1, torch.where(kept, sslot, WH),
+                      torch.where(hasb, b, -1))
+        cost = cost_of()
+        better = cost < best_cost
+        best_cost = torch.where(better, cost, best_cost)
+        best_x = torch.where(better[:, None], x, best_x)
+        best_y = torch.where(better[:, None], y, best_y)
+    return (best_cost.cpu().numpy(), best_x[:, :L].cpu().numpy(),
+            best_y[:, :L].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def _problem(ir: CircuitIR, arch: ArchParams, seed_pl, mode: str,
+             steps, moves, timing_weight: float, crit_exp: float):
+    """The annealing inputs of ``seed_pl``: routed edges and their
+    weights, the adjacency CSR, the grid, the seed coordinates and the
+    schedule's size; ``None`` when there is nothing to anneal (<= 1 LB
+    or no routed edge)."""
+    from .place import _routed_edges
+
+    if mode not in REFINE_MODES:
+        raise ValueError(
+            f"unknown refine mode {mode!r} (choose from {REFINE_MODES})")
+    L = seed_pl.n_lbs
+    src, dst = _routed_edges(ir)
+    if L <= 1 or not src.size:
+        return None
+    if mode == "anneal_timing":
+        edge_w = criticality_weights(ir, arch, timing_weight=timing_weight,
+                                     crit_exp=crit_exp)
+    else:
+        edge_w = np.ones(src.size, dtype=np.float64)
+    ptr, nbr, wts = _adjacency(L, src, dst, edge_w)
+    return {"ptr": ptr, "nbr": nbr, "wts": wts, "edge_src": src,
+            "edge_dst": dst, "edge_w": edge_w,
+            "x0": seed_pl.lb_x.astype(np.int64),
+            "y0": seed_pl.lb_y.astype(np.int64),
+            "W": seed_pl.grid_w, "H": seed_pl.grid_h,
+            "steps": _default_steps(L) if steps is None else int(steps),
+            "moves": _default_moves(L) if moves is None else int(moves)}
+
+
+def _wirecost(p: dict, x, y) -> float:
+    """Exact numpy annealing cost of coordinates ``(x, y)``."""
+    src, dst = p["edge_src"], p["edge_dst"]
+    return float((p["edge_w"] * (np.abs(x[src] - x[dst])
+                                 + np.abs(y[src] - y[dst]))).sum())
+
+
+def _chains(p: dict, digest: str, pkey: tuple, seed: int, t_final: float,
+            chains: int, backend: str, device):
+    if backend == "torch":
+        return _anneal_chains_torch(p, digest, pkey, seed, t_final, chains,
+                                    device)
+    runs = [_anneal_chain_numpy(
+        p["ptr"], p["nbr"], p["wts"], p["edge_src"], p["edge_dst"],
+        p["edge_w"], p["x0"], p["y0"], p["W"], p["H"],
+        _rng(digest, pkey, seed, chain=ch), p["steps"], p["moves"],
+        t_final) for ch in range(chains)]
+    return (np.array([r[0] for r in runs], dtype=np.float64),
+            np.stack([r[1] for r in runs]), np.stack([r[2] for r in runs]))
+
+
+def _check_backend(backend: str, device):
+    """The device the backend runs on (``None`` for numpy)."""
+    if backend == "jax":
+        raise ValueError(
+            "the multi-chain anneal backend of the port is 'torch' (the "
+            "reference's 'jax' ensemble runs on the device in torch here)")
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"unknown anneal backend {backend!r}")
+    return resolve_device(device) if backend == "torch" else None
+
+
+def _ensemble_chains(ir: CircuitIR, arch: ArchParams, seed_pl, *,
+                     seed: int = 0, mode: str = "anneal",
+                     backend: str = "torch", steps: int | None = None,
+                     moves: int | None = None, device=None):
+    """Every chain's best snapshot, ``(cost [CHAINS], x [CHAINS, L],
+    y [CHAINS, L])``, before the ensemble's final pick: the batched
+    program (``backend="torch"``, on ``device``) or the canonical numpy
+    chain run once per chain with ``_rng(..., chain=ch)``
+    (``backend="numpy"``), the plain version the batch is held to.
+    ``None`` when there is nothing to anneal."""
+    dev = _check_backend(backend, device)
+    p = _problem(ir, arch, seed_pl, mode, steps, moves, _DEF_TIMING_WEIGHT,
+                 _DEF_CRIT_EXP)
+    if p is None:
+        return None
+    return _chains(p, seed_pl.net_digest, seed_pl.placement_key, seed,
+                   _DEF_T_FINAL, CHAINS, backend, dev)
 
 
 def refine_placement(ir: CircuitIR, arch: ArchParams, seed_pl, *,
@@ -377,7 +609,7 @@ def refine_placement(ir: CircuitIR, arch: ArchParams, seed_pl, *,
                      steps: int | None = None, moves: int | None = None,
                      t_final: float = _DEF_T_FINAL,
                      timing_weight: float = _DEF_TIMING_WEIGHT,
-                     crit_exp: float = _DEF_CRIT_EXP):
+                     crit_exp: float = _DEF_CRIT_EXP, device=None):
     """Anneal-refine the analytic seed placement ``seed_pl`` of ``ir``.
 
     Returns a :class:`repro_torch.core.place.GridPlacement` on the same grid
@@ -391,49 +623,37 @@ def refine_placement(ir: CircuitIR, arch: ArchParams, seed_pl, *,
     ``mode="anneal_timing"`` weights edges by slack-derived criticality
     (near-critical nets contract harder); the guarantee then applies to
     the weighted cost and the *best-weighted* snapshot is returned.
-    The reference's multi-chain ensemble (``backend="jax"``) is not
-    ported yet and raises ``NotImplementedError``.
+    ``backend="torch"`` runs a :data:`CHAINS`-wide ensemble on ``device``
+    (default: the card) and keeps the best of ``[seed] + chains`` by the
+    exact numpy cost; the reference's name for it, ``"jax"``, raises
+    ``ValueError``.
     """
     import time
 
-    from .place import GridPlacement, _routed_edges
+    from .place import GridPlacement
 
-    if mode not in REFINE_MODES:
-        raise ValueError(
-            f"unknown refine mode {mode!r} (choose from {REFINE_MODES})")
+    dev = _check_backend(backend, device)
     t_start = time.perf_counter()
-    L = seed_pl.n_lbs
-    src, dst = _routed_edges(ir)
-    if L <= 1 or not src.size:
+    p = _problem(ir, arch, seed_pl, mode, steps, moves, timing_weight,
+                 crit_exp)
+    if p is None:
         _record_wall(time.perf_counter() - t_start)
         return seed_pl
-    if mode == "anneal_timing":
-        edge_w = criticality_weights(ir, arch, timing_weight=timing_weight,
-                                     crit_exp=crit_exp)
-    else:
-        edge_w = np.ones(src.size, dtype=np.float64)
     ANNEAL_COUNTS["anneal"] += 1
-    W, H = seed_pl.grid_w, seed_pl.grid_h
-    ptr, nbr, wts = _adjacency(L, src, dst, edge_w)
-    steps = _default_steps(L) if steps is None else int(steps)
-    moves = _default_moves(L) if moves is None else int(moves)
-    pkey = seed_pl.placement_key
-    x0 = seed_pl.lb_x.astype(np.int64)
-    y0 = seed_pl.lb_y.astype(np.int64)
-
-    if backend == "jax":
-        raise NotImplementedError(
-            "the multi-chain annealer (backend='jax' in the reference) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 3); use "
-            "backend='numpy'")
-    if backend != "numpy":
-        raise ValueError(f"unknown anneal backend {backend!r}")
-    rng = _rng(seed_pl.net_digest, pkey, seed)
-    _, best_x, best_y = _anneal_chain_numpy(
-        ptr, nbr, wts, src, dst, edge_w, x0, y0, W, H, rng,
-        steps, moves, t_final)
-    out = GridPlacement(W, H, best_x.astype(np.int32),
+    digest, pkey = seed_pl.net_digest, seed_pl.placement_key
+    bc, bx, by = _chains(p, digest, pkey, seed, t_final,
+                         CHAINS if backend == "torch" else 1,
+                         backend, dev)
+    # exact numpy re-score with the seed in the candidate pool; a numpy
+    # chain's best snapshot already starts at the seed and moves only on
+    # a strictly lower cost, so for the one canonical chain this pick is
+    # that chain's best
+    cands = [(_wirecost(p, p["x0"], p["y0"]), p["x0"], p["y0"])]
+    cands += [(_wirecost(p, bx[ch], by[ch]), bx[ch], by[ch])
+              for ch in range(bc.shape[0])]
+    _, best_x, best_y = min(cands, key=lambda t: t[0])
+    out = GridPlacement(p["W"], p["H"], best_x.astype(np.int32),
                         best_y.astype(np.int32), seed_pl.seed,
-                        seed_pl.net_digest, pkey, refine=mode)
+                        digest, pkey, refine=mode)
     _record_wall(time.perf_counter() - t_start)
     return out

@@ -28,8 +28,8 @@
 
 Ratios against a baseline arch (the shape of Figs. 5-7) come from
 :func:`ratios_vs_baseline`; :func:`run_suites` maps the whole pipeline
-over named suites.  The reference's serving entry point (``serve``) is
-not ported yet.
+over named suites; :func:`serve` answers many tenants' requests through
+the async batched flow server (:mod:`repro_torch.core.serve_flow`).
 """
 from __future__ import annotations
 
@@ -407,6 +407,25 @@ def evaluate_suite(nets: list[Netlist],
     if model is not None:
         stats["cost_model"] = model
     return outs, stats
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def serve(requests, **server_kwargs):
+    """Serve a list of :class:`~repro_torch.core.serve_flow.FlowRequest`\\ s
+    through one async batched
+    :class:`~repro_torch.core.serve_flow.FlowServer` (coalescing window,
+    request dedup, batched timing/eval programs on ``device``, bounded
+    multi-tenant caches) and return
+    :class:`~repro_torch.core.serve_flow.FlowResult`\\ s in request order.
+    Every record is bit-identical to ``pack_and_analyze(net, arch,
+    seeds=(seed,))`` — see :mod:`repro_torch.core.serve_flow`."""
+    from .serve_flow import serve_requests
+
+    return serve_requests(requests, **server_kwargs)
 
 
 def oracle_check(net: Netlist, pi_lanes: dict[int, np.ndarray],

@@ -1,5 +1,6 @@
 """Batched analytic grid placement over packed :class:`CircuitIR` (the
-port of ``repro/core/place.py``: its canonical numpy placer, copied).
+port of ``repro/core/place.py``: its canonical numpy placer copied, its
+jax ensemble in torch).
 
 The pack stage assigns ALMs to logic blocks but says nothing about
 *where* those LBs sit on the fabric, so every inter-LB edge used to time
@@ -28,15 +29,23 @@ Algorithm — classic two-phase analytic placement, fully vectorized:
    LB — capacity 1, no overlap, reproducible bit-for-bit from
    ``(netlist digest, structural key, seed)``.
 
-The relaxation is plain array arithmetic, run as numpy (the canonical,
-bit-deterministic default and, so far, the only backend here).  The
-reference also relaxes an ensemble of starting scatters as one jax
-program (``backend="jax"``), keeping the best final wirelength; its
-batched torch counterpart is not ported yet (``ROADMAP.md``, Queue 1
-item 3), and ``backend="jax"`` raises ``NotImplementedError``.
-Legalization is always numpy: downstream bit-identity gates compare
-vectorized timing against the placed oracle *on whatever placement was
-produced*, so the backend choice never touches the timing contract.
+The relaxation is plain array arithmetic, so it runs either as numpy
+(the canonical, bit-deterministic default) or as a torch program on the
+card (``backend="torch"``, the reference's ``"jax"``) batched over an
+ensemble of starting scatters with the best final wirelength kept — the
+batched axis the sweep engine uses when placing circuits x archs.  The
+reference's ensemble relaxes in float32 (jax's default; it never enters
+64-bit mode); the port's relaxes in float64, the canonical numpy
+precision, so each member lands within rounding of ``_smooth_numpy`` on
+the same start.  The ensemble's width is the module constant
+:data:`ENSEMBLES` and the refining annealer's chain count
+:data:`repro_torch.core.anneal.CHAINS` (both 4, the reference's
+defaults), not the reference's ``ensembles`` / ``anneal_chains``
+arguments: no caller, there or here, passes other counts.
+Legalization is always numpy: downstream bit-identity
+gates compare vectorized timing against the placed oracle *on whatever
+placement was produced*, so the backend choice never touches the timing
+contract.
 
 Refinement: ``place_ir(refine="anneal")`` hands the analytic result to
 the batched simulated annealer in :mod:`repro_torch.core.anneal` (uniform
@@ -55,8 +64,8 @@ plus grid aspect — wire-tier delays and channel width are deliberately
 absent, so one placement serves every delay row of a structural class
 (place once, re-time many; the reuse the warm-sweep gate measures) and
 :func:`repro_torch.core.plan.clear_caches` drops placements along with every
-other lowering cache.  Tuning knobs (backend, anneal steps / moves) are
-deliberately *not* part of the key: like the
+other lowering cache.  Tuning knobs (backend, anneal steps / moves,
+device) are deliberately *not* part of the key: like the
 analytic ``backend``, they pick an algorithm for producing a placement
 that satisfies the same contract, and the first call wins.
 """
@@ -70,6 +79,7 @@ import numpy as np
 from . import plan as _planner
 from .alm import ArchParams
 from .circuit_ir import CircuitIR, apply_placement
+from ..device import resolve_device
 
 # instrumentation: how many placements were solved analytically vs served
 # from the registry cache (tests assert reuse across structural classes)
@@ -78,6 +88,9 @@ PLACE_COUNTS = {"analytic": 0, "cache_hit": 0}
 _PLACE_CACHE = _planner.register_cache("placement", cap=256)
 
 _SMOOTH_ITERS = 32
+#: starting scatters relaxed by the torch ensemble (the reference's
+#: ``ensembles=4`` default)
+ENSEMBLES = 4
 _ALPHA = 0.5  # damping: weight of a LB's own position vs its neighbours
 
 
@@ -170,6 +183,25 @@ def _smooth_numpy(A: np.ndarray, pos: np.ndarray,
     return pos
 
 
+def _smooth_torch(A: np.ndarray, pos0: np.ndarray, device,
+                  iters: int = _SMOOTH_ITERS) -> np.ndarray:
+    """Ensemble-batched relaxation on ``device``: ``pos0`` is ``[E, L,
+    2]``, every member smoothed at once in float64 (``A @ p`` broadcast
+    over the ensemble axis).  Returns numpy ``[E, L, 2]``."""
+    import torch
+
+    At = torch.from_numpy(A).to(device)
+    deg = At.sum(dim=1, keepdim=True)
+    p = torch.from_numpy(np.ascontiguousarray(pos0, dtype=np.float64)) \
+        .to(device)
+    for _ in range(iters):
+        p = (At @ p + _ALPHA * p) / (deg + _ALPHA)
+        lo = p.amin(dim=1, keepdim=True)
+        span = p.amax(dim=1, keepdim=True) - lo
+        p = (p - lo) / torch.where(span > 0, span, 1.0)
+    return p.cpu().numpy()
+
+
 def _legalize(pos: np.ndarray, grid_w: int, grid_h: int
               ) -> tuple[np.ndarray, np.ndarray]:
     """Snap relaxed coordinates to distinct grid slots: stable-sort by x
@@ -190,21 +222,34 @@ def _legalize(pos: np.ndarray, grid_w: int, grid_h: int
 
 
 def place_ir(ir: CircuitIR, arch: ArchParams, seed: int = 0, *,
-             backend: str = "numpy",
-             refine: str | None = None, anneal_steps: int | None = None,
-             anneal_moves: int | None = None) -> GridPlacement:
+             backend: str = "numpy", refine: str | None = None,
+             anneal_steps: int | None = None,
+             anneal_moves: int | None = None,
+             device=None) -> GridPlacement:
     """Solve one analytic placement of ``ir``'s LBs on ``arch``'s grid.
 
     ``backend="numpy"`` (canonical) relaxes a single deterministic
-    scatter.  The reference's ensemble backend ``"jax"`` (a batch of
-    scatters relaxed in one program) is not ported yet and raises
-    ``NotImplementedError``.
+    scatter; ``backend="torch"`` relaxes an :data:`ENSEMBLES`-wide batch
+    of scatters in one program on ``device`` (default: the card) and keeps
+    the legalized candidate with the lowest total wirelength
+    (first-index tie-break, so the choice is still deterministic for a
+    fixed backend).  The reference's name for it, ``"jax"``, raises
+    ``ValueError``.
 
     ``refine="anneal"`` (or ``"anneal_timing"``) hands the analytic
     result to :func:`repro_torch.core.anneal.refine_placement`; the
-    backend choice carries over.  ``anneal_steps`` / ``anneal_moves``
-    bound the annealing schedule (None = size-scaled defaults).
+    backend choice carries over (torch refinement runs a
+    :data:`repro_torch.core.anneal.CHAINS`-wide multi-chain ensemble).
+    ``anneal_steps`` / ``anneal_moves`` bound the annealing schedule
+    (None = size-scaled defaults).
     """
+    if backend == "jax":
+        raise ValueError(
+            "the ensemble placement backend of the port is 'torch' (the "
+            "reference's 'jax' ensemble runs on the device in torch here)")
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"unknown placement backend {backend!r}")
+    dev = resolve_device(device) if backend == "torch" else None
     if ir.arch_name is None:
         raise ValueError(f"{ir.name}: cannot place a functional IR")
     if ir.structural_key is not None \
@@ -221,25 +266,31 @@ def place_ir(ir: CircuitIR, arch: ArchParams, seed: int = 0, *,
         return GridPlacement(grid_w, grid_h, z, z, seed,
                              ir.net_digest, pkey)
 
-    if backend == "jax":
-        raise NotImplementedError(
-            "the ensemble placer (backend='jax' in the reference) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 3); use backend='numpy'")
-    if backend != "numpy":
-        raise ValueError(f"unknown placement backend {backend!r}")
     PLACE_COUNTS["analytic"] += 1
     A = lb_connectivity(ir)
     rng = _seed_rng(ir.net_digest, pkey, seed)
-    pos = _smooth_numpy(A, rng.random((L, 2)))
-    lb_x, lb_y = _legalize(pos, grid_w, grid_h)
-    base = GridPlacement(grid_w, grid_h, lb_x, lb_y, seed,
-                         ir.net_digest, pkey)
+    if backend == "torch":
+        relaxed = _smooth_torch(A, rng.random((ENSEMBLES, L, 2)), dev)
+        best = None
+        for e in range(relaxed.shape[0]):
+            lb_x, lb_y = _legalize(relaxed[e], grid_w, grid_h)
+            cand = GridPlacement(grid_w, grid_h, lb_x, lb_y, seed,
+                                 ir.net_digest, pkey)
+            wl = cand.wirelength(ir)
+            if best is None or wl < best[0]:
+                best = (wl, cand)
+        base = best[1]
+    else:
+        pos = _smooth_numpy(A, rng.random((L, 2)))
+        lb_x, lb_y = _legalize(pos, grid_w, grid_h)
+        base = GridPlacement(grid_w, grid_h, lb_x, lb_y, seed,
+                             ir.net_digest, pkey)
     if refine is None:
         return base
     from .anneal import refine_placement
     return refine_placement(ir, arch, base, seed=seed, mode=refine,
                             backend=backend, steps=anneal_steps,
-                            moves=anneal_moves)
+                            moves=anneal_moves, device=dev)
 
 
 def placement_for(ir: CircuitIR, arch: ArchParams, seed: int = 0, *,

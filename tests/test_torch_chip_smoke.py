@@ -15,7 +15,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.core import circuits  # noqa: E402
+from repro_torch.core import anneal, circuits  # noqa: E402
 from repro_torch.core.stress import packing_stress_circuit  # noqa: E402
 CPU = torch.device("cpu")
 
@@ -39,7 +39,8 @@ def test_phase_functions_importable():
                  "lut_eval6_launches_grouped", "cost_model_reading",
                  "check_lut_sass", "level_rows_once_bound",
                  "phase_sweep", "phase_sweep_placed", "phase_search",
-                 "stable_payload"):
+                 "stable_payload", "phase_placement_ensembles",
+                 "phase_serve_flow", "serve_pool", "edit_stream"):
         assert callable(getattr(cs, name)), name
 
 
@@ -180,6 +181,65 @@ def test_sweep_and_search_phases_rehearsed_on_cpu():
                                      if n.name == name))
     assert srec["launches"] == {"lut_eval6": 0}
     assert srec["budget_ledger"]["used"] <= 200
+
+
+def test_placement_ensembles_phase_rehearsed_on_cpu():
+    """The ensemble phase on two small Kratos circuits: every gate of
+    every case passes, and each backend's wall, wirelengths and profiled
+    largest case are read (nothing launches on the CPU)."""
+    suites = {"kratos": [n for n in circuits.kratos_suite(scale=0.3)
+                         if n.name in ("conv1d-pw-fu", "fc-fu")]}
+    rec = cs.phase_placement_ensembles(suites, CPU, archs=("dd5",),
+                                       workers=2)
+    assert rec["workers"] == 2
+    assert rec["circuits"] == 2 and len(rec["cases"]) == 2
+    for case in rec["cases"]:
+        assert case["relax_max_abs_err"] <= cs.RELAX_TOL
+        assert case["anneal"]["cost_rel_err"] == 0.0
+        assert case["anneal_timing"]["cost_rel_err"] <= 1e-12
+        for mode in ("anneal", "anneal_timing"):
+            assert case[mode]["objective"] <= case[mode]["seed_objective"]
+            assert len(case[mode]["chain_costs"]) == anneal.CHAINS
+            assert case[mode]["torch_place_s"] > 0
+        assert case["anneal"]["wirelength"] <= case["seed_wirelength"]
+        assert "final" not in case
+    assert rec["largest"]["lbs"] == max(c["lbs"] for c in rec["cases"])
+    for backend in ("torch", "numpy"):
+        for mode in ("anneal", "anneal_timing"):
+            reading = rec["largest"][f"{backend}/{mode}"]
+            assert reading["wall_ms"] > 0 and reading["wirelength"] > 0
+            assert reading["device_kernel_launches"] == 0
+    assert rec["totals"]["anneal"]["numpy_chains_pool_s"] > 0
+
+
+def test_serve_flow_phase_rehearsed_on_cpu():
+    """The flow-server phase at a tiny size: 8 requests over a two-circuit
+    pool, eval of two circuits at 2 lane words, a 3-edit stream; every
+    gate passes with both timing backends."""
+    from repro_torch.core.circuits import kratos_gemm
+
+    pool = cs.serve_pool(smoke=True)
+    assert len(pool) == 4 and len(cs.serve_pool()) == 12
+    rec = cs.phase_serve_flow(
+        CPU, pool=pool, n_requests=8, client_counts=(4,),
+        eval_nets=circuits.vtr_suite(scale=0.3)[:2], n_lane_words=2,
+        edit_net=kratos_gemm(m=5, n=5, width=5, sparsity=0.5), n_edits=3)
+    assert rec["equal_serial"] and rec["equal_backends"]
+    assert set(rec["coalescing"]) == {f"{b}/clients4/{t}"
+                                      for b in ("torch", "numpy")
+                                      for t in ("cold", "warm")}
+    for reading in rec["coalescing"].values():
+        assert reading["n_batches"] >= 1 and reading["p99_ms"] >= \
+            reading["p50_ms"] > 0
+        assert set(reading["wall_split"]) == set(cs._SERVE_WALLS)
+    assert rec["eval"]["circuits"] == 2
+    assert rec["eval"]["torch"]["wall_split"]["eval_s"] > 0
+    assert rec["launches"] == {"lut_eval6": 0}
+    for backend in ("torch", "numpy"):
+        edits = rec["edit_stream"][backend]
+        assert edits["n_incremental"] >= 1
+        assert [e["kind"] for e in edits["edits"]] == \
+            ["rewire_fanin", "rewire_fanin", "lut_tt"]
 
 
 def test_sweep_phase_rejects_a_wrong_flow_record():

@@ -123,6 +123,18 @@ def test_entry_points_default_to_the_card(monkeypatch):
         build_suite_timing_program([ir])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         analyze_ir(ir, ARCHS["dd5"], backend="torch")
+    from repro_torch.core import anneal, place
+    from repro_torch.core.serve_flow import FlowRequest, FlowServer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FlowServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flow.serve([FlowRequest(net, "dd5")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        place.place_ir(ir, ARCHS["dd5"], backend="torch")
+    seed_pl = place.place_ir(ir, ARCHS["dd5"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        anneal.refine_placement(ir, ARCHS["dd5"], seed_pl, backend="torch")
     from repro_torch.configs.base import get_config
     from repro_torch.launch import quantized_serve, serve
     from repro_torch.serve.kvcache import init_cache
@@ -139,3 +151,5 @@ def test_entry_points_default_to_the_card(monkeypatch):
         (net.n_signals, 1)
     assert len(flow.sweep_architectures([net], archs=grid,
                                         device="cpu").records[0]) == 2
+    assert flow.serve([FlowRequest(net, "dd5")], device="cpu")[0] \
+        .record["alms"] > 0

@@ -1,13 +1,17 @@
 """The port's batched timing program and design-space sweep against the
 JAX package, on the CPU.
 
-The reference's own batched program cannot run here (it needs
-``jax.experimental.enable_x64``), so the port's torch program is held to
-the Python oracle (``timing.analyze_oracle``), the vectorized
-``critical_path_numpy`` and the reference's ``sweep_suite(backend=
-"numpy")``: every critical path, area and ADP equal, bit for bit."""
+The port's torch program is held to the Python oracle
+(``timing.analyze_oracle``), the vectorized ``critical_path_numpy`` and the
+reference's ``sweep_suite(backend="numpy")``: every critical path, area and
+ADP equal, bit for bit.  The reference's own batched program needs
+``jax.experimental.enable_x64``, which jax 0.9.0 moved to
+``jax.enable_x64``; under a test-local alias (the ``x64`` fixture) the
+port's sweep is also held to the reference's ``backend="jax"`` sweep."""
 import random
 
+import jax
+import jax.experimental
 import numpy as np
 import pytest
 import torch
@@ -254,6 +258,28 @@ def test_sweep_records_equal_reference(grid, max_groups):
         (ref.circuits, ref.suites, ref.archs, ref.n_classes)
     assert oracle_parity(res, nets, archs)
     assert sweep_suite(nets, archs, backend="numpy").records == ref.records
+
+
+@pytest.fixture
+def x64(monkeypatch):
+    """Let the reference's device program find ``enable_x64`` where
+    jax < 0.9 kept it, for this test only."""
+    monkeypatch.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                        raising=False)
+
+
+def test_sweep_equals_reference_device_program(x64):
+    """The port's torch sweep against the reference's own batched device
+    program (``backend="jax"``) over the 7-point grid: every critical path
+    and area ``==``."""
+    nets, rnets = _sweep_nets()
+    res = sweep_suite(nets, arch_grid(), backend="torch", device=CPU)
+    ref = rsweep_suite(rnets, rarch_grid(), backend="jax")
+    assert (res.circuits, res.archs) == (ref.circuits, ref.archs)
+    for got, want in zip(res.records, ref.records):
+        for g, w in zip(got, want):
+            assert (g["arch"], g["critical_path_ps"], g["area_mwta"]) == \
+                (w["arch"], w["critical_path_ps"], w["area_mwta"])
 
 
 def test_flow_sweep_forwards_max_groups():
