@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — the paper's CAD flow and its bit-parallel
-functional evaluator, serving of the dense LMs, and the forward and
-serving of the Mamba-2 and Hymba families — at full size on the card, and
+functional evaluator, serving of the dense LMs, the forward and serving
+of the Mamba-2 and Hymba families, and training of a dense LM — at full
+size on the card, and
 holds every CUDA kernel against its plain-torch version.  Phases, each
 printing one JSON line, in this order; any failure raises, so the script
 exits non-zero:
@@ -134,12 +135,42 @@ exits non-zero:
     forward at 2 x 2048 (the window of 1024 bites; 32 ``ssd_scan`` and 32
     ``flash_attention`` launches) and a timed serving run with 2048-token
     prompts (32 flash launches per step); then its profile_ssm;
-21. summary: the ``kernels`` line (all six kernels; for those with
+21. flash_backward_parity: the flash route under autograd
+    (``FlashAttentionFn``: the kernel forward, the backward a recompute
+    through the plain version) on the FLASH_CASES that take more than
+    one query, at every head dimension, and gemma2-2b's attention (D 256,
+    window 4096, softcap 50), float32 and bfloat16: the forward within
+    2e-4 / 2e-2 of the plain version, dq, dk, dv equal bit for bit to
+    autograd through it; at tinyllama-1.1b's training shape [4, 32, 2048,
+    64] over 4 kv heads, bf16, the forward by both routes within 2e-2 of
+    the plain version, and the kernel forward, the recompute backward and
+    both together
+    timed beside the plain forward, SDPA's forward and forward + backward
+    (``enable_gqa`` and K / V repeated) and the forward's and a fused
+    backward's bounds;
+22. train_tinyllama: ``tinyllama-1.1b`` at full width — a float32 gate
+    over its first 4 layers (2 x 512 tokens, seed-0 weights: the kernel
+    route's loss and every leaf's gradient against the plain path's
+    within ``max(1e-4, 4 x d)`` normwise, d the plain path's own distance
+    from a float64 plain run; the parameters after one AdamW step
+    beside), a timed bf16 ``fit`` of 12 steps at full depth with remat (B
+    4 x S 2048, AdamW at the train launcher's defaults; per step the wall,
+    tokens / s, peak memory, model-FLOPs share of the bf16 peak, and 22 +
+    22 ``mma`` flash launches; the losses finite and falling), and a
+    checkpoint check on its saves (at steps 6 and 12: the last restored
+    bit for bit against the run's final state, then a fresh ``fit``
+    resumed from step 6 to 12, its losses beside the uninterrupted
+    run's);
+23. profile_train: one warm bf16 train step under ``torch.profiler``
+    (device busy and idle share, top kernels, the flash forwards' and the
+    recompute backward's shares) and one eager AdamW update alone;
+24. summary: the ``kernels`` line (all six kernels; for those with
     variants, each variant's calls on the main paths; ``lut_eval6``'s
     times and bound are its level variant's, the one the main paths
     launch, with the op's beside, and its launches include the search
-    and serve_flow phases'), the card line, and as the last line
-    ``{"ok": true, "device": {...}}``.
+    and serve_flow phases'; ``flash_attention``'s include the training
+    run's, with its training calls per step and times beside), the card
+    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each phase that drives the main
 path and read just after; the parity phases' launches are not counted.
@@ -149,8 +180,10 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -256,30 +289,42 @@ def time_ms(fn, reps: int = 10, inner: int = 10, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, calls: int = 20) -> tuple[float, list[dict]]:
+#: profiler sessions :func:`device_ms` opens before it gives up on one
+#: that records the device's work (on an H100, a session late in a long
+#: run has come back with no device events while the work ran)
+PROFILE_TRIES = 3
+
+
+def device_ms(fn, calls: int = 20) -> tuple[float | None, list[dict]]:
     """Device time per ``fn()`` on the card: the summed duration of every
     kernel and copy that ``calls`` back-to-back calls ran, under
     ``torch.profiler``, over ``calls``; and the same per kernel name.
     Unlike :func:`time_ms` it leaves out the host's time between launches,
     which sets the pace of back-to-back calls that take the device only a
-    few microseconds."""
+    few microseconds.  A session that records no device work is run
+    again, up to ``PROFILE_TRIES`` times; after that the time is ``None``
+    (not measured), never 0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and not e.key.startswith("Activity Buffer")]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")]
+        if dev:
+            break
     by_name = [{"name": e.key[:80],
                 "ms": e.self_device_time_total / 1e3 / calls}
                for e in dev]
-    return sum(k["ms"] for k in by_name), by_name
+    return (sum(k["ms"] for k in by_name) if dev else None), by_name
 
 
 def lut_bound_ms(M: int, K: int, N: int, n_tables: int) -> dict:
@@ -2879,6 +2924,587 @@ def phase_profile_serve(cfg, params, batch: int, prompt_len: int, device,
 
 
 # ---------------------------------------------------------------------------
+# training: the flash route under autograd, the train step, checkpoints
+# ---------------------------------------------------------------------------
+
+#: FLASH_CASES whose queries are more than one token (the calls a training
+#: forward makes are of this kind) at every head dimension, and gemma2-2b's
+#: own attention (D 256, its window of 4096 over 4608 keys, softcap 50):
+#: (label, B, Hq, Hkv, S, T, D, causal, window, softcap)
+FLASH_GRAD_CASES = [(*c[:6], D, *c[6:]) for c in FLASH_CASES if c[4] > 1
+                    for D in FLASH_DIMS] + [
+    ("gemma2-2b local", 1, 8, 4, 4608, 4608, 256, True, 4096, 50.0)]
+#: tinyllama-1.1b's attention in the training run: [B, Hq, S, D] over Hkv
+#: kv heads
+TRAIN_ATTN = (4, 32, 4, 2048, 2048, 64)
+#: the training phase: the float32 gate's (layers, batch, seq), the timed
+#: run's (steps, batch, seq), the step whose checkpoint the resumed run
+#: starts from, and AdamW at the train launcher's defaults
+TRAIN_GATE = (4, 2, 512)
+TRAIN_TIMED = (12, 4, 2048)
+TRAIN_SAVE_AT = 6
+TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 5}
+#: the float32 gate's floor, the North star's grads tolerance
+TRAIN_TOL = 1e-4
+
+
+def flash_grad_parity(device, cases=FLASH_GRAD_CASES,
+                      dtypes=("float32", "bfloat16"), seed: int = 0) -> dict:
+    """The flash route under autograd (``FlashAttentionFn``: the kernel
+    forward on the card) against the plain version: the output within
+    ``FLASH_TOL``, and dq, dk, dv for the same q, k, v and upstream
+    gradient equal, bit for bit, to autograd through the plain version
+    (the backward is that recompute).  Raises on the first difference."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    worst = {}
+    for dt in dtypes:
+        worst[dt] = 0.0
+        for label, B, Hq, Hkv, S, T, D, causal, window, softcap in cases:
+            q, k, v = [t.detach().requires_grad_() for t in _attn_inputs(
+                gen, B, Hq, Hkv, S, T, D, _dtype(dt), device)]
+            g = torch.randn((B, Hq, S, D), generator=gen, device=device,
+                            dtype=torch.float32).to(_dtype(dt))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            out = ops.flash_attention(q, k, v, **kw)
+            check(type(out.grad_fn).__name__ == "FlashAttentionFnBackward",
+                  f"flash {label}: not routed through FlashAttentionFn")
+            plain = ref.flash_attention_ref(q, k, v, **kw)
+            ok, err = _within(out.detach(), plain.detach(), FLASH_TOL[dt],
+                              FLASH_TOL[dt])
+            check(ok, f"flash {label} D={D} {dt}: the autograd route's "
+                      f"forward differs from the plain version ({err})")
+            got = torch.autograd.grad(out, (q, k, v), g)
+            want = torch.autograd.grad(plain, (q, k, v), g)
+            for name, a, b in zip("qkv", got, want):
+                check(torch.equal(a, b),
+                      f"flash {label} D={D} {dt}: d{name} differs from "
+                      f"autograd through the plain version")
+            worst[dt] = max(worst[dt], err)
+    return {"max_abs_err": worst, "cases": len(cases) * len(dtypes)}
+
+
+def flash_backward_bound_ms(B, Hq, Hkv, S, T, D, elem_bytes) -> dict:
+    """Least time for a fused causal attention backward: 10 D FLOPs per
+    visible pair (the scores recomputed, dV, dP, dQ and dK: five products)
+    at the bf16 peak, against q, o, dO and the logsumexp read, k and v
+    read, and dq, dk, dv written once."""
+    pairs = visible_pairs(S, T, True, None)
+    nbytes = elem_bytes * (3 * B * Hq * S * D + 2 * B * Hkv * T * D
+                           + B * Hq * S * D + 2 * B * Hkv * T * D) \
+        + 4 * B * Hq * S
+    return _bound(10 * B * Hq * pairs * D, BF16_FLOPS, nbytes)
+
+
+def train_shape_inputs(device, shape=TRAIN_ATTN, seed: int = 2):
+    """bf16 ``(q, k, v, g)`` at the training run's attention shape, as the
+    model hands them over (:func:`_attn_inputs`), with an upstream
+    gradient ``g`` of the output's shape."""
+    import torch
+
+    B, Hq, Hkv, S, T, D = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = _attn_inputs(gen, B, Hq, Hkv, S, T, D, torch.bfloat16, device)
+    g = torch.randn((B, Hq, S, D), generator=gen, device=device,
+                    dtype=torch.float32).to(torch.bfloat16)
+    return q, k, v, g
+
+
+def train_forward_parity(q, k, v) -> float:
+    """The flash forward at the training run's shape (causal, the full
+    window), by both routes the training step takes — the kernel under
+    ``no_grad`` and ``FlashAttentionFn`` on inputs that need a gradient —
+    against the plain version on the same inputs, within ``FLASH_TOL``
+    of their type.  Returns the larger max-abs error; raises on a miss."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    kw = dict(causal=True, window=HUGE_WINDOW, softcap=None)
+    tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+    with torch.no_grad():
+        plain = ref.flash_attention_ref(q, k, v, **kw)
+        kern = ops.flash_attention(q, k, v, **kw)
+    qd, kd, vd = [t.detach().requires_grad_() for t in (q, k, v)]
+    routed = ops.flash_attention(qd, kd, vd, **kw)
+    check(type(routed.grad_fn).__name__ == "FlashAttentionFnBackward",
+          "flash at the training shape: not routed through FlashAttentionFn")
+    worst = 0.0
+    for how, out in (("kernel", kern), ("autograd route", routed.detach())):
+        ok, err = _within(out, plain, tol, tol)
+        check(ok, f"flash at the training shape {list(q.shape)} over "
+                  f"{k.shape[1]} kv heads: the {how}'s forward differs from "
+                  f"the plain version ({err})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_flash_backward(device, shape=TRAIN_ATTN) -> dict:
+    """``flash_backward_parity``: :func:`flash_grad_parity`, then at the
+    training run's attention shape (bf16) the forward held to the plain
+    version (:func:`train_forward_parity`), and timed: the kernel forward,
+    the plain forward, the recomputing backward (what
+    ``FlashAttentionFn.backward`` runs) and forward + backward through the
+    autograd route, beside SDPA's forward and forward + backward (with
+    ``enable_gqa``, and with K / V repeated to the query heads) and the
+    bounds.  The training shape's error joins the bf16 ``max_abs_err``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    t0 = time.perf_counter()
+    parity = flash_grad_parity(device)
+    parity_s = time.perf_counter() - t0
+    B, Hq, Hkv, S, T, D = shape
+    q, k, v, g = train_shape_inputs(device, shape)
+    train_err = train_forward_parity(q, k, v)
+    parity["max_abs_err"]["bfloat16"] = max(parity["max_abs_err"]["bfloat16"],
+                                            train_err)
+    qd, kd, vd = [t.detach().requires_grad_() for t in (q, k, v)]
+    kw = dict(causal=True, window=HUGE_WINDOW, softcap=None)
+
+    def kernel_fwd():
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, **kw)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return ref.flash_attention_ref(q, k, v, **kw)
+
+    def recompute_bwd():
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(qd, kd, vd, **kw)
+            return torch.autograd.grad(out, (qd, kd, vd), g)
+
+    def route_fwd_bwd():
+        return torch.autograd.grad(ops.flash_attention(qd, kd, vd, **kw),
+                                   (qd, kd, vd), g)
+
+    heavy = dict(reps=3, inner=2, warmup=1)
+    rec = {"shape": {"q": [B, Hq, S, D], "kv": [B, Hkv, T, D]},
+           "dtype": "bfloat16", "variant": "mma", "max_abs_err": train_err,
+           "tol": FLASH_TOL["bfloat16"],
+           "ms": time_ms(kernel_fwd), "device_ms": device_ms(kernel_fwd)[0],
+           "plain_ms": time_ms(plain_fwd, **heavy),
+           "recompute_backward_ms": time_ms(recompute_bwd, **heavy),
+           "recompute_backward_device_ms": device_ms(recompute_bwd,
+                                                     calls=2)[0],
+           "route_forward_backward_ms": time_ms(route_fwd_bwd, **heavy),
+           **flash_bound_ms(B, Hq, Hkv, S, T, D, 2, True, None),
+           "backward_bound": flash_backward_bound_ms(B, Hq, Hkv, S, T, D,
+                                                     2)}
+    G = Hq // Hkv
+    library = {}
+    for how, kv in (("enable_gqa", (kd, vd)),
+                    ("repeat_kv", (kd.repeat_interleave(G, dim=1),
+                                   vd.repeat_interleave(G, dim=1)))):
+        extra = {"enable_gqa": True} if how == "enable_gqa" else {}
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, *kv, is_causal=True,
+                                                      **extra)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qd, *kv, is_causal=True,
+                                                 **extra)
+            return torch.autograd.grad(out, (qd, *kv), g)
+
+        try:
+            sdpa_fwd()
+        except (TypeError, RuntimeError) as e:  # no enable_gqa here
+            library[how] = {"error": str(e)[:200]}
+            continue
+        library[how] = {"forward_ms": time_ms(sdpa_fwd),
+                        "forward_backward_ms": time_ms(sdpa_fwd_bwd,
+                                                       **heavy),
+                        "kernels": sorted(
+                            k["name"] for k in device_ms(sdpa_fwd_bwd,
+                                                         calls=1)[1])}
+    rec["library"] = library
+    times = [r["forward_ms"] for r in library.values() if "forward_ms" in r]
+    rec["library_ms"] = min(times) if times else None
+    return {"phase": "flash_backward_parity", **parity,
+            "parity_wall_s": parity_s, "train_shape": rec}
+
+
+def train_model_flops(cfg, batch: int, seq: int) -> int:
+    """Model FLOPs of one training step (no recompute counted): 6 per
+    parameter and token for every weight but the input embedding (a
+    gather), and causal attention's 6 L (Hq D) S per token (its two
+    products forward and four backward over half the pairs)."""
+    d, F_, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    attn = d * cfg.n_heads * cfg.hd * 2 + d * cfg.n_kv_heads * cfg.hd * 2
+    ffn = d * (F_ if cfg.act == "gelu_mlp" else 2 * F_) + F_ * d
+    n = L * (attn + ffn) + d * cfg.vocab  # the unembedding
+    tokens = batch * seq
+    return 6 * n * tokens + 6 * L * cfg.n_heads * cfg.hd * seq * tokens
+
+
+def _rel(a, b) -> float:
+    """``||a - b|| / ||b||`` (float64 norms)."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def train_gate(cfg, device, layers: int, batch: int, seq: int,
+               seed: int = 0) -> dict:
+    """The float32 gate of the training path: over the config's first
+    ``layers`` layers (seed-0 weights, one ``batch_for_step`` batch), the
+    kernel route's loss and every leaf's gradient (flash ``ffma`` under
+    autograd) against the plain path's, normwise, within ``max(TRAIN_TOL,
+    NOISE_MARGIN x d)``, d the plain path's own normwise disagreement
+    with the plain path in float64 on the same weights and batch; then
+    the parameters after one AdamW step of each, compared the same way.
+    Raises on a miss."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import batch_for_step, to_device
+    from repro_torch.launch import serve
+    from repro_torch.train import optimizer
+    from repro_torch.train import step as tstep
+
+    import dataclasses
+
+    cfg32 = as_float32(cfg)
+    cut_cfg, cut = first_layers(cfg32, serve.make_params(cfg32, device,
+                                                         seed=seed), layers)
+    params = tree.map(lambda t: t.clone(), cut)
+    del cut
+    cfg64 = dataclasses.replace(cut_cfg, param_dtype="float64",
+                                compute_dtype="float64")
+    params64 = cast_params(params, torch.float64)
+    data = to_device(batch_for_step(cut_cfg, seq, batch, 0, seed=seed),
+                     device)
+    tcfg = tstep.TrainConfig(opt=optimizer.OptConfig(
+        decay_steps=TRAIN_TIMED[0], **TRAIN_OPT))
+
+    def run(c, p, use_kernel):
+        (_, (loss, _)), grads = tstep.value_and_grad(
+            tstep.make_loss_fn(c, tcfg, use_kernel), p, data)
+        new, _, _ = optimizer.adamw_update(tcfg.opt, grads,
+                                           optimizer.adamw_init(p), p)
+        return loss, grads, new
+
+    (kern, counts) = _counted(lambda: run(cut_cfg, params, True))
+    variants = _variants()
+    plain = run(cut_cfg, params, False)
+    wide = run(cfg64, params64, False)
+    rows, worst = {}, 0.0
+    for (path, g_k), g_p, g_w in zip(tree.flatten_with_path(kern[1]),
+                                     tree.leaves(plain[1]),
+                                     tree.leaves(wide[1])):
+        d = _rel(g_p, g_w)
+        tol = max(TRAIN_TOL, NOISE_MARGIN * d)
+        e = _rel(g_k, g_p)
+        rows["/".join(path)] = {"kernel_vs_plain": e, "plain_vs_float64": d,
+                                "tol": tol}
+        worst = max(worst, e / tol)
+    d_loss = abs(float(plain[0]) - float(wide[0])) / abs(float(wide[0]))
+    e_loss = abs(float(kern[0]) - float(plain[0])) / abs(float(plain[0]))
+    tol_loss = max(TRAIN_TOL, NOISE_MARGIN * d_loss)
+    check(e_loss <= tol_loss and worst <= 1.0,
+          f"{cfg.name} train gate: loss {e_loss} (tol {tol_loss}), worst "
+          f"gradient at {worst} of its tolerance: {rows}")
+    post = {"/".join(path): {"kernel_vs_plain": _rel(a, b),
+                             "plain_vs_float64": _rel(b, c)}
+            for (path, a), b, c in zip(tree.flatten_with_path(kern[2]),
+                                       tree.leaves(plain[2]),
+                                       tree.leaves(wide[2]))}
+    return {"layers": layers, "batch": batch, "seq_len": seq,
+            "loss": {"kernel": float(kern[0]), "plain": float(plain[0]),
+                     "float64": float(wide[0]), "kernel_vs_plain": e_loss,
+                     "plain_vs_float64": d_loss, "tol": tol_loss},
+            "grads": rows, "worst_grad_share_of_tol": worst,
+            "post_step_params": post, "launches": counts,
+            "variants": variants}
+
+
+def _state_leaves(res: dict) -> list:
+    from repro_torch import tree
+
+    return tree.leaves((res["params"], res["opt_state"]))
+
+
+def _train_setup(cfg, device, steps: int, batch: int, seq: int,
+                 seed: int = 0):
+    """``(tcfg, fresh params, FitConfig maker)`` of the training phase:
+    AdamW at the train launcher's defaults, seed-0 weights in the
+    config's own types, the synthetic stream."""
+    from repro_torch.launch import serve
+    from repro_torch.train import optimizer
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import FitConfig
+
+    tcfg = tstep.TrainConfig(opt=optimizer.OptConfig(
+        decay_steps=max(steps, 10), **TRAIN_OPT))
+
+    def fresh():
+        return serve.make_params(cfg, device, seed=seed)
+
+    def fitc(n: int, d, every: int) -> FitConfig:
+        return FitConfig(steps=n, ckpt_every=every, ckpt_dir=str(d),
+                         seq_len=seq, global_batch=batch, seed=seed)
+
+    return tcfg, fresh, fitc
+
+
+def train_timed(cfg, device, steps: int, batch: int, seq: int, workdir,
+                save_at: int) -> tuple[dict, dict]:
+    """``fit`` for ``steps`` steps from seed-0 weights in the config's own
+    types, checkpointing into ``workdir`` every ``save_at`` steps and at
+    the end (what :func:`train_resume` reads): each step's wall (``fit``'s:
+    host clock to the loss on the host, which waits for the device, the
+    saves left out), tokens / s, peak device memory, model-FLOPs share of
+    the bf16 peak, loss and flash launches, read by a hook.  The losses
+    must be finite and the last three's mean below the first.  Returns the
+    record and the run's final state."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import fit
+
+    tcfg, fresh, fitc = _train_setup(cfg, device, steps, batch, seq)
+    cuda = device.type == "cuda"
+    per_step = []
+
+    def hook(s, m):
+        row = {"step": s, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]),
+               "flash_calls_so_far": ops.flash_attention.launches}
+        if cuda:
+            row["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                device)
+            torch.cuda.reset_peak_memory_stats(device)
+        per_step.append(row)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    whole = fit(cfg, fresh(), fitc(steps, workdir, save_at), tcfg,
+                hooks=[hook])
+    counts, variants = ops.launch_counts(), _variants()
+    flops = train_model_flops(cfg, batch, seq)
+    before = 0
+    for row, wall in zip(per_step, whole["step_s"]):
+        n = row.pop("flash_calls_so_far")
+        row["flash_launches"], before = n - before, n
+        row["wall_ms"] = wall * 1e3
+        row["tok_per_s"] = batch * seq / wall
+        row["model_flops_share_of_bf16_peak"] = flops / wall / BF16_FLOPS
+    losses = whole["losses"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{cfg.name} training: losses {losses}")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"{cfg.name} training: the last three losses {losses[-3:]} do "
+          f"not fall below the first {losses[0]}")
+    wall = float(np.median(whole["step_s"][1:] or whole["step_s"]))
+    return ({"steps": steps, "batch": batch, "seq_len": seq,
+             "dtype": cfg.compute_dtype, "remat": cfg.remat,
+             "opt": dataclasses.asdict(tcfg.opt),
+             "model_flops_per_step": flops, "losses": losses,
+             "median_wall_ms_after_first": wall * 1e3,
+             "tok_per_s": batch * seq / wall,
+             "model_flops_share_of_bf16_peak": flops / wall / BF16_FLOPS,
+             "per_step": per_step, "launches": counts, "variants": variants},
+            whole)
+
+
+def train_resume(cfg, device, steps: int, batch: int, seq: int, workdir,
+                 save_at: int, whole: dict) -> dict:
+    """The checkpoint check on the timed run's directory (its saves at
+    ``save_at`` and at ``steps``): the last checkpoint restored and held
+    to the state that ``fit`` returned (``whole``, taken by the call), bit
+    for bit; that checkpoint removed, a fresh ``fit`` (new weights as the
+    template) resumed from the directory to ``steps``, which must start at
+    ``save_at``; its losses beside the uninterrupted run's."""
+    import shutil
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.train.loop import fit
+
+    tcfg, fresh, fitc = _train_setup(cfg, device, steps, batch, seq)
+    workdir = str(workdir)
+    check(ckpt.latest_step(workdir) == steps,
+          f"the timed run left no checkpoint at step {steps}")
+    saved = (whole.pop("params"), whole.pop("opt_state"))
+    uninterrupted = whole["losses"]
+    t0 = time.perf_counter()
+    restored, at = ckpt.restore(workdir, saved)
+    walls = {"restore_s": time.perf_counter() - t0}
+    same = [torch.equal(a, b) and a.dtype == b.dtype
+            for a, b in zip(tree.leaves(restored), tree.leaves(saved))]
+    check(at == steps and all(same),
+          f"the step-{steps} checkpoint restores {sum(same)} of "
+          f"{len(same)} leaves bit for bit")
+    del saved, restored
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(f"{workdir}/step_{steps:08d}")
+    check(ckpt.latest_step(workdir) == save_at,
+          f"the timed run left no checkpoint at step {save_at}")
+    t0 = time.perf_counter()
+    resumed = fit(cfg, fresh(), fitc(steps, workdir, steps), tcfg)
+    walls["resumed_fit_s"] = time.perf_counter() - t0
+    walls["its_steps_s"] = sum(resumed["step_s"])
+    shutil.rmtree(workdir)
+    check(resumed["final_step"] == steps
+          and len(resumed["losses"]) == steps - save_at,
+          f"the resumed fit ran {len(resumed['losses'])} steps to "
+          f"{resumed['final_step']}")
+    return {"saved_at": save_at, "restored_at": steps,
+            "leaves_restored_bitwise": len(same), "walls": walls,
+            "resumed_losses": resumed["losses"],
+            "uninterrupted_losses": uninterrupted[save_at:],
+            "resumed_equal_bitwise":
+                resumed["losses"] == uninterrupted[save_at:]}
+
+
+def phase_train(name: str, cfg, device, workdir, gate=TRAIN_GATE,
+                timed=TRAIN_TIMED, save_at: int = TRAIN_SAVE_AT
+                ) -> tuple[dict, dict]:
+    """The training path at full width: :func:`train_gate`, the timed run
+    (:func:`train_timed`) at full depth, its last state's step under the
+    profiler (:func:`phase_profile_train`), then :func:`train_resume` on
+    the timed run's checkpoints and final state.  On
+    the card every flash call of a step is the kernel's: L forwards and L
+    remat recomputes (the config's ``remat``), ``mma`` in bf16, ``ffma``
+    in the float32 gate.  Returns the phase record and the profile's."""
+    import torch
+
+    from pathlib import Path as _Path
+
+    walls = {}
+    t0 = time.perf_counter()
+    gate_rec = train_gate(cfg, device, *gate)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    walls["gate_s"] = time.perf_counter() - t0
+    workdir = _Path(workdir)
+    t0 = time.perf_counter()
+    timed_rec, whole = train_timed(cfg, device, *timed,
+                                   workdir=workdir / "run", save_at=save_at)
+    walls["timed_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = phase_profile_train(cfg, whole, timed[1], timed[2], device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    walls["profile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed_rec["checkpoint"] = train_resume(
+        cfg, device, *timed, workdir=workdir / "run", save_at=save_at,
+        whole=whole)
+    del whole
+    walls["resume_s"] = time.perf_counter() - t0
+    L, per = cfg.n_layers, (2 if cfg.remat else 1)
+    expected = {"gate": per * gate[0], "per_step": per * L,
+                "timed": per * L * timed[0]}
+    if device.type == "cuda":
+        check(gate_rec["variants"]["flash_attention"]
+              == {"mma": 0, "split": 0, "ffma": expected["gate"]},
+              f"{cfg.name} train gate's flash variants were "
+              f"{gate_rec['variants']['flash_attention']}, expected "
+              f"{expected['gate']} ffma")
+        bad = [r["flash_launches"] for r in timed_rec["per_step"]
+               if r["flash_launches"] != expected["per_step"]]
+        check(not bad, f"{cfg.name} training launched flash {bad} times in "
+                       f"a step, expected {expected['per_step']}")
+        check(timed_rec["variants"]["flash_attention"]
+              == {"mma": expected["timed"], "split": 0, "ffma": 0},
+              f"{cfg.name} training's flash variants were "
+              f"{timed_rec['variants']['flash_attention']}")
+    return ({"phase": name, "arch": cfg.name, "layers": L,
+             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+             "head_dim": cfg.hd, "vocab": cfg.vocab, "gate": gate_rec,
+             "timed": timed_rec, "flash_launches_expected": expected,
+             "walls": walls}, prof)
+
+
+def phase_profile_train(cfg, state: dict, batch: int, seq: int, device,
+                        top: int = 12) -> dict:
+    """One warm train step (bf16, the timed run's state) under
+    ``torch.profiler``: device busy and idle share, the top kernels, the
+    share of the device time in the flash kernel's forwards and in the
+    attention backward's recompute (``FlashAttentionFnBackward``); then
+    one eager AdamW update alone, its kernels and device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import batch_for_step, to_device
+    from repro_torch.train import optimizer
+    from repro_torch.train import step as tstep
+
+    tcfg = tstep.TrainConfig(opt=optimizer.OptConfig(
+        decay_steps=TRAIN_TIMED[0], **TRAIN_OPT))
+    train_step, _ = tstep.make_train_step(cfg, tcfg)
+    data = to_device(batch_for_step(cfg, seq, batch, TRAIN_TIMED[0]), device)
+    params, opt_state = state["params"], state["opt_state"]
+
+    def one_step():
+        out = train_step(params, opt_state, data)
+        float(out[2]["loss"])  # waits for the device
+        _sync(device)
+
+    one_step()  # warm
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.key.startswith("Activity Buffer")]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    flash_fwd = sum(e.self_device_time_total for e in dev
+                    if "flash" in e.key) / 1e3
+    # the autograd node itself (the engine's evaluate_function event
+    # around it would count its kernels twice)
+    bwd = [e for e in events if e.device_type == DeviceType.CPU
+           and e.key == "FlashAttentionFnBackward"]
+    recompute = sum(e.device_time_total for e in bwd) / 1e3
+    by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in dev), key=lambda r: -r[1])
+    grads = tree.map(lambda p: p.detach().clone(), params)  # stand-ins
+
+    def update():
+        optimizer.adamw_update(tcfg.opt, grads, opt_state, params)
+        _sync(device)
+
+    update()
+    opt_rec = profile_summary(update, device, top=5)
+    return {"phase": "profile_train", "arch": cfg.name, "batch": batch,
+            "seq_len": seq, "dtype": cfg.compute_dtype,
+            "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "device_kernel_launches": sum(e.count for e in dev),
+            "flash_forward_device_ms": flash_fwd,
+            "flash_forward_share": flash_fwd / busy if busy else None,
+            "attention_backward_recompute_device_ms": recompute,
+            "attention_backward_recompute_calls": sum(e.count for e in bwd),
+            "attention_backward_recompute_share":
+                recompute / busy if busy else None,
+            "device_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
+                                  for k, ms, c in by_name[:top]],
+            "optimizer": {"leaves": len(tree.leaves(params)),
+                          "wall_ms": opt_rec["wall_ms"],
+                          "device_busy_ms": opt_rec["device_busy_ms"],
+                          "kernels": opt_rec["device_kernel_launches"],
+                          "top": opt_rec["device_ms_by_name"]}}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3017,6 +3643,19 @@ def main() -> int:
     del hymba_params
     torch.cuda.empty_cache()
 
+    fbrec = phase_flash_backward(device)
+    emit(fbrec)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        trec, prec = phase_train("train_tinyllama",
+                                 get_config("tinyllama-1.1b"), device,
+                                 workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit(trec)
+    emit(prec)
+    torch.cuda.empty_cache()
+
     replaces = {"lut_eval6": "src/repro/kernels/lut_eval.py:90",
                 "lut_eval": "src/repro/kernels/lut_eval.py:47",
                 "flash_attention": "src/repro/kernels/flash_attention.py:75",
@@ -3030,7 +3669,9 @@ def main() -> int:
     pop_main = ssmrec["popcount_matmul"]["main"]
     launches = {"lut_eval6": launches6,
                 "lut_eval": lrec["launches"]["lut_eval"],
-                "flash_attention": flash_launches,
+                # kratos-dd serving and the timed training run
+                "flash_attention": flash_launches
+                + trec["timed"]["launches"]["flash_attention"],
                 "bitplane_matmul": bit_launches,
                 # the two models' timed forwards (64 + 32 SSD layers)
                 "ssd_scan": sum(r["forward"]["launches"]["ssd_scan"]
@@ -3045,7 +3686,17 @@ def main() -> int:
                 **flash_main, "shape": [flash_main["q"], flash_main["kv"]],
                 "max_abs_err": max(
                     flash_main["max_abs_err"],
-                    *lmrec["flash_attention"]["max_abs_err"].values())},
+                    *lmrec["flash_attention"]["max_abs_err"].values(),
+                    *fbrec["max_abs_err"].values()),
+                "train": {
+                    "launches_per_step":
+                        trec["flash_launches_expected"]["per_step"],
+                    **{k: fbrec["train_shape"][k] for k in (
+                        "shape", "ms", "device_ms", "plain_ms",
+                        "recompute_backward_ms",
+                        "recompute_backward_device_ms",
+                        "route_forward_backward_ms", "bound_ms",
+                        "bound_by", "library_ms")}}},
             "bitplane_matmul": {
                 **bit_main, "max_abs_err": max(
                     bit_main["max_abs_err"],
@@ -3068,7 +3719,10 @@ def main() -> int:
                          for b in ("torch", "numpy")}},
         "flash_attention": {
             "serve bf16": srec["timed"]["variants"]["flash_attention"],
-            "gate float32": srec["gate"]["variants"]["flash_attention"]},
+            "gate float32": srec["gate"]["variants"]["flash_attention"],
+            "train bf16": trec["timed"]["variants"]["flash_attention"],
+            "train gate float32":
+                trec["gate"]["variants"]["flash_attention"]},
         "bitplane_matmul": {
             "quantized": qrec["variants"]["bitplane_matmul"]},
         "ssd_scan": {
@@ -3092,7 +3746,8 @@ def main() -> int:
                  "shape", "ms", "device_ms", "plain_ms", "bound_ms",
                  "bound_by")}} if "op" in r else {}),
          **({"variant_launches": variant_launches[k]}
-            if k in variant_launches else {})}
+            if k in variant_launches else {}),
+         **({"train": r["train"]} if "train" in r else {})}
         for k, r in recs.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

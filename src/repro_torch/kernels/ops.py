@@ -10,6 +10,17 @@
   the card (only the parity checks ask for this);
 * a CPU tensor runs the plain-torch version.
 
+Gradients: ``flash_attention`` is differentiable on every route.  When
+grad mode is on and an input requires grad it runs as
+:class:`FlashAttentionFn`, the counterpart of the reference's
+``custom_vjp``: the forward is the kernel (its plain version on a CPU
+tensor), the backward recomputes through the plain version
+(:func:`repro_torch.kernels.ref.flash_attention_ref`) and differentiates
+that, as the reference's ``_bwd`` does.  The other kernels have no
+backward, in the reference as here (their ``pallas_call`` has no VJP): on
+the kernel route they raise ``NotImplementedError`` when asked for a
+gradient instead of returning a tensor without one.
+
 Each wrapper counts its kernel launches in a plain integer attribute
 (``lut_eval6.launches``, ``lut_eval.launches``, ...), incremented where the
 kernel launches and nowhere else, so a run can show which path it took.
@@ -35,11 +46,31 @@ def _wants_kernel(inputs: torch.Tensor, use_kernel: bool) -> bool:
     return use_kernel and inputs.device.type == "cuda"
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernel route of an op with no backward: raise rather than hand
+    back a tensor with no gradient (everything upstream of it would get
+    zeros)."""
+    if not _needs_grad(*tensors):
+        return
+    hint = ("the ssm and hybrid families train with use_kernel=False, as "
+            "the reference's default use_kernels=False does"
+            if name == "ssd_scan" else
+            "call it under torch.no_grad() or with use_kernel=False")
+    raise NotImplementedError(
+        f"{name}'s kernel has no backward (the reference's Pallas {name} "
+        f"has no VJP either); {hint}")
+
+
 def lut_eval(inputs: torch.Tensor, tts: torch.Tensor,
              use_kernel: bool = True) -> torch.Tensor:
     """``inputs[M, K, N]`` int32 lanes (K <= 5) + ``tts[M]`` ->
     ``out[M, N]``."""
     if _wants_kernel(inputs, use_kernel):
+        _refuse_grad("lut_eval", inputs)
         from .lut_eval import lut_eval_cuda
 
         out = lut_eval_cuda(inputs, tts)
@@ -54,6 +85,7 @@ def lut_eval6(inputs: torch.Tensor, tt_lo: torch.Tensor, tt_hi: torch.Tensor,
     """``inputs[M, 6, N]`` int32 lanes + split 64-entry tables ->
     ``out[M, N]``."""
     if _wants_kernel(inputs, use_kernel):
+        _refuse_grad("lut_eval6", inputs)
         from .lut_eval import lut_eval6_cuda
 
         out = lut_eval6_cuda(inputs, tt_lo, tt_hi)
@@ -76,6 +108,7 @@ def lut_eval6_level(vals: torch.Tensor, ins_idx: torch.Tensor,
     (:func:`repro_torch.kernels.ref.lut_eval6_level_ref`).  Returns
     ``vals``."""
     if _wants_kernel(vals, use_kernel):
+        _refuse_grad("lut_eval6", vals)
         from .lut_eval import lut_eval6_level_cuda
 
         lut_eval6_level_cuda(vals, ins_idx, tt_lo, tt_hi, out_idx)
@@ -93,6 +126,7 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
     ``y[M, N] = (x @ W) * scale`` with W the two's-complement sum of the
     planes."""
     if _wants_kernel(x, use_kernel):
+        _refuse_grad("bitplane_matmul", x, scale)
         from .bitplane_matmul import bitplane_matmul_cuda, variant
 
         out = bitplane_matmul_cuda(x, planes, scale)
@@ -104,13 +138,7 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
     return ref.bitplane_matmul_ref(x, planes, scale)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int | None = None,
-                    softcap: float | None = None, scale: float | None = None,
-                    use_kernel: bool = True) -> torch.Tensor:
-    """``q[B, Hq, S, D]``, ``k/v[B, Hkv, T, D]`` -> ``[B, Hq, S, D]``:
-    attention with the queries at the tail of the keys (causal, GQA,
-    sliding window, logit softcap)."""
+def _flash_forward(q, k, v, causal, window, softcap, scale, use_kernel):
     if _wants_kernel(q, use_kernel):
         from .flash_attention import flash_attention_cuda, variant
 
@@ -125,6 +153,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    softcap=softcap, scale=scale)
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the kernel forward and a recomputing backward (the
+    reference's ``custom_vjp`` of ``flash_attention``: ``_fwd`` saves
+    q, k, v; ``_bwd`` differentiates ``flash_attention_ref`` at them).
+
+    ``apply(q, k, v, causal, window, softcap, scale)``.  The forward is
+    :func:`flash_attention`'s: the CUDA kernel on a CUDA tensor (counted),
+    the plain version on a CPU tensor.  The backward builds the
+    plain version's graph at the saved inputs under ``enable_grad`` and
+    returns ``torch.autograd.grad`` of it against the incoming gradient:
+    the ``[B, Hq, S, T]`` float32 logits live only inside it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.attn = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return _flash_forward(q, k, v, causal, window, softcap, scale, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(*inputs, **ctx.attn)
+            dq, dk, dv = torch.autograd.grad(out, inputs, g)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, scale: float | None = None,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """``q[B, Hq, S, D]``, ``k/v[B, Hkv, T, D]`` -> ``[B, Hq, S, D]``:
+    attention with the queries at the tail of the keys (causal, GQA,
+    sliding window, logit softcap).  With grad mode on and an input that
+    requires grad, the kernel route runs as :class:`FlashAttentionFn`;
+    ``use_kernel=False`` is the plain version, differentiated as it
+    stands."""
+    if use_kernel and _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap,
+                                      scale)
+    return _flash_forward(q, k, v, causal, window, softcap, scale,
+                          use_kernel)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor,
              use_kernel: bool = True) -> torch.Tensor:
@@ -137,6 +210,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     chunk_of(x.shape[1])
     if _wants_kernel(x, use_kernel):
+        _refuse_grad("ssd_scan", x, dt, A, B, C)
         out = ssd_scan_cuda(x, dt, A, B, C)
         if out.numel():
             ssd_scan.launches += 1
@@ -152,6 +226,7 @@ def popcount_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor,
     ``w_packed[N, W]`` -> ``int32[M, N]``, ``sum popc(x & w)`` (mode
     "and") or ``k_bits - 2 sum popc(x ^ w)`` (mode "xnor")."""
     if _wants_kernel(x_packed, use_kernel):
+        _refuse_grad("popcount_matmul", x_packed, w_packed)
         from .popcount_matmul import popcount_matmul_cuda, variant
 
         out = popcount_matmul_cuda(x_packed, w_packed, mode=mode,

@@ -1,1 +1,1 @@
-# Command-line entry points: serve, quantized_serve.
+# Command-line entry points: serve, quantized_serve, train.

@@ -4,8 +4,11 @@ The JAX package's parameters are nested dicts of arrays with the same
 names and stacked ``[L, ...]`` shapes as this package's, so they cross as
 a dict map: :func:`params_from_numpy` turns nested dicts of numpy arrays
 (``np.asarray`` of each jax array) into tensors, and
-:func:`params_to_numpy` is its inverse.  The tests use them so that both
-packages compute with the same weights.
+:func:`params_to_numpy` is its inverse.  Optimizer states cross the same
+way (:func:`opt_state_from_numpy`, :func:`opt_state_to_numpy`): AdamW's
+``{mu, nu, count}`` and Adafactor's ``{v, count}``, ``v`` holding each
+parameter's ``{vr, vc}`` or ``{v}``.  The tests use them so that both
+packages compute with the same weights and start from the same state.
 """
 from __future__ import annotations
 
@@ -42,3 +45,24 @@ def params_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def _check_opt_state(tree) -> None:
+    if not isinstance(tree, dict) or set(tree) not in (
+            {"mu", "nu", "count"}, {"v", "count"}):
+        raise ValueError("not an AdamW {mu, nu, count} or Adafactor "
+                         f"{{v, count}} state: keys {sorted(tree)}")
+
+
+def opt_state_from_numpy(tree, device):
+    """An AdamW or Adafactor state as nested dicts of numpy arrays ->
+    the same dicts of tensors on ``device``, each leaf in its own type
+    (float32 moments, the int32 step count)."""
+    _check_opt_state(tree)
+    return params_from_numpy(tree, device)
+
+
+def opt_state_to_numpy(tree):
+    """The inverse of :func:`opt_state_from_numpy`."""
+    _check_opt_state(tree)
+    return params_to_numpy(tree)

@@ -19,15 +19,26 @@ from ..kernels import ops
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
-            "float16": torch.float16}[name]
+            "float16": torch.float16, "float64": torch.float64}[name]
+
+
+def wide_type(dtype: torch.dtype) -> torch.dtype:
+    """float32, the reference's upcast, or float64 for float64: the plain
+    dense path then runs wholly in float64 for the training gate's
+    yardstick (``compute_dtype="float64"``)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    return t.to(wide_type(t.dtype))
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
-    x32 = x.float()
+    x32 = wide(x)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
-    return (out * (1.0 + w.float())).to(x.dtype)
+    return (out * (1.0 + wide(w))).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
@@ -35,9 +46,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
     """x: ``[..., S, H, D]``; positions: ``[..., S]``."""
     d = x.shape[-1]
     half = d // 2
-    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+    ft = wide_type(x.dtype)
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=ft,
                                           device=x.device) / half))
-    ang = positions[..., :, None].float() * freqs[None, :]
+    ang = positions[..., :, None].to(ft) * freqs[None, :]
     cos = torch.cos(ang)[..., :, None, :]   # [..., S, 1, half]
     sin = torch.sin(ang)[..., :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -60,7 +72,7 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
     if scale is None:
         scale = D ** -0.5
     qh = q.reshape(B, Sq, Hkv, G, D)
-    logits = torch.einsum("bskgd,btkd->bkgst", qh.float(), k.float()) * scale
+    logits = torch.einsum("bskgd,btkd->bkgst", wide(qh), wide(k)) * scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     if q_positions is None:
@@ -79,7 +91,7 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
     logits = torch.where(mask[:, None, None, :, :], logits,
                          torch.tensor(-1e30, device=dev))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    out = torch.einsum("bkgst,btkd->bskgd", p, wide(v))
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
@@ -132,9 +144,9 @@ def glu_ffn(x, wi, wo, act: str):
     h = x @ wi
     gate, up = torch.chunk(h, 2, dim=-1)
     if act == "swiglu":
-        g = F.silu(gate.float()).to(x.dtype)
+        g = F.silu(wide(gate)).to(x.dtype)
     elif act == "geglu":
-        g = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
+        g = F.gelu(wide(gate), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(act)
     return (g * up) @ wo

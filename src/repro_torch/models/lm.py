@@ -6,20 +6,24 @@ Parameters keep the reference's names, stacked ``[L, ...]`` shapes and
 types (the SSD's ``dt_bias``, ``a_log`` and ``d_skip`` are float32 whatever
 ``param_dtype`` is), so weights cross between the packages as a dict map
 (:mod:`repro_torch.models.convert`).  Layers run as a Python loop, so each
-layer's attention window is a static int.  The reference's ``constrain``
-calls are sharding hints for a mesh; on one card they are nothing.  The
-moe, encdec and vlm families are not ported yet.
+layer's attention window is a static int.  With ``cfg.remat`` and a
+gradient to take, each layer runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint(..., nothing_saveable)`` around each layer):
+only its input is kept, and the backward recomputes the layer.  The
+reference's ``constrain`` calls are sharding hints for a mesh; on one card
+they are nothing.  The moe, encdec and vlm families are not ported yet.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import blocks
 from .blocks import HUGE_WINDOW
-from .layers import dtype_of, init_dense, rms_norm
+from .layers import dtype_of, init_dense, rms_norm, wide
 
 
 #: the families the port runs
@@ -149,28 +153,17 @@ def unembed(cfg: ModelConfig, params, x):
     logits = x @ w.to(x.dtype)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(
-            logits.float() / cfg.logit_softcap).to(x.dtype)
+            wide(logits) / cfg.logit_softcap).to(x.dtype)
     return logits
 
 
-def forward(cfg: ModelConfig, params, tokens, *, return_hidden=False,
-            use_kernel: bool = True):
-    """Teacher-forced forward pass -> ``(logits [B, S, V], aux)`` (or the
-    hidden states ``[B, S, d]`` with ``return_hidden``).  ``aux`` is the
-    reference's auxiliary loss, 0 for these families.  With
-    ``use_kernel`` every attention runs through the flash kernel and every
-    SSD layer through the ``ssd_scan`` kernel (their plain versions on a
-    CPU tensor)."""
-    require_ported(cfg)
-    x = embed_tokens(cfg, params, tokens)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    for i, window in enumerate(_layer_windows(cfg, cfg.n_layers)):
+def _layer(cfg: ModelConfig, params, i: int, window: int, positions,
+           use_kernel: bool):
+    """Layer ``i``'s body: ``x -> x + mixer(x) [+ ffn]``."""
+    def body(x):
         p = layer_params(params, i)
         if cfg.family == "ssm":
-            s, _ = blocks.ssd_block(cfg, p, x, use_kernel=use_kernel)
-            x = x + s
-            continue
+            return x + blocks.ssd_block(cfg, p, x, use_kernel=use_kernel)[0]
         if cfg.family == "hybrid":
             a, _ = blocks.hybrid_block(cfg, p, x, positions, window,
                                        use_kernel=use_kernel)
@@ -178,7 +171,31 @@ def forward(cfg: ModelConfig, params, tokens, *, return_hidden=False,
             a, _ = blocks.attn_block(cfg, p, x, positions, window=window,
                                      use_kernel=use_kernel)
         x = x + a
-        x = x + blocks.ffn_block(cfg, p, x)
+        return x + blocks.ffn_block(cfg, p, x)
+
+    return body
+
+
+def forward(cfg: ModelConfig, params, tokens, *, return_hidden=False,
+            use_kernel: bool = True, train: bool = False):
+    """Teacher-forced forward pass -> ``(logits [B, S, V], aux)`` (or the
+    hidden states ``[B, S, d]`` with ``return_hidden``).  ``aux`` is the
+    reference's auxiliary loss, 0 for these families.  With
+    ``use_kernel`` every attention runs through the flash kernel and every
+    SSD layer through the ``ssd_scan`` kernel (their plain versions on a
+    CPU tensor).  ``train`` selects the reference's training-time MoE
+    dispatch; the ported families have no MoE, so it changes nothing."""
+    require_ported(cfg)
+    x = embed_tokens(cfg, params, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *params["blocks"].values()))
+    for i, window in enumerate(_layer_windows(cfg, cfg.n_layers)):
+        body = _layer(cfg, params, i, window, positions, use_kernel)
+        # the layers draw no random numbers: no RNG state to replay
+        x = checkpoint(body, x, use_reentrant=False,
+                       preserve_rng_state=False) if remat else body(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux

@@ -40,7 +40,12 @@ def test_phase_functions_importable():
                  "check_lut_sass", "level_rows_once_bound",
                  "phase_sweep", "phase_sweep_placed", "phase_search",
                  "stable_payload", "phase_placement_ensembles",
-                 "phase_serve_flow", "serve_pool", "edit_stream"):
+                 "phase_serve_flow", "serve_pool", "edit_stream",
+                 "flash_grad_parity", "phase_flash_backward",
+                 "flash_backward_bound_ms", "train_model_flops",
+                 "train_gate", "train_timed", "train_resume",
+                 "phase_train", "phase_profile_train", "train_shape_inputs",
+                 "train_forward_parity"):
         assert callable(getattr(cs, name)), name
 
 
@@ -441,3 +446,119 @@ def test_first_layers_cuts_depth(arch):
     logits = lm.forward(cut_cfg, cut, toks, use_kernel=False)[0]
     assert logits.shape == (1, 8, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
+
+
+def test_train_bounds():
+    """Model FLOPs of a tinyllama-1.1b step at B 4 x S 2048: 6 per weight
+    (the unembedding's included, the embedding's gather not) and token,
+    and causal attention's 6 L (Hq D) S per token; the fused backward's
+    bound is ten D-wide products per visible pair."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("tinyllama-1.1b")
+    per_layer = 2048 * 2048 * 2 + 2048 * 256 * 2 + 2048 * 11264 \
+        + 5632 * 2048
+    n = 22 * per_layer + 2048 * 32000
+    tokens = 4 * 2048
+    assert cs.train_model_flops(cfg, 4, 2048) == \
+        6 * n * tokens + 6 * 22 * 2048 * 2048 * tokens
+    assert 5.4e13 < cs.train_model_flops(cfg, 4, 2048) < 5.6e13
+    b = cs.flash_backward_bound_ms(4, 32, 4, 2048, 2048, 64, 2)
+    f = cs.flash_bound_ms(4, 32, 4, 2048, 2048, 64, 2, True, None)
+    assert b["flops"] == 10 * f["flops"] // 4
+    assert b["bound_by"] == f["bound_by"] == "operations"
+    assert cs.TRAIN_ATTN == (4, cfg.n_heads, cfg.n_kv_heads, 2048, 2048,
+                             cfg.hd)
+
+
+def test_flash_grad_parity_rehearsed_on_cpu():
+    cases = [c for c in cs.FLASH_GRAD_CASES if c[6] == 16]
+    assert {c[0] for c in cases} >= {"causal", "tail_ragged_window",
+                                     "gqa5_prefill"}
+    assert not any(c[4] == 1 for c in cs.FLASH_GRAD_CASES)  # no decode
+    assert cs.FLASH_GRAD_CASES[-1][6] == 256
+    rec = cs.flash_grad_parity(CPU, cases=cases[:5])
+    assert rec["cases"] == 10
+    assert rec["max_abs_err"] == {"float32": 0.0, "bfloat16": 0.0}
+
+
+@pytest.mark.parametrize("route", ["kernel", "autograd route"])
+def test_train_forward_parity_rejects_a_wrong_forward(monkeypatch, route):
+    """The flash forward at the training shape's layout (GQA 8, causal
+    over the full window; cut to CPU size) agrees with the plain version
+    by both routes, and a forward that maps query heads to the wrong
+    output heads in either route fails."""
+    from repro_torch.kernels import ops
+
+    q, k, v, g = cs.train_shape_inputs(CPU, (1, 8, 1, 64, 64, 16))
+    assert g.shape == q.shape == (1, 8, 64, 16) and k.shape == (1, 1, 64, 16)
+    assert q.dtype == torch.bfloat16
+    assert cs.train_forward_parity(q, k, v) == 0.0
+    real = ops._flash_forward
+
+    def off(q, *a):
+        out = real(q, *a)
+        wrong = q.requires_grad == (route != "kernel")
+        return out.roll(1, dims=1) if wrong else out
+
+    monkeypatch.setattr(ops, "_flash_forward", off)
+    with pytest.raises(cs.SmokeFailure, match=f"the {route}'s forward"):
+        cs.train_forward_parity(q, k, v)
+
+
+def _train_rehearsal(tmp_path, **kw):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").smoke(),
+                              remat=True)
+    return cfg, cs.phase_train("train", cfg, CPU, tmp_path,
+                               gate=(1, 2, 64), timed=(6, 2, 32),
+                               save_at=3, **kw)
+
+
+def test_train_phase_rehearsed_on_cpu(tmp_path):
+    """The training phase at smoke width on the CPU: the gate's readings,
+    the step and launch arithmetic the card checks (2 L flash calls a
+    step with remat: forwards and recomputes), the checkpoint resume
+    (bit for bit here: the CPU's sums run in one order) and the
+    profile."""
+    cfg, (rec, prof) = _train_rehearsal(tmp_path)
+    gate = rec["gate"]
+    assert gate["worst_grad_share_of_tol"] <= 1.0
+    assert set(gate["grads"]) == {"embed", "lm_head", "ln_f"} | {
+        f"blocks/{k}" for k in ("ln1", "wq", "wk", "wv", "wo", "ln2", "wi",
+                                "wo_ff")}
+    assert all(r["tol"] >= cs.TRAIN_TOL for r in gate["grads"].values())
+    assert 0 < gate["loss"]["plain_vs_float64"] < 1e-6
+    assert rec["flash_launches_expected"] == {
+        "gate": 2, "per_step": 2 * cfg.n_layers,
+        "timed": 2 * cfg.n_layers * 6}
+    timed = rec["timed"]
+    assert len(timed["per_step"]) == 6 and timed["tok_per_s"] > 0
+    assert [r["flash_launches"] for r in timed["per_step"]] == [0] * 6
+    ck = timed["checkpoint"]
+    assert ck["resumed_equal_bitwise"] and len(ck["resumed_losses"]) == 3
+    assert (ck["saved_at"], ck["restored_at"]) == (3, 6)
+    assert ck["uninterrupted_losses"] == timed["losses"][3:]
+    assert ck["leaves_restored_bitwise"] == 3 * 11 + 1  # params, mu, nu
+    assert not any(tmp_path.iterdir())  # the checkpoints are removed
+    assert prof["attention_backward_recompute_calls"] == cfg.n_layers
+    assert prof["optimizer"]["leaves"] == 11
+
+
+def test_train_gate_rejects_a_wrong_backward(monkeypatch):
+    """A flash backward whose dq is 1 % off fails the float32 gate."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+
+    real = ops.FlashAttentionFn.backward
+
+    def off(ctx, g):
+        dq, *rest = real(ctx, g)
+        return (dq * 1.01, *rest)
+
+    monkeypatch.setattr(ops.FlashAttentionFn, "backward", staticmethod(off))
+    with pytest.raises(cs.SmokeFailure, match="train gate"):
+        cs.train_gate(get_config("tinyllama-1.1b").smoke(), CPU, 1, 2, 64)

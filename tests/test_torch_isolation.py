@@ -46,6 +46,15 @@ def test_port_runs_with_jax_and_reference_blocked():
         found = flow.search_design_space([net], archs=grid, backend="torch",
                                          device="cpu", min_circuits=1)
         assert found.winner in {a.name for a in grid}
+        import tempfile
+        import repro_torch.checkpoint.ckpt, repro_torch.data.pipeline
+        import repro_torch.launch.train, repro_torch.train.loop
+        from repro_torch.launch import train
+        with tempfile.TemporaryDirectory() as d:
+            res = train.main(["--arch", "kratos-dd", "--smoke", "--steps",
+                              "2", "--seq-len", "16", "--batch", "2",
+                              "--ckpt-dir", d, "--device", "cpu"])
+        assert res["final_step"] == 2
         assert not any(k == "jax" or k.startswith("jax.")
                        or k == "repro" or k.startswith("repro.")
                        for k, v in sys.modules.items() if v is not None)
@@ -142,6 +151,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
     argv = ["--arch", "kratos-dd", "--smoke", "--max-new", "2"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(argv)
+    from repro_torch.data.pipeline import batch_for_step, to_device
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "kratos-dd", "--smoke", "--steps", "1"])
+    cfg = get_config("kratos-dd").smoke()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        to_device(batch_for_step(cfg, 8, 2, 0))
+    assert to_device(batch_for_step(cfg, 8, 2, 0), "cpu")["tokens"] \
+        .device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         quantized_serve.main(["--smoke"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
