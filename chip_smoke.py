@@ -4,8 +4,9 @@
 
 Drives the port's main paths — the paper's CAD flow and its bit-parallel
 functional evaluator, serving of the dense LMs, the forward and serving
-of the Mamba-2 and Hymba families, and training of a dense LM — at full
-size on the card, and
+of the Mamba-2 and Hymba families, serving of the MoE (and its int8 KV
+cache), vision-language and encoder-decoder families, and training of a
+dense LM — at full size on the card, and
 holds every CUDA kernel against its plain-torch version.  Phases, each
 printing one JSON line, in this order; any failure raises, so the script
 exits non-zero:
@@ -135,7 +136,31 @@ exits non-zero:
     forward at 2 x 2048 (the window of 1024 bites; 32 ``ssd_scan`` and 32
     ``flash_attention`` launches) and a timed serving run with 2048-token
     prompts (32 flash launches per step); then its profile_ssm;
-21. flash_backward_parity: the flash route under autograd
+21. serve_moe: ``deepseek-moe-16b`` at full width — the float32 and
+    bfloat16 gates over its first 4 layers (the dense one and 3 MoE
+    layers; full-depth float32 weights do not fit beside the bf16 ones)
+    with every routing decision recorded (the share of (token, layer,
+    choice) that agree, the smallest top-k margin; the bfloat16 gate
+    replays the float32 run's choices, and takes a kernel token tied with
+    the plain path's at its top logit), then a timed bfloat16 run at full
+    depth (8 x 512, 32 new tokens: 28 ``mma`` + 868 ``split`` flash
+    calls) and a profile of a prefill and a decode step with the
+    dropless expert products' share;
+22. serve_moe_int8: the same weights with the int8 KV cache — the
+    float32 kernel route against the plain route over the same cache
+    (within 5e-3, identical tokens) and the bfloat16 gate over 4 layers;
+    at full depth the bf16 cache's tokens forced through the int8 cache
+    (logit distance, token agreement, the caches' bytes) and a timed run;
+23. serve_vlm: ``llava-next-34b`` at full width, 576 patch embeddings
+    before a 64-token prompt — the gates over its first 2 layers, then a
+    timed bfloat16 run at the depth the card's free memory holds (all
+    60 layers, 68.9 GB, on an 80 GB card);
+24. serve_encdec: ``whisper-small`` at full size with 1,500 frames —
+    the float32 and bfloat16 gates, a teacher-forced bfloat16 forward
+    gate (kernel vs plain, the encoder on ``mma``), and a timed run (8 x
+    8, 128 new tokens; its serving encoder runs in float32 on ``ffma``,
+    as the reference's does on float32 frames);
+25. flash_backward_parity: the flash route under autograd
     (``FlashAttentionFn``: the kernel forward, the backward a recompute
     through the plain version) on the FLASH_CASES that take more than
     one query, at every head dimension, and gemma2-2b's attention (D 256,
@@ -148,7 +173,7 @@ exits non-zero:
     timed beside the plain forward, SDPA's forward and forward + backward
     (``enable_gqa`` and K / V repeated) and the forward's and a fused
     backward's bounds;
-22. train_tinyllama: ``tinyllama-1.1b`` at full width — a float32 gate
+26. train_tinyllama: ``tinyllama-1.1b`` at full width — a float32 gate
     over its first 4 layers (2 x 512 tokens, seed-0 weights: the kernel
     route's loss and every leaf's gradient against the plain path's
     within ``max(1e-4, 4 x d)`` normwise, d the plain path's own distance
@@ -161,15 +186,16 @@ exits non-zero:
     bit for bit against the run's final state, then a fresh ``fit``
     resumed from step 6 to 12, its losses beside the uninterrupted
     run's);
-23. profile_train: one warm bf16 train step under ``torch.profiler``
+27. profile_train: one warm bf16 train step under ``torch.profiler``
     (device busy and idle share, top kernels, the flash forwards' and the
     recompute backward's shares) and one eager AdamW update alone;
-24. summary: the ``kernels`` line (all six kernels; for those with
+28. summary: the ``kernels`` line (all six kernels; for those with
     variants, each variant's calls on the main paths; ``lut_eval6``'s
     times and bound are its level variant's, the one the main paths
     launch, with the op's beside, and its launches include the search
-    and serve_flow phases'; ``flash_attention``'s include the training
-    run's, with its training calls per step and times beside), the card
+    and serve_flow phases'; ``flash_attention``'s include the new
+    families' timed serving runs and the training run's, with its
+    training calls per step and times beside), the card
     line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each phase that drives the main
@@ -178,6 +204,8 @@ It exits non-zero without a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import shutil
@@ -750,6 +778,24 @@ FLASH_MAIN = [
      "bfloat16", 2080),
     ("hymba-1.5b decode global", 8, 25, 5, 1, 2064, 64, True, HUGE_WINDOW,
      None, "bfloat16", 2080),
+    # deepseek-moe-16b: D 128, G 1
+    ("deepseek-moe-16b prefill", 8, 16, 16, 512, 512, 128, True,
+     HUGE_WINDOW, None, "bfloat16", None),
+    ("deepseek-moe-16b decode", 8, 16, 16, 1, 544, 128, True, HUGE_WINDOW,
+     None, "bfloat16", 544),
+    # llava-next-34b: G 7, 576 patches + a 64-token prompt
+    ("llava-next-34b prefill", 1, 56, 8, 640, 640, 128, True, HUGE_WINDOW,
+     None, "bfloat16", None),
+    ("llava-next-34b decode", 1, 56, 8, 1, 656, 128, True, HUGE_WINDOW,
+     None, "bfloat16", 656),
+    # whisper-small: the encoder, non-causal over 1,500 frames (bf16 in the
+    # teacher-forced forward, float32 in serving), and the decoder's decode
+    ("whisper-small encoder", 8, 12, 12, 1500, 1500, 64, False, None, None,
+     "bfloat16", None),
+    ("whisper-small serving encoder fp32", 8, 12, 12, 1500, 1500, 64, False,
+     None, None, "float32", None),
+    ("whisper-small decode", 8, 12, 12, 1, 136, 64, True, HUGE_WINDOW, None,
+     "bfloat16", 136),
 ]
 
 #: (M, K, N, B): ragged shapes with random {0, 1} planes; K is kept where
@@ -938,7 +984,7 @@ def lm_kernel_parity(device) -> dict:
         # single tail query sees every key)
         rec["device_ms"], rec["kernels"] = device_ms(
             lambda: ops.flash_attention(q, k, v, **kw))
-        if softcap is None and Hq == Hkv and window >= T:
+        if softcap is None and Hq == Hkv and (window is None or window >= T):
             is_causal = causal and S == T
 
             def sdpa():
@@ -1588,46 +1634,77 @@ def phase_profile(nets: list, lanes: list, n_lane_words: int,
     return rec
 
 
-def profile_summary(run, device, top: int = 10) -> dict:
+def profile_summary(run, device, top: int = 10,
+                    ranges: dict | None = None) -> dict:
     """One call of ``run()`` (which ends in a device synchronisation)
     under ``torch.profiler``: its wall, device busy time and idle share,
     device time by kernel and copy (the copies and memsets also on their
     own, by name), the number of kernels launched, and the host operations
-    that take the most time."""
+    that take the most time.  ``ranges`` maps a label to ``(module,
+    function name)``: during the run that function is wrapped in a
+    ``record_function`` range of that label, and the device time of the
+    kernels it launched is reported with its share of the busy time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
+    ranges = ranges or {}
+    patched = []
+    for label, (mod, attr) in ranges.items():
+        fn = getattr(mod, attr)
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*a, **kw)
+
+        setattr(mod, attr, wrapped)
+        patched.append((mod, attr, fn))
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall = time.perf_counter() - t0
+    finally:
+        for mod, attr, fn in patched:
+            setattr(mod, attr, fn)
     events = prof.key_averages()
     # device-side records only (kernels and copies; CPU ops also carry
     # their children's device time); CUPTI's own buffer requests are the
-    # profiler's overhead, not the program's work
+    # profiler's overhead, not the program's work, and a range's own
+    # device-side annotation is no kernel
     dev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                   for e in events if e.device_type == DeviceType.CUDA
-                  and not e.key.startswith("Activity Buffer")),
+                  and not e.key.startswith("Activity Buffer")
+                  and e.key not in ranges),
                  key=lambda r: -r[1])
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
                    for e in events if e.device_type == DeviceType.CPU),
                   key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in dev)
     copies = [r for r in dev if r[0].startswith(("Memcpy", "Memset"))]
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / (wall * 1e3),
-            "device_kernel_launches": sum(c for _, _, c in dev)
-            - sum(c for _, _, c in copies),
-            "copy_ms": sum(ms for _, ms, _ in copies),
-            "copy_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
-                                for k, ms, c in copies],
-            "device_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
-                                  for k, ms, c in dev[:top]],
-            "host_self_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
-                                     for k, ms, c in host[:top]]}
+    rec = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / (wall * 1e3),
+           "device_kernel_launches": sum(c for _, _, c in dev)
+           - sum(c for _, _, c in copies),
+           "copy_ms": sum(ms for _, ms, _ in copies),
+           "copy_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
+                               for k, ms, c in copies],
+           "device_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
+                                 for k, ms, c in dev[:top]],
+           "host_self_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
+                                    for k, ms, c in host[:top]]}
+    if ranges:
+        rec["ranges"] = {}
+        for label in ranges:
+            ev = [e for e in events if e.key == label
+                  and e.device_type == DeviceType.CPU]
+            ms = ev[0].device_time_total / 1e3 if ev else 0.0
+            rec["ranges"][label] = {
+                "calls": ev[0].count if ev else 0, "device_ms": ms,
+                "share_of_busy": ms / busy if busy else None}
+    return rec
 
 
 def phase_equiv(nets: list, device, n_vectors: int) -> dict:
@@ -2382,59 +2459,78 @@ def serve_gate(cfg32, params32, batch: int, prompt_len: int, max_new: int,
     cache) and against the teacher-forced forward: logits within ``tol``
     (``SERVE_TOL`` unless the caller calibrated it, see
     :func:`forward_gate`) at the prefill and every decode step, identical
-    greedy tokens.  Raises on any difference."""
+    greedy tokens.  An encdec model's frames or a vlm model's patches come
+    with the prompts (``serve.make_inputs``).  A MoE model's
+    routing is recorded on both paths (:func:`route_recorder`): the share
+    of (token, layer, choice) that agree and the smallest top-k margin.
+    Raises on any difference."""
     import torch
 
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    prompts = serve.make_prompts(cfg32, batch, prompt_len, device, seed=0)
-    (kern, counts) = _counted(lambda: serve.generate(
-        cfg32, params32, prompts, max_new, keep_logits=True))
+    prompts, extra = serve.make_inputs(cfg32, batch, prompt_len, device,
+                                       seed=0)
+    with route_recorder() as kroutes:
+        (kern, counts) = _counted(lambda: serve.generate(
+            cfg32, params32, prompts, max_new, keep_logits=True, **extra))
     variants = _variants()
-    plain = serve.generate(cfg32, params32, prompts, max_new,
-                           use_kernel=False, keep_logits=True)
+    with route_recorder() as proutes:
+        plain = serve.generate(cfg32, params32, prompts, max_new,
+                               use_kernel=False, keep_logits=True, **extra)
     d_plain = float((kern["logits"] - plain["logits"]).abs().max())
+    routing = routing_agreement(kroutes, proutes)
     check(d_plain <= tol, f"{cfg32.name}: kernel-path logits differ from "
-                          f"the plain path by {d_plain} (tol {tol})")
+                          f"the plain path by {d_plain} (tol {tol}; "
+                          f"routing {routing})")
     check(torch.equal(kern["tokens"], plain["tokens"]),
           f"{cfg32.name}: greedy tokens differ between the kernel and plain "
-          "paths")
+          f"paths (routing {routing})")
     fed = torch.cat([prompts, kern["tokens"][:, :-1]], dim=1)
-    hidden, _ = lm.forward(cfg32, params32, fed, return_hidden=True)
-    tf = lm.unembed(cfg32, params32, hidden[:, prompt_len - 1:]).float()
+    hidden, _ = lm.forward(cfg32, params32, fed, return_hidden=True,
+                           **extra)
+    P = extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0
+    tf = lm.unembed(cfg32, params32, hidden[:, P + prompt_len - 1:]).float()
     d_tf = float((kern["logits"] - tf).abs().max())
     check(d_tf <= tol, f"{cfg32.name}: cached logits differ from the "
                        f"teacher-forced forward by {d_tf} (tol {tol})")
     check(bool(torch.isfinite(kern["logits"]).all()),
           f"{cfg32.name}: non-finite logits")
     return {"batch": batch, "prompt_len": prompt_len, "max_new": max_new,
+            **({k: list(v.shape) for k, v in extra.items()}),
             "max_abs_logit_diff_vs_plain": d_plain,
             "max_abs_logit_diff_vs_forward": d_tf, "tol": tol,
             "tokens_identical": True, "launches": counts,
-            "variants": variants, "first_row": kern["tokens"][0].tolist()}
+            "variants": variants, **({"routing": routing} if routing else {}),
+            "first_row": kern["tokens"][0].tolist()}
 
 
-def forced_logits(cfg, params, prompts, tokens, use_kernel: bool):
+def forced_logits(cfg, params, prompts, tokens, use_kernel: bool,
+                  extra: dict | None = None):
     """Serving with the tokens forced (teacher forcing through the cache):
-    prefill ``prompts [B, S]``, then decode ``tokens [B, n]`` one by one.
-    Returns the float32 logits ``[B, n, V]`` of the prefill's last position
-    and of the first n - 1 decode steps, aligned with ``serve.generate``'s
-    when ``tokens`` are its own."""
+    prefill ``prompts [B, S]`` (with ``extra``: an encdec model's frames
+    or a vlm model's P patches), then decode ``tokens [B, n]`` one by one
+    from position ``S + P``.  Returns the float32 logits ``[B, n, V]`` of
+    the prefill's last position and of the first n - 1 decode steps,
+    aligned with ``serve.generate``'s when ``tokens`` are its own."""
     import torch
 
     from repro_torch.serve.decode import decode_step, prefill
     from repro_torch.serve.kvcache import init_cache
 
+    extra = extra or {}
     B, S = prompts.shape
     n = tokens.shape[1]
-    cache = init_cache(cfg, B, S + n, device=prompts.device)
+    P = extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0
+    enc = extra.get("encoder_feats")
+    cache = init_cache(cfg, B, S + P + n, device=prompts.device,
+                       encoder_len=None if enc is None else enc.shape[1])
     logits, cache = prefill(cfg, params, cache, prompts,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, **extra)
     kept = [logits.float()]
     for i in range(n - 1):
         logits, cache = decode_step(cfg, params, cache, tokens[:, i:i + 1],
-                                    S + i, use_kernel=use_kernel)
+                                    S + P + i, use_kernel=use_kernel)
         kept.append(logits.float())
     return torch.cat(kept, dim=1)
 
@@ -2447,7 +2543,13 @@ def serve_gate_bf16(cfg, cfg32, params32, params, batch: int,
     The float32 plain path serves greedily; its tokens are then forced
     through the bfloat16 kernel path, the bfloat16 plain path (the
     reference's masked attention) and the float32 plain path on the
-    bfloat16-rounded weights, so all logits sit on the same tokens.  Two
+    bfloat16-rounded weights, so all logits sit on the same tokens.  A
+    MoE model's routing is forced alike (:func:`route_recorder`'s replay
+    of the float32 run's choices): a bfloat16 rounding flips a top-k
+    choice whose margin is smaller, and one flipped choice moves the
+    token's logits by far more than the rounding (PERF.md).  The
+    choices each bfloat16 path would have made, and the smallest margin,
+    are reported under ``routing``.  Two
     bounds, each ``max(SERVE_TOL, NOISE_MARGIN x d)`` with d measured in
     this run (as :func:`forward_gate` calibrates the SSM gates):
 
@@ -2457,25 +2559,39 @@ def serve_gate_bf16(cfg, cfg32, params32, params, batch: int,
       the same precision), d the bfloat16 plain path's disagreement with
       float32 activations on the same rounded weights: the rounding of
       activations alone, which is all the two bfloat16 paths can differ
-      by.  Every forced position's greedy token must also agree between
-      them.
+      by.  At every forced position the kernel path's greedy token must
+      also be a greedy token of the plain path (its argmax, or a token
+      tied with it: bfloat16 logits over a large vocabulary can tie
+      exactly, and argmax then picks the lowest index).
 
     Also reported: the share of greedy tokens that agree with float32."""
     import torch
 
     from repro_torch.launch import serve
 
-    prompts = serve.make_prompts(cfg32, batch, prompt_len, device, seed=0)
-    ref32 = serve.generate(cfg32, params32, prompts, max_new,
-                           use_kernel=False, keep_logits=True)
+    prompts, extra = serve.make_inputs(cfg32, batch, prompt_len, device,
+                                       seed=0)
+    with route_recorder() as routes32:
+        ref32 = serve.generate(cfg32, params32, prompts, max_new,
+                               use_kernel=False, keep_logits=True, **extra)
+    replay = routes32 or None
     forced = ref32["tokens"]
     rounded32 = cast_params(params, torch.float32)
-    act32 = forced_logits(cfg32, rounded32, prompts, forced, False)
+    with route_recorder(replay):
+        act32 = forced_logits(cfg32, rounded32, prompts, forced, False,
+                              extra)
     del rounded32
-    kern, counts = _counted(lambda: forced_logits(cfg, params, prompts,
-                                                  forced, True))
+    with route_recorder(replay) as kroutes:
+        kern, counts = _counted(lambda: forced_logits(cfg, params, prompts,
+                                                      forced, True, extra))
     variants = _variants()
-    plain = forced_logits(cfg, params, prompts, forced, False)
+    with route_recorder(replay) as proutes:
+        plain = forced_logits(cfg, params, prompts, forced, False, extra)
+    routing = routing_agreement(kroutes, proutes)
+    if routing:
+        routing["replayed"] = "the float32 plain run's choices"
+        routing["kernel_agree_share_vs_float32"] = routing_agreement(
+            kroutes, routes32)["agree_share"]
     d_plain = float((plain - ref32["logits"]).abs().max())
     d = float((kern - ref32["logits"]).abs().max())
     tol = max(SERVE_TOL, NOISE_MARGIN * d_plain)
@@ -2483,15 +2599,33 @@ def serve_gate_bf16(cfg, cfg32, params32, params, batch: int,
     d_same = float((kern - plain).abs().max())
     tol_same = max(SERVE_TOL, NOISE_MARGIN * d_act)
     top, top_plain = kern.argmax(-1), plain.argmax(-1)
-    agree = float((top == top_plain).float().mean())
+    # the kernel's greedy token must be a greedy token of the plain path:
+    # where the plain path's top logits tie (bf16 rounds them together),
+    # argmax's lowest-index pick is not the only one
+    hits = plain.gather(-1, top[..., None])[..., 0] == plain.amax(-1)
+    agree = float(hits.float().mean())
+    flips_act = int((top_plain != act32.argmax(-1)).sum())
+    gap2 = plain.topk(2, dim=-1).values
+    gap2 = gap2[..., 0] - gap2[..., 1]
+    where = (~hits).nonzero().tolist()
+    disagree = [{"position": w, "plain_top2_gap": float(gap2[tuple(w)]),
+                 "plain_token_as_float32_activations": bool(
+                     top_plain[tuple(w)] == act32[tuple(w)].argmax()),
+                 "kernel_vs_plain_logit_diff": float(
+                     (kern[tuple(w)] - plain[tuple(w)]).abs().max())}
+                for w in where[:8]]
     check(_finite(kern), f"{cfg.name}: non-finite bf16 logits")
     check(d <= tol, f"{cfg.name}: bf16 kernel-path logits differ from the "
-                    f"float32 run by {d} (tol {tol})")
+                    f"float32 run by {d} (tol {tol}; routing {routing})")
     check(d_same <= tol_same,
           f"{cfg.name}: bf16 kernel-path logits differ from the bf16 plain "
-          f"path by {d_same} (tol {tol_same})")
+          f"path by {d_same} (tol {tol_same}; routing {routing})")
     check(agree == 1.0, f"{cfg.name}: bf16 kernel-path greedy tokens agree "
-                        f"with the bf16 plain path at {agree} of positions")
+                        f"with the bf16 plain path at {agree} of positions "
+                        f"(routing {routing}; {disagree}; the plain path's "
+                        f"argmax differs from float32 activations' at "
+                        f"{flips_act}; smallest plain top-2 gap "
+                        f"{float(gap2.min())}; tol {tol_same}, d {d_same})")
     return {"batch": batch, "prompt_len": prompt_len, "max_new": max_new,
             "dtype": cfg.compute_dtype,
             "max_abs_logit_diff_vs_float32": d,
@@ -2501,26 +2635,38 @@ def serve_gate_bf16(cfg, cfg32, params32, params, batch: int,
             "tol_vs_plain_bf16": tol_same,
             "logit_scale": float(ref32["logits"].abs().max()),
             "greedy_agreement_vs_plain_bf16": agree,
+            "argmax_flips_plain_vs_float32_activations": flips_act,
+            "min_plain_top2_gap": float(gap2.min()),
+            "plain_top2_ties": int((gap2 == 0).sum()),
             "greedy_agreement_vs_float32": float(
                 (top == ref32["logits"].argmax(-1)).float().mean()),
-            "launches": counts, "variants": variants}
+            "launches": counts, "variants": variants,
+            **({"routing": routing} if routing else {})}
 
 
 def serve_timed(cfg, params, batch: int, prompt_len: int, max_new: int,
                 device) -> dict:
-    """One warm-up, then the timed serving run with its launches
-    counted."""
+    """One warm-up, then the timed serving run with its launches counted
+    and the device's peak memory over it."""
+    import torch
+
     from repro_torch.launch import serve
 
-    prompts = serve.make_prompts(cfg, batch, prompt_len, device, seed=1)
-    serve.generate(cfg, params, prompts, 2)  # warm: library, allocator
+    prompts, extra = serve.make_inputs(cfg, batch, prompt_len, device,
+                                       seed=1)
+    serve.generate(cfg, params, prompts, 2, **extra)  # warm
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     res, counts = _counted(lambda: serve.generate(cfg, params, prompts,
-                                                  max_new))
+                                                  max_new, **extra))
     return {"batch": batch, "prompt_len": prompt_len, "max_new": max_new,
+            **({k: list(v.shape) for k, v in extra.items()}),
             "dtype": cfg.compute_dtype, "prefill_ms": res["prefill_ms"],
             "decode_ms_per_step": res["decode_ms_per_step"],
             "tok_per_s": res["tok_per_s"],
             "decode_tok_per_s": res["decode_tok_per_s"],
+            "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                        if device.type == "cuda" else None),
             "launches": counts, "variants": _variants()}
 
 
@@ -2897,30 +3043,436 @@ def phase_quantized(cfg32, device, rows=(8, 4096), bits: int = 6) -> dict:
 
 
 def phase_profile_serve(cfg, params, batch: int, prompt_len: int, device,
-                        top: int = 10) -> dict:
-    """A warm prefill and a warm decode step under ``torch.profiler``."""
+                        top: int = 10, ranges: dict | None = None) -> dict:
+    """A warm prefill and a warm decode step under ``torch.profiler``
+    (``ranges``: functions to time as named ranges, see
+    :func:`profile_summary`)."""
     from repro_torch.launch import serve
     from repro_torch.serve.decode import decode_step, prefill
     from repro_torch.serve.kvcache import init_cache
 
-    prompts = serve.make_prompts(cfg, batch, prompt_len, device, seed=2)
-    cache = init_cache(cfg, batch, prompt_len + 1, device=device)
+    prompts, extra = serve.make_inputs(cfg, batch, prompt_len, device,
+                                       seed=2)
+    P = extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0
+    enc = extra.get("encoder_feats")
+    cache = init_cache(cfg, batch, P + prompt_len + 1, device=device,
+                       encoder_len=None if enc is None else enc.shape[1])
     tok = prompts[:, -1:]
 
     def run_prefill():
-        prefill(cfg, params, cache, prompts)
+        prefill(cfg, params, cache, prompts, **extra)
         _sync(device)
 
     def run_decode():
-        decode_step(cfg, params, cache, tok, prompt_len)
+        decode_step(cfg, params, cache, tok, P + prompt_len)
         _sync(device)
 
     run_prefill()  # warm
     run_decode()
     return {"phase": "profile_decode", "arch": cfg.name, "batch": batch,
             "prompt_len": prompt_len, "dtype": cfg.compute_dtype,
-            "prefill": profile_summary(run_prefill, device, top),
-            "decode_step": profile_summary(run_decode, device, top)}
+            "prefill": profile_summary(run_prefill, device, top, ranges),
+            "decode_step": profile_summary(run_decode, device, top, ranges)}
+
+
+# ---------------------------------------------------------------------------
+# the MoE, vision-language and encoder-decoder families; the int8 KV cache
+# ---------------------------------------------------------------------------
+
+#: the new families' serving runs: gates (batch, prompt, new tokens),
+#: timed runs (batch, prompt, new tokens), whisper's teacher-forced
+#: forward gate (batch, tokens)
+MOE_GATE, MOE_TIMED = (2, 128, 16), (8, 512, 32)
+VLM_GATE, VLM_TIMED = (1, 64, 16), (1, 64, 16)
+ENCDEC_GATE, ENCDEC_FORWARD, ENCDEC_TIMED = (2, 8, 16), (2, 24), (8, 8, 128)
+#: depth of the float32 gates where full-width float32 weights do not fit
+#: on the card beside the bf16 ones: deepseek-moe-16b's dense layer and 3
+#: MoE layers (65.6 GB float32 at full depth), llava-next-34b's first 2
+#: layers (137.6 GB)
+MOE_GATE_LAYERS = 4
+VLM_GATE_LAYERS = 2
+#: device memory left free beside a full-depth run's bf16 weights (its
+#: cache, activations and the libraries' workspaces)
+DEPTH_RESERVE_BYTES = 4e9
+
+
+@contextlib.contextmanager
+def route_recorder(replay: list | None = None):
+    """Inside the ``with``, every routing decision of the MoE blocks
+    (``blocks._moe_route``) is recorded: per call, each token's k chosen
+    experts (sorted), the margin by which the k-th choice beat the next
+    (a float difference below it can flip the choice) and the choices as
+    made.  With ``replay`` (another run's records, call by call) the
+    choices are replaced by that run's, the gates being the probabilities
+    at them renormalised as ``_moe_route`` does; the records keep the
+    choices this run would have made.  Yields the list of records."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import blocks
+
+    route = blocks._moe_route
+    calls = []
+
+    def recording(cfg, p, ht):
+        probs, gates, onehot = route(cfg, p, ht)
+        K = cfg.top_k
+        vals, idx = torch.topk(probs, min(K + 1, cfg.n_experts), dim=-1)
+        margin = (vals[..., K - 1] - vals[..., K]) if K < cfg.n_experts \
+            else None
+        calls.append((idx[..., :K].sort(-1).values.reshape(-1, K), margin,
+                      idx[..., :K]))
+        if replay is not None:
+            forced = replay[len(calls) - 1][2]
+            gates = probs.gather(-1, forced)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+            onehot = F.one_hot(forced, cfg.n_experts).float()
+        return probs, gates, onehot
+
+    blocks._moe_route = recording
+    try:
+        yield calls
+    finally:
+        blocks._moe_route = route
+
+
+def routing_agreement(a: list, b: list) -> dict | None:
+    """Two runs' routing records (:func:`route_recorder`) compared: the
+    share of (token, layer, choice) entries that agree and the smallest
+    top-k margin either run saw.  None when neither run routed."""
+    if not a and not b:
+        return None
+    check(len(a) == len(b) and all(x[0].shape == y[0].shape
+                                   for x, y in zip(a, b)),
+          "the two runs routed a different number of tokens")
+    agree = sum(int((x[0] == y[0]).sum()) for x, y in zip(a, b))
+    total = sum(x[0].numel() for x in a)
+    margins = [float(r[1].min()) for run in (a, b) for r in run
+               if r[1] is not None]
+    return {"routing_calls": len(a), "choices": total,
+            "agree_share": agree / total,
+            "min_topk_margin": min(margins) if margins else None}
+
+
+def params_bytes(params: dict, dtype_bytes: int = 2) -> int:
+    """The bytes of a weight tree's leaves at ``dtype_bytes`` each."""
+    from repro_torch import tree
+
+    return sum(t.numel() * dtype_bytes for t in tree.leaves(params))
+
+
+def cut_depth(cfg, n: int):
+    """``cfg`` with ``n`` decoder layers (a MoE model keeps its dense
+    layers among them)."""
+    return dataclasses.replace(cfg, n_layers=min(n, cfg.n_layers))
+
+
+def check_timed_variants(name: str, run: dict, want: dict) -> None:
+    """A timed run's flash calls per variant and in all, as expected."""
+    got = run["variants"]["flash_attention"]
+    check(got == {**{"mma": 0, "split": 0, "ffma": 0}, **want}
+          and run["launches"]["flash_attention"] == sum(want.values()),
+          f"{name}: flash variants {got} "
+          f"({run['launches']['flash_attention']} launches), expected "
+          f"{want}")
+
+
+def phase_serve_moe(cfg, device, gate: tuple, timed: tuple,
+                    seed: int = 0) -> tuple[dict, dict]:
+    """deepseek-moe-16b at full width: the float32 gate and the bfloat16
+    gate (:func:`serve_gate`, :func:`serve_gate_bf16`, routing recorded)
+    over the first ``MOE_GATE_LAYERS`` layers (the dense layer, then MoE
+    layers), then a timed bfloat16 run at full depth on weights drawn in
+    bfloat16.  Returns the record and the state the int8 phase reuses:
+    the cut float32 weights and the full bf16 weights."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    cut = cut_depth(cfg, MOE_GATE_LAYERS)
+    cut32 = as_float32(cut)
+    params32 = serve.make_params(cut32, device, seed=seed)
+    gate_rec = serve_gate(cut32, params32, *gate, device)
+    cut_bf16 = cast_params(params32, getattr(torch, cfg.param_dtype))
+    bf16_rec = serve_gate_bf16(cut, cut32, params32, cut_bf16, *gate,
+                               device)
+    del cut_bf16
+    params = serve.make_params(cfg, device, seed=seed)
+    timed_rec = serve_timed(cfg, params, *timed, device)
+    L = cfg.n_layers
+    rec = {"phase": "serve_moe", "arch": cfg.name, "layers": L,
+           "dense_layers": cfg.n_dense_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+           "experts": [cfg.n_experts, cfg.top_k, cfg.n_shared_experts,
+                       cfg.d_ff_expert], "vocab": cfg.vocab,
+           "weights_gb": params_bytes(params) / 1e9,
+           "gate_layers": cut.n_layers, "gate": gate_rec,
+           "gate_bf16": bf16_rec, "timed": timed_rec,
+           "flash_launches_expected": L * timed[2]}
+    if device.type == "cuda":
+        check_flash_variants({**rec, "gate": gate_rec})
+    return rec, {"cut32": cut32, "params32": params32, "params": params}
+
+
+def int8_gate(cfg32, params32, batch: int, prompt_len: int, max_new: int,
+              device, tol: float = SERVE_TOL) -> dict:
+    """Float32 serving from the int8 cache, the kernel route against the
+    plain route over the same cache: the plain route serves greedily;
+    then, position by position, both routes take the same step (the
+    prefill from the empty cache, each decode step from a copy of the
+    plain route's cache) on the plain route's tokens.  So the two read the
+    same codes but for the rows the step writes itself (a float32
+    difference in a projection can move one of those codes by 1; the
+    prefill's share of moved codes is reported).  Logits within ``tol``
+    and every greedy token equal; raises otherwise."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.serve.decode import decode_step, prefill
+    from repro_torch.serve.kvcache import init_cache
+
+    prompts, _ = serve.make_inputs(cfg32, batch, prompt_len, device, seed=0)
+    tokens = serve.generate(cfg32, params32, prompts, max_new,
+                            use_kernel=False)["tokens"]
+    cache = init_cache(cfg32, batch, prompt_len + max_new, device=device)
+    kcache = {k: v.clone() for k, v in cache.items()}
+    with route_recorder() as kroutes:
+        (kern, _), counts = _counted(lambda: prefill(cfg32, params32, kcache,
+                                                     prompts))
+    variants = _variants()["flash_attention"]
+    with route_recorder() as proutes:
+        plain, _ = prefill(cfg32, params32, cache, prompts, use_kernel=False)
+    moved = {n: float((kcache[n] != cache[n]).float().mean())
+             for n in ("k", "v")}
+    biggest = max(int((kcache[n].int() - cache[n].int()).abs().max())
+                  for n in ("k", "v"))
+    del kcache
+    kern, plain = [kern.float()], [plain.float()]
+    for i in range(max_new - 1):
+        tok, pos = tokens[:, i:i + 1], prompt_len + i
+        kc = {k: v.clone() for k, v in cache.items()}
+        with route_recorder() as kr:
+            (k_logits, _), c = _counted(lambda: decode_step(
+                cfg32, params32, kc, tok, pos))
+        v = _variants()["flash_attention"]
+        with route_recorder() as pr:
+            p_logits, _ = decode_step(cfg32, params32, cache, tok, pos,
+                                      use_kernel=False)
+        del kc
+        kroutes += kr
+        proutes += pr
+        counts = {n: counts[n] + c[n] for n in counts}
+        variants = {n: variants[n] + v[n] for n in variants}
+        kern.append(k_logits.float())
+        plain.append(p_logits.float())
+    kern, plain = torch.cat(kern, dim=1), torch.cat(plain, dim=1)
+    d = float((kern - plain).abs().max())
+    routing = routing_agreement(kroutes, proutes)
+    check(_finite(kern), f"{cfg32.name}: non-finite int8-cache logits")
+    check(d <= tol, f"{cfg32.name}: int8-cache kernel-route logits differ "
+                    f"from the plain route by {d} (tol {tol}; routing "
+                    f"{routing}; prefill codes moved {moved})")
+    check(torch.equal(kern.argmax(-1), plain.argmax(-1)),
+          f"{cfg32.name}: int8-cache greedy tokens differ between the "
+          f"routes (routing {routing})")
+    return {"batch": batch, "prompt_len": prompt_len, "max_new": max_new,
+            "max_abs_logit_diff_vs_plain": d, "tol": tol,
+            "logit_scale": float(plain.abs().max()),
+            "prefill_codes_moved_share": moved,
+            "prefill_codes_max_abs_move": biggest,
+            "tokens_identical": True, "launches": counts,
+            "variants": {"flash_attention": variants},
+            **({"routing": routing} if routing else {})}
+
+
+def phase_serve_moe_int8(cfg, state: dict, device, gate: tuple,
+                         timed: tuple) -> dict:
+    """The same weights with ``kv_cache_dtype="int8"``.  Gates: the
+    float32 kernel route against the plain route over the same int8 cache
+    (:func:`int8_gate`) and the bfloat16 gate (:func:`serve_gate_bf16`:
+    each route over its own int8 cache), both over the first
+    ``MOE_GATE_LAYERS`` layers.  At full depth
+    in bfloat16, reported with no limit (the reference sets none): the
+    bf16-cache run's tokens forced through the int8 cache, their logits'
+    distance from the bf16 cache's and the share of greedy tokens that
+    agree; the two caches' bytes; a timed int8 run."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.serve.kvcache import init_cache
+
+    def int8(c):
+        return dataclasses.replace(c, kv_cache_dtype="int8")
+
+    cut32, params32, params = state["cut32"], state["params32"], \
+        state["params"]
+    gate_rec = int8_gate(int8(cut32), params32, *gate, device)
+    cut = dataclasses.replace(cut32, param_dtype=cfg.param_dtype,
+                              compute_dtype=cfg.compute_dtype)
+    cut_bf16 = cast_params(params32, getattr(torch, cfg.param_dtype))
+    bf16_rec = serve_gate_bf16(int8(cut), int8(cut32), params32, cut_bf16,
+                               *gate, device)
+    del cut_bf16
+    B, S, n = timed
+    prompts, _ = serve.make_inputs(cfg, B, S, device, seed=1)
+    base = serve.generate(cfg, params, prompts, n, keep_logits=True)
+    forced = forced_logits(int8(cfg), params, prompts, base["tokens"], True)
+    diff = forced - base["logits"]
+    nbytes = {}
+    for name, c in (("bf16", cfg), ("int8", int8(cfg))):
+        cache = init_cache(c, B, S + n, device=device)
+        nbytes[name] = sum(t.numel() * t.element_size()
+                           for t in cache.values())
+        del cache
+    vs_bf16 = {"max_abs_logit_diff": float(diff.abs().max()),
+               "rms_logit_diff": float(diff.pow(2).mean().sqrt()),
+               "logit_scale": float(base["logits"].abs().max()),
+               "greedy_agreement": float((forced.argmax(-1) ==
+                                          base["tokens"]).float().mean()),
+               "cache_bytes": nbytes,
+               "cache_bytes_ratio": nbytes["int8"] / nbytes["bf16"]}
+    check(_finite(forced), f"{cfg.name}: non-finite int8-cache logits")
+    timed_rec = serve_timed(int8(cfg), params, *timed, device)
+    L = cfg.n_layers
+    rec = {"phase": "serve_moe_int8", "arch": cfg.name, "layers": L,
+           "gate_layers": cut32.n_layers, "gate": gate_rec,
+           "gate_bf16": bf16_rec, "vs_bf16_cache": vs_bf16,
+           "timed": timed_rec, "flash_launches_expected": L * timed[2]}
+    if device.type == "cuda":
+        check_flash_variants(rec)
+    return rec
+
+
+def phase_serve_vlm(cfg, device, gate: tuple, timed: tuple,
+                    seed: int = 0) -> dict:
+    """llava-next-34b at full width: the float32 and bfloat16 gates over
+    its first ``VLM_GATE_LAYERS`` layers (576 patch embeddings before the
+    prompt), then a timed bfloat16 run on weights drawn in bfloat16 at
+    the largest depth the card's free memory holds beside
+    ``DEPTH_RESERVE_BYTES`` (full depth when it fits; the free memory and
+    the weights' bytes are reported either way)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    cut = cut_depth(cfg, VLM_GATE_LAYERS)
+    cut32 = as_float32(cut)
+    params32 = serve.make_params(cut32, device, seed=seed)
+    gate_rec = serve_gate(cut32, params32, *gate, device)
+    cut_bf16 = cast_params(params32, getattr(torch, cfg.param_dtype))
+    bf16_rec = serve_gate_bf16(cut, cut32, params32, cut_bf16, *gate,
+                               device)
+    layer_bytes = params_bytes(params32["blocks"]) // cut.n_layers
+    fixed_bytes = params_bytes(params32) - layer_bytes * cut.n_layers
+    del params32, cut_bf16
+    free = None
+    depth = cfg.n_layers
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(device)[0]
+        depth = min(cfg.n_layers, int((free - fixed_bytes
+                                       - DEPTH_RESERVE_BYTES)
+                                      // layer_bytes))
+    check(depth >= 1, f"{cfg.name}: no layer fits in {free} free bytes")
+    run_cfg = cut_depth(cfg, depth)
+    params = serve.make_params(run_cfg, device, seed=seed)
+    timed_rec = serve_timed(run_cfg, params, *timed, device)
+    rec = {"phase": "serve_vlm", "arch": cfg.name, "layers": depth,
+           "full_depth": cfg.n_layers, "depth_cut": depth < cfg.n_layers,
+           "free_gb_before_weights": None if free is None else free / 1e9,
+           "weights_gb": params_bytes(params) / 1e9,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.hd, "patches": cfg.n_patches, "vocab": cfg.vocab,
+           "gate_layers": cut.n_layers, "gate": gate_rec,
+           "gate_bf16": bf16_rec, "timed": timed_rec,
+           "flash_launches_expected": depth * timed[2]}
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        check_flash_variants(rec)
+    return rec
+
+
+def forward_gate_inputs_bf16(cfg, params, batch: int, seq_len: int,
+                             device) -> dict:
+    """The bfloat16 teacher-forced forward (with an encdec model's frames
+    or a vlm model's patches) through the kernels against the bfloat16
+    plain forward, within ``max(SERVE_TOL, NOISE_MARGIN x d')`` in the
+    largest logit, d' the plain forward's disagreement with float32
+    activations on the same bfloat16 weights (the rounding of activations
+    alone); the share of argmax positions that agree is reported."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    toks, extra = serve.make_inputs(cfg, batch, seq_len, device, seed=3)
+    kern, counts = _counted(lambda: lm.forward(cfg, params, toks,
+                                               **extra)[0].float())
+    variants = _variants()
+    plain = lm.forward(cfg, params, toks, use_kernel=False,
+                       **extra)[0].float()
+    act32 = lm.forward(as_float32(cfg), cast_params(params, torch.float32),
+                       toks, use_kernel=False, **extra)[0].float()
+    d_act = float((plain - act32).abs().max())
+    d = float((kern - plain).abs().max())
+    tol = max(SERVE_TOL, NOISE_MARGIN * d_act)
+    check(_finite(kern), f"{cfg.name}: non-finite bf16 forward logits")
+    check(d <= tol, f"{cfg.name}: bf16 kernel-path forward differs from the "
+                    f"bf16 plain forward by {d} (tol {tol})")
+    return {"batch": batch, "seq_len": seq_len, "dtype": cfg.compute_dtype,
+            **({k: list(v.shape) for k, v in extra.items()}),
+            "max_abs_logit_diff_vs_plain_bf16": d,
+            "plain_bf16_vs_float32_activations": d_act, "tol": tol,
+            "logit_scale": float(plain.abs().max()),
+            "argmax_agreement_vs_plain_bf16": float(
+                (kern.argmax(-1) == plain.argmax(-1)).float().mean()),
+            "launches": counts, "variants": variants}
+
+
+def phase_serve_encdec(cfg, device, gate: tuple, forward: tuple,
+                       timed: tuple, seed: int = 0) -> dict:
+    """whisper-small at full size: the float32 gate and the bfloat16 gate
+    over all 12 + 12 layers with 1,500 frames, the teacher-forced
+    bfloat16 forward gate (:func:`forward_gate_inputs_bf16`), then a timed
+    bfloat16 run.  As in the reference, serving does not cast the float32
+    frames, so its encoder runs in float32 (flash ``ffma``); the forward
+    casts them (``mma``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import variant as flash_variant
+    from repro_torch.launch import serve
+
+    cfg32 = as_float32(cfg)
+    params32 = serve.make_params(cfg32, device, seed=seed)
+    gate_rec = serve_gate(cfg32, params32, *gate, device)
+    params = cast_params(params32, getattr(torch, cfg.param_dtype))
+    bf16_rec = serve_gate_bf16(cfg, cfg32, params32, params, *gate, device)
+    del params32
+    fwd_rec = forward_gate_inputs_bf16(cfg, params, *forward, device)
+    timed_rec = serve_timed(cfg, params, *timed, device)
+    L, Le = cfg.n_layers, cfg.n_encoder_layers
+    steps = timed[2] - 1
+    rec = {"phase": "serve_encdec", "arch": cfg.name, "layers": L,
+           "encoder_layers": Le, "encoder_seq": cfg.encoder_seq,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.hd, "vocab": cfg.vocab, "gate": gate_rec,
+           "gate_bf16": bf16_rec, "forward_bf16": fwd_rec,
+           "timed": timed_rec,
+           "flash_launches_expected": Le + L * timed[2]}
+    if device.type == "cuda":
+        gate_v = gate_rec["variants"]["flash_attention"]
+        check(gate_v["ffma"] == gate_rec["launches"]["flash_attention"] > 0,
+              f"{cfg.name}: the float32 gate's flash variants were {gate_v}")
+        G = cfg.n_heads // cfg.n_kv_heads
+        want = {"mma": 0, "split": L * steps, "ffma": Le}
+        want[flash_variant(torch.bfloat16, timed[1], G)] += L
+        check_timed_variants(cfg.name, timed_rec, want)
+        want = {"mma": Le, "split": 0, "ffma": 0}
+        want[flash_variant(torch.bfloat16, forward[1], G)] += L
+        check_timed_variants(f"{cfg.name} forward", fwd_rec, want)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3643,6 +4195,31 @@ def main() -> int:
     del hymba_params
     torch.cuda.empty_cache()
 
+    from repro_torch.models import blocks
+
+    ds = get_config("deepseek-moe-16b")
+    moerec, moe_state = phase_serve_moe(ds, device, gate=MOE_GATE,
+                                        timed=MOE_TIMED)
+    emit(moerec)
+    emit({**phase_profile_serve(
+        ds, moe_state["params"], MOE_TIMED[0], MOE_TIMED[1], device,
+        ranges={"dropless expert products": (blocks, "_dropless_experts")}),
+        "phase": "profile_moe"})
+    i8rec = phase_serve_moe_int8(ds, moe_state, device, gate=MOE_GATE,
+                                 timed=MOE_TIMED)
+    emit(i8rec)
+    del moe_state
+    torch.cuda.empty_cache()
+    vlmrec = phase_serve_vlm(get_config("llava-next-34b"), device,
+                             gate=VLM_GATE, timed=VLM_TIMED)
+    emit(vlmrec)
+    torch.cuda.empty_cache()
+    encrec = phase_serve_encdec(get_config("whisper-small"), device,
+                                gate=ENCDEC_GATE, forward=ENCDEC_FORWARD,
+                                timed=ENCDEC_TIMED)
+    emit(encrec)
+    torch.cuda.empty_cache()
+
     fbrec = phase_flash_backward(device)
     emit(fbrec)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
@@ -3669,8 +4246,11 @@ def main() -> int:
     pop_main = ssmrec["popcount_matmul"]["main"]
     launches = {"lut_eval6": launches6,
                 "lut_eval": lrec["launches"]["lut_eval"],
-                # kratos-dd serving and the timed training run
-                "flash_attention": flash_launches
+                # kratos-dd serving, the new families' timed serving
+                # runs and the timed training run
+                "flash_attention": flash_launches + sum(
+                    r["timed"]["launches"]["flash_attention"]
+                    for r in (moerec, i8rec, vlmrec, encrec))
                 + trec["timed"]["launches"]["flash_attention"],
                 "bitplane_matmul": bit_launches,
                 # the two models' timed forwards (64 + 32 SSD layers)
@@ -3720,6 +4300,11 @@ def main() -> int:
         "flash_attention": {
             "serve bf16": srec["timed"]["variants"]["flash_attention"],
             "gate float32": srec["gate"]["variants"]["flash_attention"],
+            **{f"serve bf16 {r['arch']}{' int8' if r is i8rec else ''}":
+               r["timed"]["variants"]["flash_attention"]
+               for r in (moerec, i8rec, vlmrec, encrec)},
+            "forward bf16 whisper-small":
+                encrec["forward_bf16"]["variants"]["flash_attention"],
             "train bf16": trec["timed"]["variants"]["flash_attention"],
             "train gate float32":
                 trec["gate"]["variants"]["flash_attention"]},

@@ -5,12 +5,14 @@
         [--grad-accum 1] [--ckpt-dir DIR] [--device cuda]
 
 Random weights from a seeded generator on the device, the synthetic data
-stream, AdamW with the reference launcher's schedule (warmup 5 steps,
-cosine decay over the run), and the fault-tolerant loop, which resumes
-from the latest checkpoint under ``--ckpt-dir``.  Attention runs through
-the flash kernel under autograd; the ssm and hybrid families train
-through the plain path (the SSD kernel has no backward, in the reference
-as here).  On one card there is no mesh: ``--model-parallel`` takes only
+stream (with frames for encdec and patch embeddings for vlm), AdamW with
+the reference launcher's schedule (warmup 5 steps, cosine decay over the
+run), and the fault-tolerant loop, which resumes from the latest
+checkpoint under ``--ckpt-dir``.  Self-attention runs through the flash
+kernel under autograd for the dense, moe, encdec and vlm families (MoE
+layers on the capacity-dropped dispatch, their load-balance loss folded
+in); the ssm and hybrid families train through the plain path (the SSD
+kernel has no backward, in the reference as here).  On one card there is no mesh: ``--model-parallel`` takes only
 1.  The default device is the card; without one it raises unless
 ``--device cpu`` is given.  Prints the loss and gradient norm every 10
 steps and the final loss.

@@ -1,12 +1,14 @@
-"""Per-layer bodies for the dense, ssm and hybrid families: attention,
-FFN, the Mamba-2 SSD mixer and Hymba's parallel attention + SSD block
-(the port of ``repro/models/blocks.py``'s ``attn_block``, ``ffn_block``,
-``_causal_conv``, ``ssd_block`` and ``hybrid_block``).
+"""Per-layer bodies of every family: attention (with the bf16 or int8
+KV cache), FFN, the routed-expert MoE FFN (capacity-dropped for training,
+dropless for evaluation and serving), the Mamba-2 SSD mixer and Hymba's
+parallel attention + SSD block (the port of ``repro/models/blocks.py``).
 
 Blocks operate on one layer's parameter slice (no leading L axis).  A
 cache is a dict of one layer's tensors (``k``/``v`` ``[B, T, Hkv, D]``,
-``conv`` ``[B, Kc-1, H*P]``, ``ssm`` ``[B, H, P, N]``), updated in place.
-MoE blocks and the int8 KV cache are not ported yet.
+int8 with float32 ``k_scale``/``v_scale`` ``[B, T, Hkv]`` for the int8
+cache; ``conv`` ``[B, Kc-1, H*P]``, ``ssm`` ``[B, H, P, N]``), updated in
+place.  The reference's ``constrain`` calls are sharding hints for a
+mesh; on one card they are nothing.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ HUGE_WINDOW = 1 << 30
 
 def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
                cache_index=None, causal=True, use_kernel: bool = True):
-    """x: ``[B, S, d]``.  With ``cache`` (dict k/v ``[B, T, Hkv, D]``)
-    writes the new k/v at ``cache_index`` (an int; ``positions`` must be
+    """x: ``[B, S, d]``.  With ``cache`` (dict k/v ``[B, T, Hkv, D]``, and
+    ``k_scale``/``v_scale`` ``[B, T, Hkv]`` when k/v are int8) writes the
+    new k/v at ``cache_index`` (an int; ``positions`` must be
     ``cache_index + arange(S)``) and attends over the filled prefix.
     Returns (out, cache)."""
     B, S, _ = x.shape
@@ -42,21 +45,21 @@ def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cache is not None:
-        if "k_scale" in cache:
-            raise NotImplementedError("the int8 KV cache is not ported")
         end = cache_index + S
-        ck, cv = cache["k"], cache["v"]
-        ck[:, cache_index:end] = k.to(ck.dtype)
-        cv[:, cache_index:end] = v.to(cv.dtype)
+        _write_kv(cache, k, v, cache_index)
         if use_kernel:
             # the queries are the last S of the filled prefix: the kernel
-            # reads the cache in place, sliced to it
-            out = attention(cfg, q, ck[:, :end], cv[:, :end], causal=causal,
-                            window=window, softcap=cfg.attn_softcap)
+            # reads that prefix (in place from a bf16 cache, dequantized
+            # into a contiguous tensor from an int8 one)
+            kd, vd = _cached_kv(cache, end, x.dtype)
+            out = attention(cfg, q, kd, vd, causal=causal, window=window,
+                            softcap=cfg.attn_softcap)
         else:
+            # the reference: the whole cache, masked by kv_len
+            kd, vd = _cached_kv(cache, None, x.dtype)
             kv_len = torch.full((B,), end, dtype=torch.int64,
                                 device=x.device)
-            out = attention(cfg, q, ck, cv, causal=causal, window=window,
+            out = attention(cfg, q, kd, vd, causal=causal, window=window,
                             softcap=cfg.attn_softcap, kv_len=kv_len,
                             q_positions=positions, use_kernel=False)
     else:
@@ -68,6 +71,41 @@ def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
     return out, cache
 
 
+def q8(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) abs-max int8 quantization over the last axis:
+    ``(codes int8, scale float32)`` with ``scale = max|t| / 127`` (at
+    least 1e-8), codes rounded half to even, as the reference's ``q8``."""
+    t32 = t.float()
+    scale = torch.clamp(t32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    return torch.round(t32 / scale[..., None]).to(torch.int8), scale
+
+
+def _write_kv(cache: dict, k, v, index: int) -> None:
+    """Write the new keys and values into the cache at ``index`` (in
+    place), quantized when the cache is int8."""
+    end = index + k.shape[1]
+    if "k_scale" in cache:
+        for name, t in (("k", k), ("v", v)):
+            codes, scale = q8(t)
+            cache[name][:, index:end] = codes
+            cache[name + "_scale"][:, index:end] = scale
+    else:
+        cache["k"][:, index:end] = k.to(cache["k"].dtype)
+        cache["v"][:, index:end] = v.to(cache["v"].dtype)
+
+
+def _cached_kv(cache: dict, end: int | None, dtype):
+    """The cache's keys and values over ``[:end]`` (all of it for None):
+    views of a bf16 cache; an int8 cache dequantized to ``dtype`` as the
+    reference does it (``codes.astype(dtype) * scale.astype(dtype)``)."""
+    k, v = cache["k"][:, :end], cache["v"][:, :end]
+    if "k_scale" not in cache:
+        return k, v
+    ks, vs = cache["k_scale"][:, :end], cache["v_scale"][:, :end]
+    return (k.to(dtype) * ks[..., None].to(dtype),
+            v.to(dtype) * vs[..., None].to(dtype))
+
+
 def ffn_block(cfg: ModelConfig, p, x):
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
     if cfg.act == "gelu_mlp":
@@ -77,6 +115,122 @@ def ffn_block(cfg: ModelConfig, p, x):
     if "post_ln2" in p:
         out = rms_norm(out, p["post_ln2"], cfg.rms_eps)
     return out
+
+
+def _moe_route(cfg: ModelConfig, p, ht):
+    """The router, shared by both MoE paths: float32 softmax over the
+    experts, top-k, the gates renormalised over the k.  ``ht``'s leading
+    axes are arbitrary.  Returns ``(probs [..., E], gate_vals [..., K],
+    onehot [..., K, E])``, all float32."""
+    E, K = cfg.n_experts, cfg.top_k
+    logits = ht.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    onehot = F.one_hot(gate_idx, E).float()
+    return probs, gate_vals, onehot
+
+
+def _moe_expert_weights(p, cdt):
+    """The expert weights ``we_i [E, d, 2f]``, ``we_o [E, f, d]`` in
+    ``cdt``: float8 ones (``train.step._fp8_expert_params``) dequantized
+    by their per-channel scales."""
+    we_i, we_o = p["we_i"], p["we_o"]
+    if "we_i_scale" in p:
+        we_i = we_i.to(cdt) * p["we_i_scale"].to(cdt)
+    if "we_o_scale" in p:
+        we_o = we_o.to(cdt) * p["we_o_scale"].to(cdt)
+    return we_i, we_o
+
+
+def _moe_aux_loss(cfg: ModelConfig, probs, onehot):
+    """Switch-style load-balance loss over every token and choice."""
+    E = cfg.n_experts
+    me = probs.reshape(-1, E).mean(dim=0)
+    ce = onehot.reshape(-1, E).mean(dim=0)
+    return E * torch.sum(me * ce)
+
+
+def moe_block(cfg: ModelConfig, p, x):
+    """Token-choice top-k routing with a capacity per group of
+    ``moe_group_size`` tokens (the GShard einsum dispatch the reference
+    trains with): a token's k-th choice is dropped when its expert's queue
+    in the group is full, the queue order being the cumulative count over
+    the flattened (token, choice) axis.  Returns ``(out, aux)``."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    cdt = x.dtype
+    h = rms_norm(x, p["ln2"], cfg.rms_eps)
+    T = B * S
+    g = min(cfg.moe_group_size, T)
+    n = T // g
+    ht = h.reshape(n, g, d)
+    C = max(1, int(g * K / E * cfg.capacity_factor))
+
+    probs, gate_vals, onehot = _moe_route(cfg, p, ht)        # [n, g, K, E]
+    pos = torch.cumsum(onehot.reshape(n, g * K, E), dim=1)
+    pos = pos.reshape(n, g, K, E) * onehot - 1.0
+    slot = (pos * onehot).sum(-1)                            # [n, g, K]
+    keep = (slot >= 0) & (slot < C)
+    slot = torch.clamp(slot, 0, C - 1).long()
+    slot_oh = F.one_hot(slot, C).float() * keep[..., None]
+    disp = torch.einsum("ngke,ngkc->ngec", onehot, slot_oh).to(cdt)
+    xe = torch.einsum("ngd,ngec->necd", ht, disp)
+    we_i, we_o = _moe_expert_weights(p, cdt)
+    he = torch.einsum("necd,edf->necf", xe, we_i)
+    gate, up = torch.chunk(he, 2, dim=-1)
+    he = F.silu(gate.float()).to(cdt) * up
+    ye = torch.einsum("necf,efd->necd", he, we_o)
+    comb = torch.einsum("ngke,ngkc,ngk->ngec", onehot, slot_oh,
+                        gate_vals).to(cdt)
+    yt = torch.einsum("necd,ngec->ngd", ye, comb)
+    out = yt.reshape(B, S, d).to(x.dtype)
+    if cfg.n_shared_experts > 0:
+        out = out + glu_ffn(h, p["ws_i"], p["ws_o"], "swiglu")
+    return out, _moe_aux_loss(cfg, probs, onehot)
+
+
+def _dropless_experts(ht, we_i, we_o, weight):
+    """Every token ``ht [T, d]`` through every expert (``we_i [E, d, 2f]``,
+    ``we_o [E, f, d]``, SwiGLU), combined with ``weight [T, E]``: three
+    batched products over the experts, each intermediate freed as soon as
+    the next exists (at deepseek-moe-16b's prefill of 4,096 tokens the
+    first is ``[64, 4096, 2816]``, 1.48 GB in bf16)."""
+    E, T, d = we_i.shape[0], ht.shape[0], ht.shape[1]
+    he = torch.bmm(ht.expand(E, T, d), we_i)                 # [E, T, 2f]
+    gate, up = torch.chunk(he, 2, dim=-1)
+    act = F.silu(gate.float()).to(ht.dtype)
+    del he, gate
+    act = act * up
+    del up
+    ye = torch.bmm(act, we_o)                                # [E, T, d]
+    del act
+    return torch.bmm(weight[:, None, :], ye.transpose(0, 1))[:, 0]
+
+
+def moe_block_dropless(cfg: ModelConfig, p, x):
+    """Per-token dropless top-k routing, the evaluation and serving path:
+    every token reaches its k experts whatever other tokens share its
+    batch, so cached decode matches the teacher-forced forward.  As in
+    the reference it computes all E experts for every token and combines
+    them with the routing weights (zero for the experts not chosen); the
+    products are batched over the experts, ``[E, T, ...]``.  Returns
+    ``(out, aux)``."""
+    B, S, d = x.shape
+    cdt = x.dtype
+    h = rms_norm(x, p["ln2"], cfg.rms_eps)
+    ht = h.reshape(B * S, d)
+
+    probs, gate_vals, onehot = _moe_route(cfg, p, ht)        # [T, K, E]
+    weight = (onehot * gate_vals[..., None]).sum(1)          # [T, E]
+
+    we_i, we_o = _moe_expert_weights(p, cdt)
+    yt = _dropless_experts(ht, we_i, we_o, weight.to(cdt))
+    out = yt.reshape(B, S, d).to(x.dtype)
+    if cfg.n_shared_experts > 0:
+        out = out + glu_ffn(h, p["ws_i"], p["ws_o"], "swiglu")
+    return out, _moe_aux_loss(cfg, probs, onehot)
 
 
 def _causal_conv(x, w, state=None):

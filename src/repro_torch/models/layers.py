@@ -10,6 +10,8 @@ attention, and exists for the parity checks.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -152,12 +154,28 @@ def glu_ffn(x, wi, wo, act: str):
     return (g * up) @ wo
 
 
+#: a stacked leaf with more elements than this (8 GiB as float32) is drawn
+#: one layer slice at a time into a tensor of its own type: llava-next-34b's
+#: FFN ``wi`` would be a 70 GB float32 draw.  No leaf of the dense, ssm or
+#: hybrid configs is that large, so their draws are whole leaves.
+SLICE_DRAW_NUMEL = 1 << 31
+
+
 def init_dense(gen: torch.Generator, shape, dtype, scale=None):
     """Normal weights scaled by ``fan_in ** -0.5`` (or ``scale``), drawn
-    from ``gen`` on its device."""
+    in float32 from ``gen`` on its device and cast to ``dtype``."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     if scale is None:
         scale = fan_in ** -0.5
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * scale).to(dtype)
+
+    def draw(sh):
+        w = torch.randn(sh, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (w * scale).to(dtype)
+
+    if len(shape) < 3 or math.prod(shape) <= SLICE_DRAW_NUMEL:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out

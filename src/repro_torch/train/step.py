@@ -4,9 +4,11 @@
 Features, as in the reference: sequence-chunked cross entropy, microbatch
 gradient accumulation (a Python loop over ``grad_accum`` microbatches for
 the reference's ``scan``, float32 sums divided at the end), optional
-bf16 / int8 gradient compression between accumulation steps, MoE
-aux-loss folding and fp8 expert weights (both nothing for the ported
-families, which have no experts).
+bf16 / int8 gradient compression between accumulation steps, the MoE
+load-balance loss folded in with ``aux_loss_weight``, and fp8 expert
+weights.  A vlm batch carries ``patch_embeds`` and an encdec batch
+``encoder_feats``; the vlm labels are padded over the patch positions,
+which carry no next-token loss.
 
 Gradients come from ``torch.autograd.grad`` over detached views of the
 parameter leaves, so the caller's tensors are never mutated, and each is
@@ -75,10 +77,19 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig,
     def loss_fn(params, batch):
         if tcfg.fp8_expert_gather:
             params = _fp8_expert_params(params)
+        kw = {k: batch[k] for k in ("patch_embeds", "encoder_feats")
+              if k in batch}
         hidden, aux = forward(cfg, params, batch["tokens"],
                               return_hidden=True, train=True,
-                              use_kernel=use_kernel)
-        loss = chunked_xent(cfg, params, hidden, batch["labels"])
+                              use_kernel=use_kernel, **kw)
+        labels = batch["labels"]
+        if cfg.family == "vlm":
+            # patch positions carry no next-token loss (PAD labels)
+            pad = torch.zeros((labels.shape[0],
+                               batch["patch_embeds"].shape[1]),
+                              dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        loss = chunked_xent(cfg, params, hidden, labels)
         return loss + tcfg.aux_loss_weight * aux, (loss, aux)
 
     return loss_fn

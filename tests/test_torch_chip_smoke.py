@@ -45,7 +45,11 @@ def test_phase_functions_importable():
                  "flash_backward_bound_ms", "train_model_flops",
                  "train_gate", "train_timed", "train_resume",
                  "phase_train", "phase_profile_train", "train_shape_inputs",
-                 "train_forward_parity"):
+                 "train_forward_parity", "route_recorder",
+                 "routing_agreement", "params_bytes", "cut_depth",
+                 "check_timed_variants", "phase_serve_moe", "int8_gate",
+                 "phase_serve_moe_int8", "phase_serve_vlm",
+                 "forward_gate_inputs_bf16", "phase_serve_encdec"):
         assert callable(getattr(cs, name)), name
 
 
@@ -562,3 +566,238 @@ def test_train_gate_rejects_a_wrong_backward(monkeypatch):
     monkeypatch.setattr(ops.FlashAttentionFn, "backward", staticmethod(off))
     with pytest.raises(cs.SmokeFailure, match="train gate"):
         cs.train_gate(get_config("tinyllama-1.1b").smoke(), CPU, 1, 2, 64)
+
+
+# ---------------------------------------------------------------------------
+# the MoE, vlm and encdec families and the int8 cache
+# ---------------------------------------------------------------------------
+
+MOE_GATE, SMALL_TIMED = (2, 12, 4), (2, 10, 3)
+
+
+def _bf16(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+
+
+def test_moe_phases_rehearsed_on_cpu():
+    """serve_moe (the gates over the cut depth, routing recorded; the
+    timed run at full depth), its profile with the dropless products as a
+    range, and serve_moe_int8 on the same weights, at smoke width."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import blocks
+
+    cfg = _bf16(get_config("deepseek-moe-16b").smoke())
+    rec, state = cs.phase_serve_moe(cfg, CPU, gate=MOE_GATE,
+                                    timed=SMALL_TIMED)
+    assert rec["gate_layers"] == min(cs.MOE_GATE_LAYERS, cfg.n_layers)
+    assert rec["gate"]["tokens_identical"]
+    for gate in (rec["gate"], rec["gate_bf16"]):
+        routing = gate["routing"]
+        assert routing["agree_share"] == 1.0 and routing["choices"] > 0
+        assert 0 < routing["min_topk_margin"] < 1
+    assert rec["timed"]["tok_per_s"] > 0
+    assert rec["flash_launches_expected"] == cfg.n_layers * SMALL_TIMED[2]
+    assert state["params"]["blocks"]["we_i"].dtype == torch.bfloat16
+    prof = cs.phase_profile_serve(cfg, state["params"], 2, 10, CPU, ranges={
+        "experts": (blocks, "_dropless_experts")})
+    assert prof["prefill"]["ranges"]["experts"]["calls"] == \
+        cfg.n_layers - cfg.n_dense_layers
+    assert blocks._dropless_experts.__name__ == "_dropless_experts"
+    i8 = cs.phase_serve_moe_int8(cfg, state, CPU, gate=MOE_GATE,
+                                 timed=SMALL_TIMED)
+    assert i8["gate"]["max_abs_logit_diff_vs_plain"] <= cs.SERVE_TOL
+    assert i8["gate"]["prefill_codes_max_abs_move"] <= 1
+    # 1 byte a code and 4 a (token, head) scale against 2 bytes a value
+    assert i8["vs_bf16_cache"]["cache_bytes_ratio"] == \
+        (cfg.hd + 4) / (2 * cfg.hd)
+    assert 0 <= i8["vs_bf16_cache"]["greedy_agreement"] <= 1
+    assert i8["timed"]["tok_per_s"] > 0
+
+
+def test_vlm_and_encdec_phases_rehearsed_on_cpu():
+    from repro_torch.configs.base import get_config
+
+    vlm = _bf16(get_config("llava-next-34b").smoke())
+    rec = cs.phase_serve_vlm(vlm, CPU, gate=(1, 6, 3), timed=(1, 6, 3))
+    assert rec["layers"] == vlm.n_layers and not rec["depth_cut"]
+    assert rec["gate"]["patch_embeds"] == [1, vlm.n_patches, vlm.d_model]
+    assert rec["gate"]["tokens_identical"]
+    assert rec["timed"]["patch_embeds"] == [1, vlm.n_patches, vlm.d_model]
+    enc = _bf16(get_config("whisper-small").smoke())
+    rec = cs.phase_serve_encdec(enc, CPU, gate=(2, 8, 4), forward=(2, 24),
+                                timed=(2, 8, 4))
+    assert rec["gate"]["encoder_feats"] == [2, enc.encoder_seq, enc.d_model]
+    assert rec["gate"]["max_abs_logit_diff_vs_forward"] <= cs.SERVE_TOL
+    fwd = rec["forward_bf16"]
+    assert fwd["max_abs_logit_diff_vs_plain_bf16"] <= fwd["tol"]
+    assert rec["flash_launches_expected"] == enc.n_encoder_layers + \
+        enc.n_layers * 4
+
+
+def test_check_timed_variants():
+    run = {"variants": {"flash_attention": {"mma": 0, "split": 5,
+                                            "ffma": 2}},
+           "launches": {"flash_attention": 7}}
+    cs.check_timed_variants("x", run, {"split": 5, "ffma": 2})
+    for want in ({"split": 7}, {"split": 5, "ffma": 2, "mma": 1}):
+        with pytest.raises(cs.SmokeFailure):
+            cs.check_timed_variants("x", run, want)
+
+
+def test_routing_agreement_counts_choices():
+    a = [(torch.tensor([[0, 1], [2, 3]]), torch.tensor([0.2, 0.05]), None)]
+    b = [(torch.tensor([[0, 1], [2, 4]]), torch.tensor([0.1, 0.3]), None)]
+    r = cs.routing_agreement(a, b)
+    assert r == {"routing_calls": 1, "choices": 4, "agree_share": 0.75,
+                 "min_topk_margin": pytest.approx(0.05)}
+    assert cs.routing_agreement([], []) is None
+    with pytest.raises(cs.SmokeFailure):
+        cs.routing_agreement(a, [])
+
+
+def test_route_replay_forces_another_runs_choices():
+    """Replaying a run's routing gives its choices (and the gates at
+    them) to a run whose router would choose otherwise."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import blocks, lm
+
+    cfg = get_config("deepseek-moe-16b").smoke()
+    params = serve.make_params(cfg, CPU, seed=0)
+    toks = serve.make_prompts(cfg, 2, 8, CPU, seed=0)
+    with cs.route_recorder() as first:
+        want = lm.forward(cfg, params, toks)[0]
+    other = {**params, "blocks": {**params["blocks"],
+                                  "router": -params["blocks"]["router"]}}
+    with cs.route_recorder() as free:
+        own = lm.forward(cfg, other, toks)[0]
+    assert cs.routing_agreement(free, first)["agree_share"] < 0.9
+    with cs.route_recorder(first) as forced:
+        got = lm.forward(cfg, other, toks)[0]
+    # the records keep the choices the run would have made
+    assert cs.routing_agreement(forced, free)["agree_share"] == 1.0
+    assert not torch.equal(got, own)
+    with cs.route_recorder(first):
+        same = lm.forward(cfg, params, toks)[0]
+    assert torch.equal(same, want)
+    assert blocks._moe_route.__name__ == "_moe_route"
+
+
+def _kernel_route_flag(monkeypatch):
+    """Track which route the last self-attention took (the kernel route's
+    faults below act only on it, as a kernel's would)."""
+    from repro_torch.models import blocks
+
+    state = {"kernel": False}
+    attention = blocks.attention
+
+    def tracked(cfg, q, k, v, **kw):
+        state["kernel"] = kw.get("use_kernel", True)
+        return attention(cfg, q, k, v, **kw)
+
+    monkeypatch.setattr(blocks, "attention", tracked)
+    return state
+
+
+def _plant(monkeypatch, fault: str):
+    """A fault on the kernel route only:
+
+    - ``renorm``: the MoE gates not renormalised over the top k;
+    - ``int8_scale``: the int8 cache dequantized with scales one code off
+      (max / 126 for max / 127);
+    - ``softmax_scale``: the flash call's softmax scale 1.25 x too large;
+    - ``encoder_causal``: the non-causal (encoder) flash calls causal."""
+    import torch as th
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+
+    if fault == "renorm":
+        state = _kernel_route_flag(monkeypatch)
+        route = blocks._moe_route
+
+        def unnormalised(cfg, p, ht):
+            probs, gates, onehot = route(cfg, p, ht)
+            if state["kernel"]:
+                gates = th.topk(probs, cfg.top_k, dim=-1).values
+            return probs, gates, onehot
+
+        monkeypatch.setattr(blocks, "_moe_route", unnormalised)
+    elif fault == "int8_scale":
+        cached = blocks._cached_kv
+
+        def off(cache, end, dtype):
+            if end is None or "k_scale" not in cache:
+                return cached(cache, end, dtype)
+            bumped = {**cache, "k_scale": cache["k_scale"] * (127 / 126),
+                      "v_scale": cache["v_scale"] * (127 / 126)}
+            return cached(bumped, end, dtype)
+
+        monkeypatch.setattr(blocks, "_cached_kv", off)
+    else:
+        flash = ops.flash_attention
+
+        def faulty(q, k, v, causal=True, window=None, softcap=None,
+                   scale=None, use_kernel=True):
+            if fault == "softmax_scale":
+                scale = 1.25 * q.shape[-1] ** -0.5
+            elif not causal:
+                causal = True
+            return flash(q, k, v, causal=causal, window=window,
+                         softcap=softcap, scale=scale, use_kernel=use_kernel)
+
+        monkeypatch.setattr(ops, "flash_attention", faulty)
+
+
+def _gate_case(gate: str):
+    """(run the gate, the fault it must reject) at smoke width."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+
+    arch = {"moe": "deepseek-moe-16b", "moe_bf16": "deepseek-moe-16b",
+            "int8": "deepseek-moe-16b", "vlm": "llava-next-34b",
+            "vlm_bf16": "llava-next-34b", "encdec": "whisper-small",
+            "encdec_bf16": "whisper-small",
+            "encdec_forward": "whisper-small"}[gate]
+    cfg = _bf16(get_config(arch).smoke())
+    if gate == "int8":
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    cfg32 = cs.as_float32(cfg)
+    params32 = serve.make_params(cfg32, CPU, seed=0)
+    params = cs.cast_params(params32, torch.bfloat16)
+    args = (1, 12, 4) if gate.startswith("vlm") else (2, 12, 4)
+    run = {"moe": lambda: cs.serve_gate(cfg32, params32, *args, CPU),
+           "vlm": lambda: cs.serve_gate(cfg32, params32, *args, CPU),
+           "encdec": lambda: cs.serve_gate(cfg32, params32, *args, CPU),
+           "int8": lambda: cs.int8_gate(cfg32, params32, *args, CPU),
+           "encdec_forward": lambda: cs.forward_gate_inputs_bf16(
+               cfg, params, 2, 24, CPU)}.get(
+        gate, lambda: cs.serve_gate_bf16(cfg, cfg32, params32, params,
+                                         *args, CPU))
+    # the bf16 gate replays the float32 run's routing, gates included, so
+    # its fault is the kernel's
+    fault = {"moe": "renorm", "moe_bf16": "softmax_scale",
+             "int8": "int8_scale",
+             "vlm": "softmax_scale", "vlm_bf16": "softmax_scale"}.get(
+        gate, "encoder_causal")
+    return run, fault
+
+
+GATES = ["moe", "moe_bf16", "int8", "vlm", "vlm_bf16", "encdec",
+         "encdec_bf16", "encdec_forward"]
+
+
+@pytest.mark.parametrize("gate", GATES)
+def test_new_gate_rejects_a_planted_fault(monkeypatch, gate):
+    """Each gate of the new phases passes on the sound path and fails
+    with a fault planted on the kernel route alone."""
+    run, fault = _gate_case(gate)
+    run()
+    _plant(monkeypatch, fault)
+    with pytest.raises(cs.SmokeFailure):
+        run()

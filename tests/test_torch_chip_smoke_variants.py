@@ -152,8 +152,8 @@ def test_bf16_gate_rejects_a_kernel_path_off_the_plain_bf16_path(
     rec = cs.serve_gate_bf16(cfg, cfg32, params32, params, 1, 12, 3, CPU)
     forced = cs.forced_logits
 
-    def off(cfg, params, prompts, tokens, use_kernel):
-        out = forced(cfg, params, prompts, tokens, use_kernel)
+    def off(cfg, params, prompts, tokens, use_kernel, extra=None):
+        out = forced(cfg, params, prompts, tokens, use_kernel, extra)
         if not use_kernel:
             return out
         out = out.clone()
@@ -201,3 +201,40 @@ def test_check_flash_variants():
                            {"mma": 2, "split": 0, "ffma": 0})):
         with pytest.raises(cs.SmokeFailure):
             cs.check_flash_variants(bad)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_bf16_gate_takes_a_token_tied_in_the_plain_path(monkeypatch, tied):
+    """Where the plain path's two top logits tie exactly, the kernel path
+    may pick either; a kernel token that is not one of the plain path's
+    greedy tokens still fails the gate."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config("kratos-dd").smoke(),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    cfg32 = cs.as_float32(cfg)
+    params32 = serve.make_params(cfg32, CPU, seed=0)
+    params = cs.cast_params(params32, torch.bfloat16)
+    forced = cs.forced_logits
+
+    def tie(cfg, params, prompts, tokens, use_kernel, extra=None):
+        out = forced(cfg, params, prompts, tokens, use_kernel, extra).clone()
+        top2 = out[0, 1].topk(2)
+        i, j = top2.indices.tolist()
+        if tied or use_kernel:   # the plain path's top two tie
+            out[0, 1, j] = out[0, 1, i]
+        if use_kernel:           # the kernel path picks the other one
+            out[0, 1, j] += 1e-3
+        return out
+
+    monkeypatch.setattr(cs, "forced_logits", tie)
+    monkeypatch.setattr(cs, "NOISE_MARGIN", 1e6)  # the logit bounds open
+    if tied:
+        rec = cs.serve_gate_bf16(cfg, cfg32, params32, params, 1, 12, 3, CPU)
+        assert rec["greedy_agreement_vs_plain_bf16"] == 1.0
+        assert rec["plain_top2_ties"] == 1
+    else:
+        with pytest.raises(cs.SmokeFailure, match="agree"):
+            cs.serve_gate_bf16(cfg, cfg32, params32, params, 1, 12, 3, CPU)

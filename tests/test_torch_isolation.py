@@ -55,6 +55,22 @@ def test_port_runs_with_jax_and_reference_blocked():
                               "2", "--seq-len", "16", "--batch", "2",
                               "--ckpt-dir", d, "--device", "cpu"])
         assert res["final_step"] == 2
+        from repro_torch.launch import serve
+        for arch in ("deepseek-moe-16b", "whisper-small", "llava-next-34b"):
+            toks = serve.main(["--arch", arch, "--smoke", "--batch", "2",
+                               "--prompt-len", "6", "--max-new", "3",
+                               "--device", "cpu"])
+            assert toks.shape == (2, 3)
+        import dataclasses
+        from repro_torch.configs.base import get_config
+        from repro_torch.serve import decode
+        import torch
+        cfg = dataclasses.replace(get_config("deepseek-moe-16b").smoke(),
+                                  kv_cache_dtype="int8")
+        params = serve.make_params(cfg, "cpu")
+        out = decode.greedy_generate(cfg, params, serve.make_prompts(
+            cfg, 1, 5, "cpu"), 3)
+        assert out.shape == (1, 3)
         assert not any(k == "jax" or k.startswith("jax.")
                        or k == "repro" or k.startswith("repro.")
                        for k, v in sys.modules.items() if v is not None)
@@ -165,6 +181,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
         quantized_serve.main(["--smoke"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_cache(get_config("kratos-dd").smoke(), 1, 4)
+    for arch in ("deepseek-moe-16b", "whisper-small", "llava-next-34b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, "--smoke", "--max-new", "2"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_cache(get_config(arch).smoke(), 1, 4)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", arch, "--smoke", "--steps", "1"])
+    import dataclasses
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(dataclasses.replace(get_config("kratos-dd").smoke(),
+                                       kv_cache_dtype="int8"), 1, 4)
     assert serve.main(argv + ["--device", "cpu"]).shape == (4, 2)
     assert flow.evaluate_netlist(net, lanes, 1, device="cpu").shape == \
         (net.n_signals, 1)
