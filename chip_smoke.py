@@ -153,8 +153,8 @@ exits non-zero:
     (logit distance, token agreement, the caches' bytes) and a timed run;
 23. serve_vlm: ``llava-next-34b`` at full width, 576 patch embeddings
     before a 64-token prompt — the gates over its first 2 layers, then a
-    timed bfloat16 run at the depth the card's free memory holds (all
-    60 layers, 68.9 GB, on an 80 GB card);
+    timed bfloat16 run at full depth (all 60 layers, 68.9 GB of weights;
+    a run that does not fit on the card fails);
 24. serve_encdec: ``whisper-small`` at full size with 1,500 frames —
     the float32 and bfloat16 gates, a teacher-forced bfloat16 forward
     gate (kernel vs plain, the encoder on ``mma``), and a timed run (8 x
@@ -930,12 +930,10 @@ def quantized_planes(gen, K: int, N: int, bits: int, device):
     return quantize_bitplanes(w, bits)
 
 
-def sdpa_backend(q, k, v, is_causal: bool) -> list[str]:
-    """Names of the device kernels one SDPA call ran (which backend)."""
-    import torch.nn.functional as F
-
-    _, by_name = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=is_causal), calls=1)
+def sdpa_backend(sdpa) -> list[str]:
+    """Names of the device kernels one SDPA call ``sdpa()`` ran (which
+    backend)."""
+    _, by_name = device_ms(sdpa, calls=1)
     return sorted(k["name"] for k in by_name)
 
 
@@ -979,21 +977,22 @@ def lm_kernel_parity(device) -> dict:
                **flash_bound_ms(B, Hq, Hkv, S, T, D, q.element_size(),
                                 causal, window)}
         # SDPA computes the same function only without softcap and with
-        # the window wider than the keys; its is_causal aligns the mask
-        # top-left, which is the tail alignment only when S == T (and a
-        # single tail query sees every key)
+        # the window wider than the keys (grouped heads through its
+        # enable_gqa); its is_causal aligns the mask top-left, which is the
+        # tail alignment only when S == T (and a single tail query sees
+        # every key)
         rec["device_ms"], rec["kernels"] = device_ms(
             lambda: ops.flash_attention(q, k, v, **kw))
-        if softcap is None and Hq == Hkv and (window is None or window >= T):
+        if softcap is None and (window is None or window >= T):
             is_causal = causal and S == T
 
             def sdpa():
-                return F.scaled_dot_product_attention(q, k, v,
-                                                      is_causal=is_causal)
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=is_causal, enable_gqa=Hq != Hkv)
 
             rec["library_ms"] = time_ms(sdpa)
             rec["library_device_ms"] = device_ms(sdpa)[0]
-            rec["library_kernels"] = sdpa_backend(q, k, v, is_causal)
+            rec["library_kernels"] = sdpa_backend(sdpa)
         else:
             rec["library_ms"] = rec["library_device_ms"] = None
         flash_main.append(rec)
@@ -1635,40 +1634,25 @@ def phase_profile(nets: list, lanes: list, n_lane_words: int,
 
 
 def profile_summary(run, device, top: int = 10,
-                    ranges: dict | None = None) -> dict:
+                    ranges: tuple = ()) -> dict:
     """One call of ``run()`` (which ends in a device synchronisation)
     under ``torch.profiler``: its wall, device busy time and idle share,
     device time by kernel and copy (the copies and memsets also on their
     own, by name), the number of kernels launched, and the host operations
-    that take the most time.  ``ranges`` maps a label to ``(module,
-    function name)``: during the run that function is wrapped in a
-    ``record_function`` range of that label, and the device time of the
-    kernels it launched is reported with its share of the busy time."""
+    that take the most time.  ``ranges`` names ``record_function`` ranges
+    of the program (such as ``blocks.EXPERTS_RANGE``): the device time of
+    the kernels each launched is reported with its share of the busy
+    time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    ranges = ranges or {}
-    patched = []
-    for label, (mod, attr) in ranges.items():
-        fn = getattr(mod, attr)
-
-        def wrapped(*a, _fn=fn, _label=label, **kw):
-            with record_function(_label):
-                return _fn(*a, **kw)
-
-        setattr(mod, attr, wrapped)
-        patched.append((mod, attr, fn))
-    try:
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            run()
-            wall = time.perf_counter() - t0
-    finally:
-        for mod, attr, fn in patched:
-            setattr(mod, attr, fn)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
     events = prof.key_averages()
     # device-side records only (kernels and copies; CPU ops also carry
     # their children's device time); CUPTI's own buffer requests are the
@@ -2638,6 +2622,7 @@ def serve_gate_bf16(cfg, cfg32, params32, params, batch: int,
             "argmax_flips_plain_vs_float32_activations": flips_act,
             "min_plain_top2_gap": float(gap2.min()),
             "plain_top2_ties": int((gap2 == 0).sum()),
+            "greedy_accepted_by_tie": int((hits & (top != top_plain)).sum()),
             "greedy_agreement_vs_float32": float(
                 (top == ref32["logits"].argmax(-1)).float().mean()),
             "launches": counts, "variants": variants,
@@ -2737,7 +2722,7 @@ def forward_gate(cfg32, params32, batch: int, seq_len: int, device) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    toks = serve.make_prompts(cfg32, batch, seq_len, device, seed=3)
+    toks = serve.make_inputs(cfg32, batch, seq_len, device, seed=3)[0]
     kern, counts = _counted(lambda: lm.forward(cfg32, params32, toks)[0])
     variants = _variants()
     kern = kern.float()
@@ -2800,7 +2785,7 @@ def forward_gate_bf16(cfg, params, batch: int, seq_len: int,
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    toks = serve.make_prompts(cfg, batch, seq_len, device, seed=3)
+    toks = serve.make_inputs(cfg, batch, seq_len, device, seed=3)[0]
     kern, counts = _counted(lambda: lm.forward(cfg, params, toks)[0])
     variants = _variants()
     plain = lm.forward(cfg, params, toks, use_kernel=False)[0].float()
@@ -2908,7 +2893,7 @@ def forward_timed(cfg, params, batch: int, seq_len: int, device) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    toks = serve.make_prompts(cfg, batch, seq_len, device, seed=4)
+    toks = serve.make_inputs(cfg, batch, seq_len, device, seed=4)[0]
 
     def run():
         _sync(device)
@@ -3007,7 +2992,7 @@ def phase_profile_ssm(cfg, params, batch: int, seq_len: int, device,
     from repro_torch.serve.decode import decode_step
     from repro_torch.serve.kvcache import init_cache
 
-    toks = serve.make_prompts(cfg, batch, seq_len, device, seed=2)
+    toks = serve.make_inputs(cfg, batch, seq_len, device, seed=2)[0]
     cache = init_cache(cfg, batch, seq_len + 1, device=device)
 
     def run_forward():
@@ -3043,9 +3028,9 @@ def phase_quantized(cfg32, device, rows=(8, 4096), bits: int = 6) -> dict:
 
 
 def phase_profile_serve(cfg, params, batch: int, prompt_len: int, device,
-                        top: int = 10, ranges: dict | None = None) -> dict:
+                        top: int = 10, ranges: tuple = ()) -> dict:
     """A warm prefill and a warm decode step under ``torch.profiler``
-    (``ranges``: functions to time as named ranges, see
+    (``ranges``: the program's named ranges to report, see
     :func:`profile_summary`)."""
     from repro_torch.launch import serve
     from repro_torch.serve.decode import decode_step, prefill
@@ -3091,9 +3076,6 @@ ENCDEC_GATE, ENCDEC_FORWARD, ENCDEC_TIMED = (2, 8, 16), (2, 24), (8, 8, 128)
 #: layers (137.6 GB)
 MOE_GATE_LAYERS = 4
 VLM_GATE_LAYERS = 2
-#: device memory left free beside a full-depth run's bf16 weights (its
-#: cache, activations and the libraries' workspaces)
-DEPTH_RESERVE_BYTES = 4e9
 
 
 @contextlib.contextmanager
@@ -3103,11 +3085,10 @@ def route_recorder(replay: list | None = None):
     experts (sorted), the margin by which the k-th choice beat the next
     (a float difference below it can flip the choice) and the choices as
     made.  With ``replay`` (another run's records, call by call) the
-    choices are replaced by that run's, the gates being the probabilities
-    at them renormalised as ``_moe_route`` does; the records keep the
-    choices this run would have made.  Yields the list of records."""
+    choices are replaced by that run's, with the gates the router's own
+    ``blocks._moe_gates`` makes of them; the records keep the choices
+    this run would have made.  Yields the list of records."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.models import blocks
 
@@ -3124,10 +3105,8 @@ def route_recorder(replay: list | None = None):
                       idx[..., :K]))
         if replay is not None:
             forced = replay[len(calls) - 1][2]
-            gates = probs.gather(-1, forced)
-            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
-                                        min=1e-9)
-            onehot = F.one_hot(forced, cfg.n_experts).float()
+            gates, onehot = blocks._moe_gates(probs, forced,
+                                              cfg.n_experts)
         return probs, gates, onehot
 
     blocks._moe_route = recording
@@ -3348,10 +3327,9 @@ def phase_serve_vlm(cfg, device, gate: tuple, timed: tuple,
                     seed: int = 0) -> dict:
     """llava-next-34b at full width: the float32 and bfloat16 gates over
     its first ``VLM_GATE_LAYERS`` layers (576 patch embeddings before the
-    prompt), then a timed bfloat16 run on weights drawn in bfloat16 at
-    the largest depth the card's free memory holds beside
-    ``DEPTH_RESERVE_BYTES`` (full depth when it fits; the free memory and
-    the weights' bytes are reported either way)."""
+    prompt), then a timed bfloat16 run at full depth on weights drawn in
+    bfloat16 (the card's free memory before them and their bytes are
+    reported; a run that does not fit fails)."""
     import torch
 
     from repro_torch.launch import serve
@@ -3363,30 +3341,21 @@ def phase_serve_vlm(cfg, device, gate: tuple, timed: tuple,
     cut_bf16 = cast_params(params32, getattr(torch, cfg.param_dtype))
     bf16_rec = serve_gate_bf16(cut, cut32, params32, cut_bf16, *gate,
                                device)
-    layer_bytes = params_bytes(params32["blocks"]) // cut.n_layers
-    fixed_bytes = params_bytes(params32) - layer_bytes * cut.n_layers
     del params32, cut_bf16
     free = None
-    depth = cfg.n_layers
     if device.type == "cuda":
         torch.cuda.empty_cache()
         free = torch.cuda.mem_get_info(device)[0]
-        depth = min(cfg.n_layers, int((free - fixed_bytes
-                                       - DEPTH_RESERVE_BYTES)
-                                      // layer_bytes))
-    check(depth >= 1, f"{cfg.name}: no layer fits in {free} free bytes")
-    run_cfg = cut_depth(cfg, depth)
-    params = serve.make_params(run_cfg, device, seed=seed)
-    timed_rec = serve_timed(run_cfg, params, *timed, device)
-    rec = {"phase": "serve_vlm", "arch": cfg.name, "layers": depth,
-           "full_depth": cfg.n_layers, "depth_cut": depth < cfg.n_layers,
+    params = serve.make_params(cfg, device, seed=seed)
+    timed_rec = serve_timed(cfg, params, *timed, device)
+    rec = {"phase": "serve_vlm", "arch": cfg.name, "layers": cfg.n_layers,
            "free_gb_before_weights": None if free is None else free / 1e9,
            "weights_gb": params_bytes(params) / 1e9,
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
            "head_dim": cfg.hd, "patches": cfg.n_patches, "vocab": cfg.vocab,
            "gate_layers": cut.n_layers, "gate": gate_rec,
            "gate_bf16": bf16_rec, "timed": timed_rec,
-           "flash_launches_expected": depth * timed[2]}
+           "flash_launches_expected": cfg.n_layers * timed[2]}
     del params
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -4203,7 +4172,7 @@ def main() -> int:
     emit(moerec)
     emit({**phase_profile_serve(
         ds, moe_state["params"], MOE_TIMED[0], MOE_TIMED[1], device,
-        ranges={"dropless expert products": (blocks, "_dropless_experts")}),
+        ranges=(blocks.EXPERTS_RANGE,)),
         "phase": "profile_moe"})
     i8rec = phase_serve_moe_int8(ds, moe_state, device, gate=MOE_GATE,
                                  timed=MOE_TIMED)

@@ -62,11 +62,6 @@ def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, device,
     return torch.from_numpy(toks).to(device), extra
 
 
-def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, device,
-                 seed: int = 0) -> torch.Tensor:
-    return make_inputs(cfg, batch, prompt_len, device, seed)[0]
-
-
 def generate(cfg: ModelConfig, params, prompts, max_new: int, *,
              encoder_feats=None, patch_embeds=None, use_kernel: bool = True,
              keep_logits: bool = False) -> dict:

@@ -14,12 +14,15 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
 from .layers import attention, glu_ffn, rms_norm, rope
 
 HUGE_WINDOW = 1 << 30
+#: the profiler range the dropless expert products run in
+EXPERTS_RANGE = "moe dropless experts"
 
 
 def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
@@ -122,14 +125,20 @@ def _moe_route(cfg: ModelConfig, p, ht):
     experts, top-k, the gates renormalised over the k.  ``ht``'s leading
     axes are arbitrary.  Returns ``(probs [..., E], gate_vals [..., K],
     onehot [..., K, E])``, all float32."""
-    E, K = cfg.n_experts, cfg.top_k
     logits = ht.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)
+    gate_idx = torch.topk(probs, cfg.top_k, dim=-1).indices
+    return (probs, *_moe_gates(probs, gate_idx, cfg.n_experts))
+
+
+def _moe_gates(probs, idx, E: int):
+    """The gates of the chosen experts ``idx [..., K]``: their
+    probabilities renormalised over the k, and the choices as one-hots
+    ``[..., K, E]``, both float32."""
+    gate_vals = probs.gather(-1, idx)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    onehot = F.one_hot(gate_idx, E).float()
-    return probs, gate_vals, onehot
+    return gate_vals, F.one_hot(idx, E).float()
 
 
 def _moe_expert_weights(p, cdt):
@@ -196,17 +205,19 @@ def _dropless_experts(ht, we_i, we_o, weight):
     ``we_o [E, f, d]``, SwiGLU), combined with ``weight [T, E]``: three
     batched products over the experts, each intermediate freed as soon as
     the next exists (at deepseek-moe-16b's prefill of 4,096 tokens the
-    first is ``[64, 4096, 2816]``, 1.48 GB in bf16)."""
+    first is ``[64, 4096, 2816]``, 1.48 GB in bf16).  The products run in
+    the profiler range ``EXPERTS_RANGE``."""
     E, T, d = we_i.shape[0], ht.shape[0], ht.shape[1]
-    he = torch.bmm(ht.expand(E, T, d), we_i)                 # [E, T, 2f]
-    gate, up = torch.chunk(he, 2, dim=-1)
-    act = F.silu(gate.float()).to(ht.dtype)
-    del he, gate
-    act = act * up
-    del up
-    ye = torch.bmm(act, we_o)                                # [E, T, d]
-    del act
-    return torch.bmm(weight[:, None, :], ye.transpose(0, 1))[:, 0]
+    with record_function(EXPERTS_RANGE):
+        he = torch.bmm(ht.expand(E, T, d), we_i)             # [E, T, 2f]
+        gate, up = torch.chunk(he, 2, dim=-1)
+        act = F.silu(gate.float()).to(ht.dtype)
+        del he, gate
+        act = act * up
+        del up
+        ye = torch.bmm(act, we_o)                            # [E, T, d]
+        del act
+        return torch.bmm(weight[:, None, :], ye.transpose(0, 1))[:, 0]
 
 
 def moe_block_dropless(cfg: ModelConfig, p, x):

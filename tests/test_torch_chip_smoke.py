@@ -446,7 +446,7 @@ def test_first_layers_cuts_depth(arch):
     for name, v in cut["blocks"].items():
         assert v.shape[0] == 1 and v.data_ptr() == \
             params["blocks"][name].data_ptr()
-    toks = serve.make_prompts(cut_cfg, 1, 8, CPU, seed=0)
+    toks = serve.make_inputs(cut_cfg, 1, 8, CPU, seed=0)[0]
     logits = lm.forward(cut_cfg, cut, toks, use_kernel=False)[0]
     assert logits.shape == (1, 8, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
@@ -601,11 +601,10 @@ def test_moe_phases_rehearsed_on_cpu():
     assert rec["timed"]["tok_per_s"] > 0
     assert rec["flash_launches_expected"] == cfg.n_layers * SMALL_TIMED[2]
     assert state["params"]["blocks"]["we_i"].dtype == torch.bfloat16
-    prof = cs.phase_profile_serve(cfg, state["params"], 2, 10, CPU, ranges={
-        "experts": (blocks, "_dropless_experts")})
-    assert prof["prefill"]["ranges"]["experts"]["calls"] == \
+    prof = cs.phase_profile_serve(cfg, state["params"], 2, 10, CPU,
+                                  ranges=(blocks.EXPERTS_RANGE,))
+    assert prof["prefill"]["ranges"][blocks.EXPERTS_RANGE]["calls"] == \
         cfg.n_layers - cfg.n_dense_layers
-    assert blocks._dropless_experts.__name__ == "_dropless_experts"
     i8 = cs.phase_serve_moe_int8(cfg, state, CPU, gate=MOE_GATE,
                                  timed=SMALL_TIMED)
     assert i8["gate"]["max_abs_logit_diff_vs_plain"] <= cs.SERVE_TOL
@@ -622,7 +621,8 @@ def test_vlm_and_encdec_phases_rehearsed_on_cpu():
 
     vlm = _bf16(get_config("llava-next-34b").smoke())
     rec = cs.phase_serve_vlm(vlm, CPU, gate=(1, 6, 3), timed=(1, 6, 3))
-    assert rec["layers"] == vlm.n_layers and not rec["depth_cut"]
+    assert rec["layers"] == vlm.n_layers
+    assert rec["flash_launches_expected"] == vlm.n_layers * 3
     assert rec["gate"]["patch_embeds"] == [1, vlm.n_patches, vlm.d_model]
     assert rec["gate"]["tokens_identical"]
     assert rec["timed"]["patch_embeds"] == [1, vlm.n_patches, vlm.d_model]
@@ -667,7 +667,7 @@ def test_route_replay_forces_another_runs_choices():
 
     cfg = get_config("deepseek-moe-16b").smoke()
     params = serve.make_params(cfg, CPU, seed=0)
-    toks = serve.make_prompts(cfg, 2, 8, CPU, seed=0)
+    toks = serve.make_inputs(cfg, 2, 8, CPU, seed=0)[0]
     with cs.route_recorder() as first:
         want = lm.forward(cfg, params, toks)[0]
     other = {**params, "blocks": {**params["blocks"],

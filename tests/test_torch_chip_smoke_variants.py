@@ -104,7 +104,7 @@ def test_forced_logits_follow_generate():
 
     cfg = cs.as_float32(get_config("kratos-dd").smoke())
     params = serve.make_params(cfg, CPU, seed=0)
-    prompts = serve.make_prompts(cfg, 2, 9, CPU, seed=0)
+    prompts = serve.make_inputs(cfg, 2, 9, CPU, seed=0)[0]
     res = serve.generate(cfg, params, prompts, 4, keep_logits=True)
     got = cs.forced_logits(cfg, params, prompts, res["tokens"], True)
     assert got.shape == res["logits"].shape
@@ -235,6 +235,7 @@ def test_bf16_gate_takes_a_token_tied_in_the_plain_path(monkeypatch, tied):
         rec = cs.serve_gate_bf16(cfg, cfg32, params32, params, 1, 12, 3, CPU)
         assert rec["greedy_agreement_vs_plain_bf16"] == 1.0
         assert rec["plain_top2_ties"] == 1
+        assert rec["greedy_accepted_by_tie"] == 1
     else:
         with pytest.raises(cs.SmokeFailure, match="agree"):
             cs.serve_gate_bf16(cfg, cfg32, params32, params, 1, 12, 3, CPU)

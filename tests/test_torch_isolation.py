@@ -68,8 +68,8 @@ def test_port_runs_with_jax_and_reference_blocked():
         cfg = dataclasses.replace(get_config("deepseek-moe-16b").smoke(),
                                   kv_cache_dtype="int8")
         params = serve.make_params(cfg, "cpu")
-        out = decode.greedy_generate(cfg, params, serve.make_prompts(
-            cfg, 1, 5, "cpu"), 3)
+        out = decode.greedy_generate(cfg, params, serve.make_inputs(
+            cfg, 1, 5, "cpu")[0], 3)
         assert out.shape == (1, 3)
         assert not any(k == "jax" or k.startswith("jax.")
                        or k == "repro" or k.startswith("repro.")

@@ -144,7 +144,7 @@ def test_greedy_tokens_match_reference(arch):
 
 def test_generate_keeps_logits_and_times():
     _, _, cfg, params = _weights("gemma2-2b", seed=5)
-    prompts = serve.make_prompts(cfg, 2, 19, CPU, seed=6)
+    prompts = serve.make_inputs(cfg, 2, 19, CPU, seed=6)[0]
     res = serve.generate(cfg, params, prompts, 5, keep_logits=True)
     assert res["tokens"].shape == (2, 5)
     assert res["logits"].shape == (2, 5, cfg.vocab)
