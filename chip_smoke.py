@@ -116,7 +116,12 @@ exits non-zero:
     under ``torch.profiler``;
 16. serve_gemma2: ``gemma2-2b`` at full width, the same gates with a
     prompt of 4608 tokens so that the local layers' window of 4096 bites,
-    a timed bfloat16 run, and its profile_decode;
+    a timed bfloat16 run, and its profile_decode; then serve_chunked:
+    ``gemma2-2b`` with ``chunked_local_attn`` at 1 x 8192 (two blocks of
+    the window), the float32 kernel route (flash with the window on the
+    13 local layers) against the plain route (``local_chunked_attention``
+    there) in the logits of the first, boundary and last positions within
+    5e-3, and a timed bfloat16 forward (26 ``mma`` flash calls);
 17. quantized: the quantized-serving flow on ``kratos-dd`` — every
     layer's FFN ``wi`` as 6 bit-planes through ``bitplane_matmul`` at 8
     rows (the small_m variant) and 4096 rows (tensor_core);
@@ -151,6 +156,8 @@ exits non-zero:
     (within 5e-3, identical tokens) and the bfloat16 gate over 4 layers;
     at full depth the bf16 cache's tokens forced through the int8 cache
     (logit distance, token agreement, the caches' bytes) and a timed run;
+    then moe_topk: tied router rows at deepseek's E 64, K 6 routed on the
+    card, every choice the lowest index among equal probabilities;
 23. serve_vlm: ``llava-next-34b`` at full width, 576 patch embeddings
     before a 64-token prompt — the gates over its first 2 layers, then a
     timed bfloat16 run at full depth (all 60 layers, 68.9 GB of weights;
@@ -188,7 +195,16 @@ exits non-zero:
     run's);
 27. profile_train: one warm bf16 train step under ``torch.profiler``
     (device busy and idle share, top kernels, the flash forwards' and the
-    recompute backward's shares) and one eager AdamW update alone;
+    recompute backward's shares) and one eager AdamW update alone; then
+    pipeline: ``tinyllama-1.1b`` at full width through
+    ``parallel.pipeline_apply``, 2 stages x 11 layers, 4 microbatches of
+    2 x 512 (88 ``mma`` flash calls), bit for bit equal to the stages
+    applied to each microbatch in turn, timed against the sequential
+    stack, and in float32 within 5e-3 (of the output's scale) of the
+    batched stack; then dryrun: the records of every (arch x shape) cell
+    with ``fits_one_card`` against the card's memory, and mamba2-2.7b's
+    long_500k cell run (one decode step at position 524,287 from a zeroed
+    cache), its peak memory beside the record's argument bytes;
 28. summary: the ``kernels`` line (all six kernels; for those with
     variants, each variant's calls on the main paths; ``lut_eval6``'s
     times and bound are its level variant's, the one the main paths
@@ -796,6 +812,13 @@ FLASH_MAIN = [
      None, None, "float32", None),
     ("whisper-small decode", 8, 12, 12, 1, 136, 64, True, HUGE_WINDOW, None,
      "bfloat16", 136),
+    # gemma2-2b's local layers under chunked_local_attn: two blocks of the
+    # window (serve_chunked)
+    ("gemma2-2b chunked local prefill", 1, 8, 4, 8192, 8192, 256, True,
+     4096, 50.0, "bfloat16", None),
+    # tinyllama-1.1b's pipeline stages: one microbatch of 2 x 512, G 8
+    ("tinyllama-1.1b pipeline stage", 2, 32, 4, 512, 512, 64, True, None,
+     None, "bfloat16", None),
 ]
 
 #: (M, K, N, B): ragged shapes with random {0, 1} planes; K is kept where
@@ -3088,8 +3111,6 @@ def route_recorder(replay: list | None = None):
     choices are replaced by that run's, with the gates the router's own
     ``blocks._moe_gates`` makes of them; the records keep the choices
     this run would have made.  Yields the list of records."""
-    import torch
-
     from repro_torch.models import blocks
 
     route = blocks._moe_route
@@ -3098,11 +3119,11 @@ def route_recorder(replay: list | None = None):
     def recording(cfg, p, ht):
         probs, gates, onehot = route(cfg, p, ht)
         K = cfg.top_k
-        vals, idx = torch.topk(probs, min(K + 1, cfg.n_experts), dim=-1)
+        vals = blocks.topk_lowest_index(probs, min(K + 1, cfg.n_experts))[0]
         margin = (vals[..., K - 1] - vals[..., K]) if K < cfg.n_experts \
             else None
-        calls.append((idx[..., :K].sort(-1).values.reshape(-1, K), margin,
-                      idx[..., :K]))
+        idx = onehot.argmax(-1)   # the router's own choices, in its order
+        calls.append((idx.sort(-1).values.reshape(-1, K), margin, idx))
         if replay is not None:
             forced = replay[len(calls) - 1][2]
             gates, onehot = blocks._moe_gates(probs, forced,
@@ -4028,6 +4049,424 @@ def phase_profile_train(cfg, state: dict, batch: int, seq: int, device,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# MoE routing ties, chunked local attention, the pipeline, the dry run
+# ---------------------------------------------------------------------------
+
+#: rows of tied router logits (deepseek-moe-16b's E 64, K 6) beside rows
+#: drawn from four levels, where ties fall everywhere
+TOPK_RANDOM_ROWS = 60
+
+
+def tied_router_rows(E: int) -> np.ndarray:
+    """Router logits ``[R, E]`` (E >= 64) with ties: across the k-th
+    place for k = 6 (four distinct leaders, then five equal values
+    scattered over the indices), inside the k (three equal leaders),
+    every expert equal, and ``TOPK_RANDOM_ROWS`` rows of values from four
+    levels."""
+    rng = np.random.default_rng(0)
+    boundary = np.zeros(E, np.float32)
+    boundary[[5, 17, 33, 2]] = [4.0, 3.5, 3.0, 2.5]
+    boundary[[60, 3, 40, 10, 20]] = 2.0
+    inside = np.zeros(E, np.float32)
+    inside[[50, 7, 30]] = 3.0
+    inside[[1, 9, 12]] = [2.0, 1.5, 1.0]
+    levels = rng.integers(0, 4, (TOPK_RANDOM_ROWS, E)).astype(np.float32)
+    return np.concatenate([boundary[None], inside[None],
+                           np.zeros((1, E), np.float32), levels * 0.5])
+
+
+def lowest_index_topk(probs: np.ndarray, K: int) -> np.ndarray:
+    """The k largest per row, the lowest index first among equal values
+    (``jax.lax.top_k``'s order), on the host."""
+    return np.argsort(-probs, axis=-1, kind="stable")[..., :K]
+
+
+def phase_moe_topk(cfg, device) -> dict:
+    """``blocks._moe_route`` on tied rows on the device: one-hot hidden
+    rows pick router rows whose logits tie (each logit is then one weight
+    exactly), and the chosen experts must equal the lowest-index rule
+    applied to the probabilities the router formed; ``torch.topk``'s own
+    order on the same probabilities is read beside."""
+    import torch
+
+    from repro_torch.models import blocks
+
+    E, K = cfg.n_experts, cfg.top_k
+    logits = tied_router_rows(E)
+    R = logits.shape[0]
+    check(R <= cfg.d_model, "more tied rows than hidden dimensions")
+    router = np.zeros((cfg.d_model, E), np.float32)
+    router[:R] = logits
+    ht = np.zeros((R, cfg.d_model), np.float32)
+    ht[np.arange(R), np.arange(R)] = 1.0
+    t0 = time.perf_counter()
+    probs, gates, onehot = blocks._moe_route(
+        cfg, {"router": torch.from_numpy(router).to(device)},
+        torch.from_numpy(ht).to(device))
+    got = onehot.argmax(-1).cpu().numpy()
+    p = probs.cpu().numpy()
+    want = lowest_index_topk(p, K)
+    srt = -np.sort(-p, axis=-1)
+    across = int((srt[:, K - 1] == srt[:, K]).sum())
+    inside = int((srt[:, :K - 1] == srt[:, 1:K]).any(-1).sum())
+    check(across > 0 and inside > 0,
+          f"the tied rows lost their ties on the device ({across} across "
+          f"the k-th place, {inside} inside the k)")
+    bad = int((got != want).any(-1).sum())
+    check(bad == 0, f"_moe_route broke ties otherwise than the lowest "
+                    f"index in {bad} of {R} rows")
+    gsum = gates.sum(-1).cpu().numpy()
+    check(bool(np.all(np.abs(gsum - 1) < 1e-6)),
+          "the tied rows' gates do not sum to 1")
+    topk = torch.topk(probs, K, dim=-1).indices.cpu().numpy()
+    return {"phase": "moe_topk", "arch": cfg.name, "experts": [E, K],
+            "rows": R, "rows_tied_across_k": across,
+            "rows_tied_inside_k": inside, "rows_differing": bad,
+            "torch_topk_rows_differing": int(
+                (np.sort(topk, -1) != np.sort(want, -1)).any(-1).sum()),
+            "wall_s": time.perf_counter() - t0}
+
+
+#: gemma2-2b's chunked forward: (batch, sequence); 8192 = two blocks of
+#: its 4096 window, so its 13 local layers take the block-local path
+CHUNKED_FORWARD = (1, 8192)
+
+
+def sample_positions(S: int, window: int, n: int = 32) -> list:
+    """Positions whose logits the chunked gate compares: the first ``n``
+    (block 0, the first-block rule), ``n`` across the first block
+    boundary, and the last ``n``."""
+    at = list(range(min(n, S))) + list(range(max(0, window - n // 2),
+                                             min(S, window + n // 2))) \
+        + list(range(max(0, S - n), S))
+    return sorted(set(at))
+
+
+@contextlib.contextmanager
+def call_recorder(module, name: str, what):
+    """Inside the ``with``, every call of ``module.name`` appends
+    ``what(*args, **kwargs)`` to the yielded list."""
+    fn = getattr(module, name)
+    seen = []
+
+    def recorded(*args, **kwargs):
+        seen.append(what(*args, **kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, recorded)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def chunked_gate(cfg32, params32, batch: int, seq_len: int,
+                 device) -> dict:
+    """Float32 teacher-forced forward with ``chunked_local_attn``: the
+    kernel route (every attention through the flash kernel, the local
+    layers with their window; the windows recorded per call) against the
+    plain route (the local layers through ``local_chunked_attention``,
+    the global ones the masked attention); the logits at
+    :func:`sample_positions` within ``SERVE_TOL``, the hidden states
+    beside."""
+    from repro_torch.launch import serve
+    from repro_torch.models import blocks, layers, lm
+
+    toks = serve.make_inputs(cfg32, batch, seq_len, device, seed=3)[0]
+    with call_recorder(blocks, "attention",
+                       lambda *a, **k: k.get("window")) as windows:
+        kern, counts = _counted(lambda: lm.forward(
+            cfg32, params32, toks, return_hidden=True)[0])
+    variants = _variants()
+    with call_recorder(layers, "local_chunked_attention",
+                       lambda *a, **k: a[3]) as chunked:
+        plain = lm.forward(cfg32, params32, toks, return_hidden=True,
+                           use_kernel=False)[0]
+    n_local = sum(w == cfg32.local_window for _, _, ws in lm.stacks(cfg32)
+                  for w in ws)
+    check(chunked == [cfg32.local_window] * n_local,
+          f"{cfg32.name}: {len(chunked)} block-local calls on the plain "
+          f"route, expected {n_local}")
+    check(windows.count(cfg32.local_window) == n_local,
+          f"{cfg32.name}: the kernel route's attention windows were "
+          f"{sorted(set(windows))}")
+    pos = sample_positions(seq_len, cfg32.local_window)
+    lk = lm.unembed(cfg32, params32, kern[:, pos]).float()
+    lp = lm.unembed(cfg32, params32, plain[:, pos]).float()
+    d = float((lk - lp).abs().max())
+    check(d <= SERVE_TOL, f"{cfg32.name}: chunked kernel-route logits "
+                          f"differ from the plain route by {d} "
+                          f"(tol {SERVE_TOL})")
+    check(_finite(kern) and _finite(lk), f"{cfg32.name}: non-finite output")
+    hd = float((kern - plain).abs().max())
+    return {"batch": batch, "seq_len": seq_len, "positions": len(pos),
+            "max_abs_logit_diff_vs_plain": d, "tol": SERVE_TOL,
+            "logit_scale": float(lp.abs().max()),
+            "max_abs_hidden_diff": hd,
+            "hidden_scale": float(plain.abs().max()),
+            "block_local_calls_plain": len(chunked),
+            "attention_windows_kernel": {str(w): windows.count(w)
+                                     for w in sorted(set(windows),
+                                                     key=str)},
+            "launches": counts, "variants": variants}
+
+
+def phase_serve_chunked(cfg, device, forward: tuple = CHUNKED_FORWARD,
+                        seed: int = 0) -> dict:
+    """gemma2-2b at full width with ``chunked_local_attn``: the float32
+    gate (:func:`chunked_gate`), then a timed bfloat16 forward on the
+    kernel route with its flash launches per variant."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, chunked_local_attn=True)
+    cfg32 = as_float32(cfg)
+    params32 = serve.make_params(cfg32, device, seed=seed)
+    gate = chunked_gate(cfg32, params32, *forward, device)
+    params = cast_params(params32, getattr(torch, cfg.param_dtype))
+    del params32
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    timed = forward_timed(cfg, params, *forward, device)
+    del params
+    L = cfg.n_layers
+    if device.type == "cuda":
+        check(gate["variants"]["flash_attention"]["ffma"] == L,
+              f"the chunked float32 gate's flash variants were "
+              f"{gate['variants']['flash_attention']}")
+        check_timed_variants("chunked gemma2-2b", timed, {"mma": L})
+    return {"phase": "serve_chunked", "arch": cfg.name, "layers": L,
+            "window": cfg.local_window, "pattern": cfg.layer_pattern,
+            "attn_softcap": cfg.attn_softcap, "gate": gate,
+            "timed": timed, "wall_s": time.perf_counter() - t0}
+
+
+#: tinyllama-1.1b's pipeline: (stages, microbatches, microbatch rows,
+#: sequence)
+PIPELINE = (2, 4, 2, 512)
+
+
+def _stage_fn(cfg, per_stage: int, positions):
+    """One pipeline stage: ``per_stage`` dense layers (attention through
+    the flash kernel, then the FFN), on a stage's stacked weights."""
+    from repro_torch.models import blocks
+
+    def stage(p, h):
+        for i in range(per_stage):
+            pi = {k: v[i] for k, v in p.items()}
+            a, _ = blocks.attn_block(cfg, pi, h, positions)
+            h = h + a
+            h = h + blocks.ffn_block(cfg, pi, h)
+        return h
+
+    return stage
+
+
+def _timed(fn, device):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def pipeline_run(cfg, params, shape: tuple, device) -> dict:
+    """The pipelined stack against the stages applied to each microbatch
+    in turn (bit for bit) and against the batched sequential stack (its
+    distance), with the walls of all three."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel import pipeline
+
+    n_st, n_mb, mb, Sq = shape
+    L = cfg.n_layers
+    check(L % n_st == 0, f"{L} layers do not split into {n_st} stages")
+    stacked = {k: v.reshape((n_st, L // n_st) + v.shape[1:])
+               for k, v in params["blocks"].items()}
+    toks = serve.make_inputs(cfg, n_mb * mb, Sq, device, seed=5)[0]
+    with torch.no_grad():
+        x = lm.embed_tokens(cfg, params, toks).reshape(
+            n_mb, mb, Sq, cfg.d_model)
+        pos = torch.arange(Sq, device=device)[None].expand(mb, Sq)
+        stage = _stage_fn(cfg, L // n_st, pos)
+        pipeline.pipeline_apply(stage, stacked, x, n_st)  # warm
+        (y, ms), counts = _counted(lambda: _timed(
+            lambda: pipeline.pipeline_apply(stage, stacked, x, n_st),
+            device))
+        variants = _variants()
+
+        def per_microbatch():
+            outs = []
+            for xm in x:
+                for s in range(n_st):
+                    xm = stage(pipeline.stage_params(stacked, s), xm)
+                outs.append(xm)
+            return torch.stack(outs)
+
+        want, seq_ms = _timed(per_microbatch, device)
+        same = bool(torch.equal(y, want))
+        check(same, f"{cfg.name}: the pipelined output differs from the "
+                    "stages applied to each microbatch in turn (max abs "
+                    f"{float((y.float() - want.float()).abs().max())})")
+        pos2 = torch.arange(Sq, device=device)[None].expand(n_mb * mb, Sq)
+        batched, batched_ms = _timed(lambda: _stage_fn(cfg, L, pos2)(
+            params["blocks"], x.reshape(n_mb * mb, Sq, cfg.d_model)),
+            device)
+        batched = batched.reshape(y.shape)
+    d = float((y.float() - batched.float()).abs().max())
+    check(_finite(y), f"{cfg.name}: non-finite pipeline output")
+    return {"dtype": cfg.compute_dtype, "ms": ms,
+            "sequential_per_microbatch_ms": seq_ms,
+            "sequential_batched_ms": batched_ms,
+            "bitwise_equal_per_microbatch": same,
+            "max_abs_diff_vs_batched": d,
+            "scale": float(batched.float().abs().max()),
+            "launches": counts, "variants": variants}
+
+
+def phase_pipeline(cfg, device, shape: tuple = PIPELINE,
+                   seed: int = 0) -> dict:
+    """tinyllama-1.1b at full width through ``parallel.pipeline``:
+    ``shape[0]`` stages of its layers, in bfloat16 (bit for bit against
+    per-microbatch execution, timed against the sequential stack), then
+    in float32, where the pipelined output must lie within ``SERVE_TOL``
+    of the batched sequential stack, taken against the output's scale
+    (the float32 rounding of a sum grows with its terms)."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.parallel import pipeline
+
+    t0 = time.perf_counter()
+    params = serve.make_params(cfg, device, seed=seed)
+    bf16 = pipeline_run(cfg, params, shape, device)
+    del params
+    cfg32 = as_float32(cfg)
+    params32 = serve.make_params(cfg32, device, seed=seed)
+    f32 = pipeline_run(cfg32, params32, shape, device)
+    del params32
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    tol = SERVE_TOL * max(1.0, f32["scale"])
+    check(f32["max_abs_diff_vs_batched"] <= tol,
+          f"{cfg.name}: the float32 pipeline differs from the batched "
+          f"sequential stack by {f32['max_abs_diff_vs_batched']} "
+          f"(tol {tol})")
+    n_st, n_mb = shape[0], shape[1]
+    want = n_mb * cfg.n_layers
+    if device.type == "cuda":
+        check_timed_variants("pipeline tinyllama-1.1b", bf16,
+                             {"mma": want})
+    return {"phase": "pipeline", "arch": cfg.name, "layers": cfg.n_layers,
+            "stages": n_st, "microbatches": n_mb,
+            "microbatch_rows": shape[2], "seq_len": shape[3],
+            "bubble_fraction": pipeline.bubble_fraction(n_mb, n_st),
+            "bf16": bf16, "float32": {**f32, "tol": tol},
+            "flash_launches_expected": want,
+            "wall_s": time.perf_counter() - t0}
+
+
+#: the dry-run cell run on the card: one decode step of mamba2-2.7b at
+#: long_500k from a zeroed cache
+DRYRUN_CELL = ("mamba2-2.7b", "long_500k")
+
+
+def phase_dryrun(device, card_bytes: int | None = None,
+                 run_cfg=None) -> dict:
+    """The dry-run records of every (arch x shape) cell
+    (``launch.dryrun.cell_record``, nothing allocated) with
+    ``fits_one_card`` against the card's memory, then ``DRYRUN_CELL``
+    run for real: one decode step at the last position of its sequence
+    from a zeroed cache, the peak memory over the step (above what was
+    allocated before the phase) beside the record's argument bytes, and
+    the set-up's peak (the draws' float32 temporaries) beside
+    (``run_cfg`` stands in for the cell's config in a rehearsal)."""
+    import torch
+
+    from repro_torch.configs.base import SHAPES, get_config, list_configs
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+
+    t0 = time.perf_counter()
+    if card_bytes is None and device.type == "cuda":
+        card_bytes = torch.cuda.get_device_properties(device).total_memory
+    rows = []
+    by_cell = {}
+    for arch in list_configs():
+        if arch == "kratos-dd":
+            continue
+        for shape in SHAPES:
+            r = dryrun.cell_record(arch, shape, card_bytes)
+            by_cell[(arch, shape)] = r
+            if r["status"] != "ok":
+                rows.append([arch, shape, "skipped"])
+                continue
+            rows.append([arch, shape, r["kind"], r["n_params"],
+                         r["n_active_params"], r["model_flops"],
+                         r["bytes"], r["argument_bytes"],
+                         r["fits_one_card"],
+                         r["per_device"]["single"]["argument_bytes"],
+                         r["per_device"]["multi"]["argument_bytes"]])
+    records_s = time.perf_counter() - t0
+    cell = DRYRUN_CELL
+    rec = by_cell[cell]
+    check(rec["fits_one_card"] is not False,
+          f"the dry run says {cell} does not fit one card")
+    cfg = run_cfg or get_config(cell[0])
+    shape = SHAPES[cell[1]]
+    check(shape.kind == "decode", f"{cell} is not a decode cell")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    t1 = time.perf_counter()
+    params = serve.make_params(cfg, device, seed=0)
+    cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                       encoder_len=cfg.encoder_seq or None, device=device)
+    tok = torch.ones((shape.global_batch, 1), dtype=torch.int64,
+                     device=device)
+    held = dryrun.nbytes(params) + dryrun.nbytes(cache)
+    init_peak = None
+    if device.type == "cuda":
+        # the draws' float32 temporaries peak during the set-up; the step
+        # is read from here
+        init_peak = torch.cuda.max_memory_allocated(device) - base
+        torch.cuda.reset_peak_memory_stats(device)
+    ((logits, _), step_ms), counts = _counted(lambda: _timed(
+        lambda: decode_step(cfg, params, cache, tok, shape.seq_len - 1),
+        device))
+    check(tuple(logits.shape) == (shape.global_batch, 1, cfg.vocab)
+          and _finite(logits), f"{cell}: decode gave "
+                               f"{tuple(logits.shape)} or non-finite logits")
+    peak = (torch.cuda.max_memory_allocated(device) - base
+            if device.type == "cuda" else None)
+    del params, cache, logits
+    return {"phase": "dryrun", "card_bytes": card_bytes,
+            "columns": ["arch", "shape", "kind", "n_params",
+                        "n_active_params", "model_flops", "bytes",
+                        "argument_bytes", "fits_one_card",
+                        "per_device_single", "per_device_multi"],
+            "records": rows, "records_s": records_s,
+            "fits": [[a, s] for (a, s), r in by_cell.items()
+                     if r.get("fits_one_card")],
+            "activations_counted": False,
+            "run": {"cell": list(cell), "pos": shape.seq_len - 1,
+                    "record_argument_bytes": rec["argument_bytes"],
+                    "record_bytes": rec["bytes"],
+                    "allocated_bytes": held, "peak_bytes": peak,
+                    "setup_peak_bytes": init_peak,
+                    "base_bytes": base if device.type == "cuda" else None,
+                    "step_ms": step_ms, "launches": counts,
+                    "wall_s": time.perf_counter() - t1},
+            "wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -4132,6 +4571,9 @@ def main() -> int:
                              device))
     del gemma_params
     torch.cuda.empty_cache()
+    chrec = phase_serve_chunked(get_config("gemma2-2b"), device)
+    emit(chrec)
+    torch.cuda.empty_cache()
 
     qrec = phase_quantized(as_float32(get_config("kratos-dd")), device)
     emit(qrec)
@@ -4179,6 +4621,7 @@ def main() -> int:
     emit(i8rec)
     del moe_state
     torch.cuda.empty_cache()
+    emit(phase_moe_topk(ds, device))
     vlmrec = phase_serve_vlm(get_config("llava-next-34b"), device,
                              gate=VLM_GATE, timed=VLM_TIMED)
     emit(vlmrec)
@@ -4201,6 +4644,10 @@ def main() -> int:
     emit(trec)
     emit(prec)
     torch.cuda.empty_cache()
+    plrec = phase_pipeline(get_config("tinyllama-1.1b"), device)
+    emit(plrec)
+    torch.cuda.empty_cache()
+    emit(phase_dryrun(device))
 
     replaces = {"lut_eval6": "src/repro/kernels/lut_eval.py:90",
                 "lut_eval": "src/repro/kernels/lut_eval.py:47",
@@ -4216,11 +4663,12 @@ def main() -> int:
     launches = {"lut_eval6": launches6,
                 "lut_eval": lrec["launches"]["lut_eval"],
                 # kratos-dd serving, the new families' timed serving
-                # runs and the timed training run
+                # runs, the timed training run, gemma2-2b's chunked
+                # forward and the pipeline
                 "flash_attention": flash_launches + sum(
                     r["timed"]["launches"]["flash_attention"]
-                    for r in (moerec, i8rec, vlmrec, encrec))
-                + trec["timed"]["launches"]["flash_attention"],
+                    for r in (moerec, i8rec, vlmrec, encrec, trec, chrec))
+                + plrec["bf16"]["launches"]["flash_attention"],
                 "bitplane_matmul": bit_launches,
                 # the two models' timed forwards (64 + 32 SSD layers)
                 "ssd_scan": sum(r["forward"]["launches"]["ssd_scan"]
@@ -4276,7 +4724,15 @@ def main() -> int:
                 encrec["forward_bf16"]["variants"]["flash_attention"],
             "train bf16": trec["timed"]["variants"]["flash_attention"],
             "train gate float32":
-                trec["gate"]["variants"]["flash_attention"]},
+                trec["gate"]["variants"]["flash_attention"],
+            "chunked gemma2-2b":
+                chrec["timed"]["variants"]["flash_attention"],
+            "chunked gate float32 gemma2-2b":
+                chrec["gate"]["variants"]["flash_attention"],
+            "pipeline tinyllama-1.1b":
+                plrec["bf16"]["variants"]["flash_attention"],
+            "pipeline float32 tinyllama-1.1b":
+                plrec["float32"]["variants"]["flash_attention"]},
         "bitplane_matmul": {
             "quantized": qrec["variants"]["bitplane_matmul"]},
         "ssd_scan": {

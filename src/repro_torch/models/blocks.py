@@ -120,14 +120,24 @@ def ffn_block(cfg: ModelConfig, p, x):
     return out
 
 
+def topk_lowest_index(x: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest entries along the last
+    axis, largest first, the lowest index first among equal values, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` breaks ties its own way,
+    on the CPU and on the card alike): the first ``k`` of a stable
+    descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def _moe_route(cfg: ModelConfig, p, ht):
     """The router, shared by both MoE paths: float32 softmax over the
-    experts, top-k, the gates renormalised over the k.  ``ht``'s leading
-    axes are arbitrary.  Returns ``(probs [..., E], gate_vals [..., K],
-    onehot [..., K, E])``, all float32."""
+    experts, top-k (:func:`topk_lowest_index`), the gates renormalised
+    over the k.  ``ht``'s leading axes are arbitrary.  Returns ``(probs
+    [..., E], gate_vals [..., K], onehot [..., K, E])``, all float32."""
     logits = ht.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
-    gate_idx = torch.topk(probs, cfg.top_k, dim=-1).indices
+    gate_idx = topk_lowest_index(probs, cfg.top_k)[1]
     return (probs, *_moe_gates(probs, gate_idx, cfg.n_experts))
 
 

@@ -6,7 +6,8 @@ dispatch: by default every call goes through
 :func:`repro_torch.kernels.ops.flash_attention`, which launches the CUDA
 kernel on a CUDA tensor and runs the plain version on a CPU tensor;
 ``use_kernel=False`` runs :func:`attention_ref`, the reference's masked
-attention, and exists for the parity checks.
+attention, or, under ``cfg.chunked_local_attn`` and the reference's
+conditions (:func:`chunked_applies`), :func:`local_chunked_attention`.
 """
 from __future__ import annotations
 
@@ -97,6 +98,62 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def local_chunked_attention(q, k, v, window: int, *, softcap=None,
+                            scale=None):
+    """Exact sliding-window causal attention, computed block-locally: each
+    block of ``window`` queries forms scores over its own key block and
+    the one before it (zeros before block 0, masked), O(S * 2w) instead
+    of O(S^2).  Requires ``S % window == 0``.  The mask is
+    ``kpos <= qpos`` and ``kpos > qpos - window``, the one
+    :func:`attention_ref` applies for ``window``."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    w = window
+    nb = S // w
+    dev = q.device
+    if scale is None:
+        scale = D ** -0.5
+    kk = k.repeat_interleave(G, dim=2)
+    vv = v.repeat_interleave(G, dim=2)
+    qb = q.reshape(B, nb, w, Hq, D)
+    kb = kk.reshape(B, nb, w, Hq, D)
+    vb = vv.reshape(B, nb, w, Hq, D)
+    # previous block (zeros before block 0)
+    kprev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    k2 = torch.cat([kprev, kb], dim=2)               # [B, nb, 2w, Hq, D]
+    v2 = torch.cat([vprev, vb], dim=2)
+    logits = torch.einsum("bnqhd,bnkhd->bnhqk", wide(qb), wide(k2)) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(w, device=dev)[:, None] + w   # within-pair position
+    kpos = torch.arange(2 * w, device=dev)[None, :]
+    blk = torch.arange(nb, device=dev)
+    valid = (kpos <= qpos) & (kpos > qpos - w)
+    # block 0 has no previous block
+    first = (kpos >= w) & (kpos <= qpos) & (kpos > qpos - w)
+    mask = torch.where(blk[:, None, None] == 0, first[None], valid[None])
+    logits = torch.where(mask[None, :, None, :, :], logits,
+                         torch.tensor(-1e30, device=dev))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", p, wide(v2))
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def chunked_applies(cfg: ModelConfig, q, k, *, window=None, kv_len=None,
+                    causal=True) -> bool:
+    """The reference's condition for the block-local path: the flag set,
+    a static int window, no ``kv_len``, as many queries as keys, at least
+    two whole blocks and causal attention.  Every other call (decode,
+    cached prefill, a ragged S, the global layers' huge window) takes the
+    ordinary route."""
+    S = q.shape[1]
+    return bool(cfg.chunked_local_attn and isinstance(window, int)
+                and kv_len is None and S == k.shape[1]
+                and window * 2 <= S and S % window == 0 and causal)
+
+
 def _prefix_len(kv_len, q_positions, S: int) -> int:
     """The kv prefix a cached call attends over, for the kernel route.
 
@@ -124,11 +181,16 @@ def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=None,
               use_kernel: bool = True):
     """Attention on ``[B, S, H, D]``: the flash kernel (plain version on a
     CPU tensor) over the first ``kv_len`` keys, or with
-    ``use_kernel=False`` the reference's :func:`attention_ref`."""
-    if cfg.chunked_local_attn:
-        raise NotImplementedError(
-            "chunked_local_attn (local_chunked_attention) is not ported")
+    ``use_kernel=False`` the reference's :func:`attention_ref`, or
+    :func:`local_chunked_attention` where :func:`chunked_applies`.  The
+    kernel route needs no block-local form: flash with ``window``
+    computes the same function and skips the masked key tiles, O(S * 2w)
+    work too."""
     if not use_kernel:
+        if chunked_applies(cfg, q, k, window=window, kv_len=kv_len,
+                           causal=causal):
+            return local_chunked_attention(q, k, v, window, softcap=softcap,
+                                           scale=scale)
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale, kv_len=kv_len,
                              q_positions=q_positions)
@@ -161,9 +223,18 @@ def glu_ffn(x, wi, wo, act: str):
 SLICE_DRAW_NUMEL = 1 << 31
 
 
-def init_dense(gen: torch.Generator, shape, dtype, scale=None):
+def gen_device(gen: torch.Generator | None) -> torch.device:
+    """The device weights drawn from ``gen`` live on: its own, or
+    ``meta`` for ``None`` (shapes and types only, nothing drawn)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def init_dense(gen: torch.Generator | None, shape, dtype, scale=None):
     """Normal weights scaled by ``fan_in ** -0.5`` (or ``scale``), drawn
-    in float32 from ``gen`` on its device and cast to ``dtype``."""
+    in float32 from ``gen`` on its device and cast to ``dtype``; with
+    ``gen=None`` an empty ``meta`` tensor of that shape and type."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     if scale is None:
         scale = fan_in ** -0.5

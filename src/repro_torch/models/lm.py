@@ -28,7 +28,8 @@ from .. import tree
 from ..configs.base import ModelConfig
 from . import blocks
 from .blocks import HUGE_WINDOW
-from .layers import attention_ref, dtype_of, init_dense, rms_norm, wide
+from .layers import (attention_ref, dtype_of, gen_device, init_dense,
+                     rms_norm, wide)
 
 
 #: leaves that stay float32 whatever ``param_dtype`` is (the SSD's step
@@ -53,7 +54,7 @@ def _layer_windows(cfg: ModelConfig, n: int, offset: int = 0) -> list[int]:
 
 def _init_attn(gen, cfg: ModelConfig, L: int, dt) -> dict:
     d, Hq, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dev = gen.device
+    dev = gen_device(gen)
     p = {
         "ln1": torch.zeros((L, d), dtype=dt, device=dev),
         "wq": init_dense(gen, (L, d, Hq * D), dt),
@@ -72,20 +73,20 @@ def _init_attn(gen, cfg: ModelConfig, L: int, dt) -> dict:
 
 def _init_ffn(gen, cfg: ModelConfig, L: int, dt) -> dict:
     d, F = cfg.d_model, cfg.d_ff
-    p = {"ln2": torch.zeros((L, d), dtype=dt, device=gen.device)}
+    p = {"ln2": torch.zeros((L, d), dtype=dt, device=gen_device(gen))}
     if cfg.act == "gelu_mlp":
         p["wi"] = init_dense(gen, (L, d, F), dt)
     else:
         p["wi"] = init_dense(gen, (L, d, 2 * F), dt)
     p["wo_ff"] = init_dense(gen, (L, F, d), dt)
     if cfg.name.startswith("gemma2"):
-        p["post_ln2"] = torch.zeros((L, d), dtype=dt, device=gen.device)
+        p["post_ln2"] = torch.zeros((L, d), dtype=dt, device=gen_device(gen))
     return p
 
 
 def _init_ssd(gen, cfg: ModelConfig, L: int, dt) -> dict:
     d, H, P, N = cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    dev = gen.device
+    dev = gen_device(gen)
     return {
         "ln1": torch.zeros((L, d), dtype=dt, device=dev),
         "in_proj": init_dense(gen, (L, d, 2 * H * P + 2 * N + H), dt),
@@ -102,7 +103,7 @@ def _init_ssd(gen, cfg: ModelConfig, L: int, dt) -> dict:
 def _init_moe_ffn(gen, cfg: ModelConfig, L: int, dt) -> dict:
     d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     p = {
-        "ln2": torch.zeros((L, d), dtype=dt, device=gen.device),
+        "ln2": torch.zeros((L, d), dtype=dt, device=gen_device(gen)),
         "router": init_dense(gen, (L, d, E), dt),
         "we_i": init_dense(gen, (L, E, d, 2 * f), dt),
         "we_o": init_dense(gen, (L, E, f, d), dt),
@@ -116,21 +117,23 @@ def _init_moe_ffn(gen, cfg: ModelConfig, L: int, dt) -> dict:
 
 def _init_cross(gen, cfg: ModelConfig, L: int, dt) -> dict:
     d, Hq, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {"x_ln": torch.zeros((L, d), dtype=dt, device=gen.device),
+    return {"x_ln": torch.zeros((L, d), dtype=dt, device=gen_device(gen)),
             "x_wq": init_dense(gen, (L, d, Hq * D), dt),
             "x_wk": init_dense(gen, (L, d, Hkv * D), dt),
             "x_wv": init_dense(gen, (L, d, Hkv * D), dt),
             "x_wo": init_dense(gen, (L, Hq * D, d), dt)}
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_params(gen: torch.Generator | None, cfg: ModelConfig) -> dict:
     """Random weights for any family, drawn from ``gen`` on its device.
     The layout equals the reference's; the numbers differ (torch and jax
     generators differ), so parity tests convert the reference's weights
-    instead."""
+    instead.  ``gen=None`` gives the same tree of ``meta`` tensors,
+    shapes and types only, nothing drawn or allocated
+    (:func:`repro_torch.launch.specs.params_shape`)."""
     dt = dtype_of(cfg.param_dtype)
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
-    dev = gen.device
+    dev = gen_device(gen)
     params: dict = {
         "embed": init_dense(gen, (V, d), dt, scale=1.0),
         "ln_f": torch.zeros((d,), dtype=dt, device=dev),

@@ -49,7 +49,11 @@ def test_phase_functions_importable():
                  "routing_agreement", "params_bytes", "cut_depth",
                  "check_timed_variants", "phase_serve_moe", "int8_gate",
                  "phase_serve_moe_int8", "phase_serve_vlm",
-                 "forward_gate_inputs_bf16", "phase_serve_encdec"):
+                 "forward_gate_inputs_bf16", "phase_serve_encdec",
+                 "tied_router_rows", "lowest_index_topk", "phase_moe_topk",
+                 "sample_positions", "call_recorder", "chunked_gate",
+                 "phase_serve_chunked", "pipeline_run", "phase_pipeline",
+                 "phase_dryrun"):
         assert callable(getattr(cs, name)), name
 
 

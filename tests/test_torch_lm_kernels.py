@@ -4,7 +4,6 @@ interpret mode, at the tolerances of the reference's own kernel tests
 (fp32 2e-4, bf16 2e-2; bit-plane rtol 1e-5 / atol 1e-4).  The CUDA kernels
 themselves run only on the card, where ``chip_smoke.py`` holds them to
 these plain versions."""
-import dataclasses
 
 import numpy as np
 import pytest
@@ -169,9 +168,6 @@ def test_cached_attention_refuses_what_the_kernel_cannot_do():
     with pytest.raises(ValueError, match="q_positions"):
         layers.attention(cfg, q, k, k, kv_len=torch.tensor([4, 4]),
                          q_positions=torch.tensor([[2], [3]]))
-    chunked = dataclasses.replace(cfg, chunked_local_attn=True)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        layers.attention(chunked, q, k, k)
 
 
 # ---------------------------------------------------------------------------

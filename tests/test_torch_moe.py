@@ -119,6 +119,63 @@ def test_moe_block_matches_reference(arch, dropless):
     _close(aux, waux, TOL, "aux")
 
 
+#: router rows with ties (E 4, K 2), reached through one-hot hidden rows
+#: (each logit is then one weight exactly, times the row's norm scale):
+#: a tie across the k-th place, a tie inside the k, every expert tied,
+#: and a tie below the k
+TIED_ROWS = {"boundary": [0.3, 0.2, 0.2, 0.2],
+             "inside": [0.1, 0.3, 0.3, 0.2],
+             "all": [0.0, 0.0, 0.0, 0.0],
+             "below": [0.2, 0.6, 0.2, 0.2]}
+
+
+def _tied(cfg, jparams, params, case: str, T: int = 8):
+    """Layer 0's weights with the router's first rows set to the case's
+    ties, and hidden rows that are one-hot on them."""
+    jp, p = _layer(jparams, params)
+    W = np.array(jp["router"], dtype=np.float32)
+    W[: cfg.n_experts] = np.asarray(TIED_ROWS[case], np.float32)
+    jp = {**jp, "router": jnp.asarray(W)}
+    p = {**p, "router": torch.from_numpy(W.copy())}
+    rows = np.zeros((T, cfg.d_model), np.float32)
+    rows[np.arange(T), np.arange(T) % cfg.n_experts] = 1.0
+    return jp, p, rows
+
+
+@pytest.mark.parametrize("case", sorted(TIED_ROWS))
+def test_route_breaks_ties_as_reference(case):
+    """Equal probabilities go to the lowest index, as ``lax.top_k`` takes
+    them: the same choices, in the same order, and the same gates."""
+    jcfg, jparams, cfg, params = _weights("deepseek-moe-16b")
+    assert (cfg.n_experts, cfg.top_k) == (4, 2)
+    jp, p, rows = _tied(cfg, jparams, params, case)
+    want = jblocks._moe_route(jcfg, jp, jnp.asarray(rows))
+    got = blocks._moe_route(cfg, p, torch.from_numpy(rows))
+    assert np.array_equal(got[2].numpy(), np.asarray(want[2])), "choices"
+    _close(got[1], want[1], TOL, "gates")
+    probs = torch.tensor(TIED_ROWS[case])
+    vals, idx = blocks.topk_lowest_index(probs, 2)
+    jvals, jidx = jax.lax.top_k(jnp.asarray(TIED_ROWS[case]), 2)
+    assert idx.tolist() == np.asarray(jidx).tolist()
+    assert vals.tolist() == np.asarray(jvals).tolist()
+
+
+@pytest.mark.parametrize("case", ["boundary", "all"])
+@pytest.mark.parametrize("dropless", [False, True])
+def test_moe_block_on_tied_rows_matches_reference(case, dropless):
+    """A tie across the k-th place picks the reference's expert in both
+    blocks: their outputs and aux losses equal the reference's."""
+    jcfg, jparams, cfg, params = _weights("deepseek-moe-16b")
+    jp, p, rows = _tied(cfg, jparams, params, case, T=16)
+    x = rows.reshape(2, 8, cfg.d_model) * 3.0
+    jfn = jblocks.moe_block_dropless if dropless else jblocks.moe_block
+    fn = blocks.moe_block_dropless if dropless else blocks.moe_block
+    want, waux = jfn(jcfg, jp, jnp.asarray(x))
+    got, aux = fn(cfg, p, torch.from_numpy(x))
+    _close(got, want, TOL, "out")
+    _close(aux, waux, TOL, "aux")
+
+
 def test_capacity_drops_match_reference():
     """A planted overflow: the router sends every token's first choice to
     expert 0 (a large bias on its column through a constant feature), so
