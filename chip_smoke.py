@@ -201,7 +201,20 @@ exits non-zero:
     2 x 512 (88 ``mma`` flash calls), bit for bit equal to the stages
     applied to each microbatch in turn, timed against the sequential
     stack, and in float32 within 5e-3 (of the output's scale) of the
-    batched stack; then dryrun: the records of every (arch x shape) cell
+    batched stack; then mesh_train: ``tinyllama-1.1b`` through the mesh
+    path (``launch.mesh``'s ``(data, model)`` DeviceMesh over the visible
+    cards, up to 4 and even, ``(n // 2, 2)``; on one card ``(1, 1)`` over
+    an NCCL group of one; more cards are one spawned rank each), parameters
+    placed by ``param_specs``: a float32 gate over the first 4 layers at
+    2 x 512 (the mesh step's loss, gradients and AdamW-stepped parameters
+    within the training gate's ``max(1e-4, 4 x d)`` of the unsharded
+    step's), then 3 bf16 steps at full depth, B 4 x S 2048, through
+    ``launch.train`` (its checkpoint gathered and written by rank 0)
+    beside 3 unsharded steps in bf16 and in float32: each loss within
+    ``max(1e-4, 4 x d'_s)`` of the unsharded bf16 one (d'_s the bf16
+    run's distance from the float32 run at that step), per-rank peak
+    memory, step ms; every flash call the kernel's on the rank's local
+    heads; then dryrun: the records of every (arch x shape) cell
     with ``fits_one_card`` against the card's memory, and mamba2-2.7b's
     long_500k cell run (one decode step at position 524,287 from a zeroed
     cache), its peak memory beside the record's argument bytes;
@@ -210,8 +223,8 @@ exits non-zero:
     times and bound are its level variant's, the one the main paths
     launch, with the op's beside, and its launches include the search
     and serve_flow phases'; ``flash_attention``'s include the new
-    families' timed serving runs and the training run's, with its
-    training calls per step and times beside), the card
+    families' timed serving runs, the training run's and every mesh
+    rank's, with its training calls per step and times beside), the card
     line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each phase that drives the main
@@ -4371,6 +4384,388 @@ def phase_pipeline(cfg, device, shape: tuple = PIPELINE,
             "wall_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# training across a device mesh
+# ---------------------------------------------------------------------------
+
+#: the mesh phase: its float32 gate (layers, batch, sequence) and its timed
+#: bf16 run through ``launch.train`` (steps, batch, sequence), the
+#: training phase's shape; at most this many cards
+MESH_GATE = (4, 2, 512)
+MESH_TIMED = (3, 4, 2048)
+MESH_MAX_CARDS = 4
+#: each spawned rank's time limit, seconds
+MESH_RANK_TIMEOUT = 600
+
+
+def mesh_shape(cards: int) -> tuple[int, int]:
+    """The phase's ``(data, model)`` mesh on ``cards`` visible cards: up to
+    ``MESH_MAX_CARDS``, rounded down to an even count, as ``(n // 2, 2)``;
+    ``(1, 1)`` on one card."""
+    n = min(cards, MESH_MAX_CARDS)
+    if n < 2:
+        return (1, 1)
+    n -= n % 2
+    return (n // 2, 2)
+
+
+def _gathered(tree_):
+    """A tree's DTensor leaves gathered whole on this rank."""
+    from repro_torch import tree
+    from repro_torch.parallel.api import plain
+
+    return tree.map(plain, tree_)
+
+
+def mesh_gate(cfg, mesh, device, layers: int, batch: int, seq: int,
+              seed: int = 0) -> dict:
+    """The float32 gate of the mesh step: over the config's first
+    ``layers`` layers (seed-0 weights, one ``batch_for_step`` batch), the
+    mesh step's loss and every leaf's gradient (kernel route, parameters
+    placed by ``param_specs``, the batch by ``batch_specs``, under the
+    activation rules; gathered whole) against the unsharded step's,
+    normwise within ``max(TRAIN_TOL, NOISE_MARGIN x d)``, d the plain
+    path's distance from float64 (:func:`train_gate`'s rule); then the
+    parameters after one AdamW step of each.  Raises on a miss."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import batch_for_step, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.api import sharding_rules
+    from repro_torch.train import optimizer
+    from repro_torch.train import step as tstep
+
+    cfg32 = as_float32(cfg)
+    cut_cfg, cut = first_layers(cfg32, serve.make_params(cfg32, device,
+                                                         seed=seed), layers)
+    params = tree.map(lambda t: t.clone(), cut)
+    del cut
+    cfg64 = dataclasses.replace(cut_cfg, param_dtype="float64",
+                                compute_dtype="float64")
+    host = batch_for_step(cut_cfg, seq, batch, 0, seed=seed)
+    data = to_device(host, device)
+    tcfg = tstep.TrainConfig(opt=optimizer.OptConfig(
+        decay_steps=TRAIN_TIMED[0], **TRAIN_OPT))
+
+    def run(c, p, d, use_kernel):
+        (_, (loss, _)), grads = tstep.value_and_grad(
+            tstep.make_loss_fn(c, tcfg, use_kernel), p, d)
+        new, _, _ = optimizer.adamw_update(tcfg.opt, grads,
+                                           optimizer.adamw_init(p), p)
+        return loss, grads, new
+
+    dparams = sharding.distribute(
+        params, sharding.param_specs(cut_cfg, mesh, params), mesh)
+    ddata = to_device(host, device, mesh)
+    with sharding_rules(sharding.activation_rules(cut_cfg, mesh)):
+        (on_mesh, counts) = _counted(
+            lambda: _gathered(run(cut_cfg, dparams, ddata, True)))
+    variants, heads = _variants(), ops.flash_head_counts()
+    del dparams, ddata
+    unsharded = run(cut_cfg, params, data, True)
+    plain = run(cut_cfg, params, data, False)
+    wide = run(cfg64, cast_params(params, torch.float64), data, False)
+    rows, worst = {}, 0.0
+    for (path, g_m), g_u, g_p, g_w in zip(
+            tree.flatten_with_path(on_mesh[1]), tree.leaves(unsharded[1]),
+            tree.leaves(plain[1]), tree.leaves(wide[1])):
+        d = _rel(g_p, g_w)
+        tol = max(TRAIN_TOL, NOISE_MARGIN * d)
+        e = _rel(g_m, g_u)
+        rows["/".join(path)] = {"mesh_vs_unsharded": e,
+                                "plain_vs_float64": d, "tol": tol}
+        worst = max(worst, e / tol)
+    d_loss = abs(float(plain[0]) - float(wide[0])) / abs(float(wide[0]))
+    e_loss = (abs(float(on_mesh[0]) - float(unsharded[0]))
+              / abs(float(unsharded[0])))
+    tol_loss = max(TRAIN_TOL, NOISE_MARGIN * d_loss)
+    post = {}
+    for (path, a), b, c, w in zip(tree.flatten_with_path(on_mesh[2]),
+                                  tree.leaves(unsharded[2]),
+                                  tree.leaves(plain[2]),
+                                  tree.leaves(wide[2])):
+        tol = max(TRAIN_TOL, NOISE_MARGIN * _rel(c, w))
+        post["/".join(path)] = {"mesh_vs_unsharded": _rel(a, b), "tol": tol}
+    worst_post = max(r["mesh_vs_unsharded"] / r["tol"] for r in post.values())
+    check(e_loss <= tol_loss and worst <= 1.0 and worst_post <= 1.0,
+          f"{cfg.name} mesh gate: loss {e_loss} (tol {tol_loss}), worst "
+          f"gradient at {worst} and worst stepped parameter at "
+          f"{worst_post} of its tolerance: {rows}")
+    return {"layers": layers, "batch": batch, "seq_len": seq,
+            "loss": {"mesh": float(on_mesh[0]),
+                     "unsharded": float(unsharded[0]),
+                     "plain": float(plain[0]), "float64": float(wide[0]),
+                     "mesh_vs_unsharded": e_loss,
+                     "plain_vs_float64": d_loss, "tol": tol_loss},
+            "grads": rows, "worst_grad_share_of_tol": worst,
+            "post_step_params": post,
+            "worst_post_step_share_of_tol": worst_post,
+            "launches": counts, "variants": variants,
+            "flash_heads": heads}
+
+
+def _peak(device):
+    import torch
+
+    return (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+
+
+def _reset_peak(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _unsharded_steps(cfg, tcfg, params, device, steps: int, batch: int,
+                     seq: int) -> tuple[list, list]:
+    """``steps`` train steps of ``train.step`` on plain tensors from
+    ``params``, each timed as ``fit`` times a step (the batch's upload to
+    the loss on the host), no checkpoint: ``(losses, walls in s)``."""
+    from repro_torch.data.pipeline import batch_for_step, to_device
+    from repro_torch.train import step as tstep
+
+    step_fn, opt_init = tstep.make_train_step(cfg, tcfg)
+    opt = opt_init(params)
+    losses, walls = [], []
+    for s in range(steps):
+        t1 = time.perf_counter()
+        data = to_device(batch_for_step(cfg, seq, batch, s), device)
+        params, opt, m = step_fn(params, opt, data)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t1)
+    return losses, walls
+
+
+def mesh_timed(arch: str, smoke: bool, mesh, device, steps: int,
+               batch: int, seq: int, workdir) -> dict:
+    """``steps`` bf16 steps through ``launch.train``'s mesh path (seed-0
+    weights placed by ``param_specs``, AdamW at the launcher's defaults,
+    its final checkpoint gathered and written by rank 0), then the same
+    steps unsharded in bf16 and in float32 (:func:`_unsharded_steps`).
+    Every mesh loss must be finite and, step by step, within
+    ``max(TRAIN_TOL, NOISE_MARGIN x d'_s)`` of the unsharded bf16 run's,
+    d'_s that run's distance from the float32 run at step s (the bf16
+    noise, which the updates carry forward).  Per-rank peak memory and
+    the median step wall after the first of each bf16 run."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+
+    cfg = get_config(arch)
+    cfg = cfg.smoke() if smoke else cfg
+    mp = mesh.size(mesh.mesh_dim_names.index("model"))
+    argv = ["--arch", arch, "--steps", str(steps), "--seq-len", str(seq),
+            "--batch", str(batch), "--model-parallel", str(mp),
+            "--ckpt-dir", str(workdir), "--device", str(device)]
+    _reset_peak(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_launch.main(argv + (["--smoke"] if smoke else []))
+    fit_s = time.perf_counter() - t0
+    counts, variants = ops.launch_counts(), _variants()
+    heads = ops.flash_head_counts()
+    mesh_peak = _peak(device)
+    mesh_losses, mesh_walls = res["losses"], res["step_s"]
+    del res
+    _reset_peak(device)
+    tcfg, fresh, _ = _train_setup(cfg, device, steps, batch, seq)
+    losses, walls = _unsharded_steps(cfg, tcfg, fresh(), device, steps,
+                                     batch, seq)
+    plain_peak = _peak(device)
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    losses32, _ = _unsharded_steps(as_float32(cfg), tcfg,
+                                   cast_params(fresh(), torch.float32),
+                                   device, steps, batch, seq)
+    float32_s = time.perf_counter() - t0
+    _reset_peak(device)
+    noise = [abs(a - b) / abs(b) for a, b in zip(losses, losses32)]
+    tol = [max(TRAIN_TOL, NOISE_MARGIN * d) for d in noise]
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh_losses, losses)]
+    check(len(mesh_losses) == steps
+          and all(math.isfinite(x) for x in mesh_losses)
+          and all(r <= t for r, t in zip(rel, tol)),
+          f"{cfg.name} mesh training: losses {mesh_losses} against the "
+          f"unsharded {losses} (relative {rel}, tol {tol})")
+
+    def median_ms(ws):
+        return float(np.median(ws[1:] or ws)) * 1e3
+
+    return {"steps": steps, "batch": batch, "seq_len": seq,
+            "dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "losses": mesh_losses, "unsharded_losses": losses,
+            "float32_losses": losses32, "bf16_vs_float32": noise,
+            "rel_vs_unsharded": rel, "tol": tol,
+            "step_ms": [w * 1e3 for w in mesh_walls],
+            "unsharded_step_ms": [w * 1e3 for w in walls],
+            "median_step_ms_after_first": median_ms(mesh_walls),
+            "unsharded_median_step_ms_after_first": median_ms(walls),
+            "peak_bytes": mesh_peak, "unsharded_peak_bytes": plain_peak,
+            "fit_with_checkpoint_s": fit_s, "float32_run_s": float32_s,
+            "launches": counts, "variants": variants,
+            "flash_heads": heads}
+
+
+def mesh_train_rank(arch: str, device, mp: int, gate=MESH_GATE,
+                    timed=MESH_TIMED, workdir=None, smoke: bool = False
+                    ) -> dict:
+    """One rank's part of the mesh phase, in a process group that is
+    formed already: the ``("data", "model")`` mesh with ``mp`` on model,
+    :func:`mesh_gate`, then :func:`mesh_timed`."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = get_config(arch)
+    cfg = cfg.smoke() if smoke else cfg
+    mesh = make_host_mesh(mp, device)
+    t0 = time.perf_counter()
+    gate_rec = mesh_gate(cfg, mesh, device, *gate)
+    gate_s = time.perf_counter() - t0
+    own = workdir is None
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+                   if own else workdir)
+    try:
+        t0 = time.perf_counter()
+        timed_rec = mesh_timed(arch, smoke, mesh, device, *timed,
+                               workdir=workdir / "run")
+    finally:
+        if own:
+            shutil.rmtree(workdir, ignore_errors=True)
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "gate": gate_rec, "timed": timed_rec,
+            "walls": {"gate_s": gate_s,
+                      "timed_s": time.perf_counter() - t0}}
+
+
+def _mesh_rank_main(rank: int, world: int, init: str, workdir: str) -> int:
+    """A spawned rank of the mesh phase (``--mesh-rank``): its card, an
+    NCCL group over ``init``, the checkpoint directory every rank shares,
+    its record as the last output line."""
+    import torch
+    import torch.distributed as dist
+
+    device = torch.device(f"cuda:{rank}")
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=init, rank=rank,
+                            world_size=world, device_id=device)
+    try:
+        rec = mesh_train_rank("tinyllama-1.1b", device,
+                              mesh_shape(world)[1], workdir=Path(workdir))
+    finally:
+        dist.destroy_process_group()
+    emit(rec)
+    return 0
+
+
+def _spawn_mesh_ranks(world: int) -> list:
+    """The mesh phase in ``world`` processes, one per card, joined by an
+    NCCL group over a ``file://`` store; every rank's record.  Raises
+    (after stopping every rank) if any fails or the time limit passes."""
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    init = f"file://{workdir / 'store'}"
+    procs, outs = [], []
+    try:
+        for r in range(world):
+            out = open(workdir / f"rank{r}.out", "w+")
+            outs.append(out)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-rank", str(r), str(world), init,
+                 str(workdir / "ckpt")],
+                stdout=out, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(codes):
+                break
+            time.sleep(0.5)
+        recs = []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            out.seek(0)
+            text = out.read()
+            check(p.returncode == 0,
+                  f"mesh rank {r} of {world} exited {p.returncode}: "
+                  f"{text[-3000:]}")
+            recs.append(json.loads(text.strip().splitlines()[-1]))
+        return recs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for out in outs:
+            out.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_mesh_train(device, gate=MESH_GATE, timed=MESH_TIMED) -> dict:
+    """tinyllama-1.1b at full width and depth through the mesh path on
+    the visible cards (:func:`mesh_shape`): on one card a ``(1, 1)`` mesh
+    over an NCCL group of one, in this process; on more, one spawned
+    process per card.  A group that cannot form, or NCCL failing, raises:
+    nothing falls back to gloo or the host.  Every flash call of the mesh
+    runs must be the kernel's on each rank's local heads: 2 L a step
+    (forward and remat recompute), ``mma`` in bf16, ``ffma`` in the
+    float32 gate."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import close_group, init_group
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    shape = mesh_shape(cards)
+    world = shape[0] * shape[1]
+    if world == 1:
+        init_group(device)
+        try:
+            recs = [mesh_train_rank("tinyllama-1.1b", device, 1, gate,
+                                    timed)]
+        finally:
+            close_group()
+    else:
+        torch.cuda.empty_cache()
+        recs = _spawn_mesh_ranks(world)
+    cfg = get_config("tinyllama-1.1b")
+    L, mp = cfg.n_layers, shape[1]
+    heads = f"{cfg.n_heads // mp}/{cfg.n_kv_heads // mp}"
+    want = {"gate": {"mma": 0, "split": 0, "ffma": 2 * gate[0]},
+            "timed": {"mma": 2 * L * timed[0], "split": 0, "ffma": 0}}
+    for r in recs:
+        for what in ("gate", "timed"):
+            check(r[what]["variants"]["flash_attention"] == want[what]
+                  and r[what]["flash_heads"] == {
+                      heads: want[what]["mma"] + want[what]["ffma"]},
+                  f"mesh rank {r['rank']} {what}: flash variants "
+                  f"{r[what]['variants']['flash_attention']} on heads "
+                  f"{r[what]['flash_heads']}, expected {want[what]} on "
+                  f"{heads}")
+    lead = recs[0]
+    return {"phase": "mesh_train", "arch": cfg.name, "layers": L,
+            "cards": world, "mesh": list(shape),
+            "local_heads": heads, "gate": lead["gate"],
+            "timed": lead["timed"],
+            "per_rank_peak_bytes": [r["timed"]["peak_bytes"] for r in recs],
+            "per_rank_launches": [r["timed"]["launches"]["flash_attention"]
+                                  for r in recs],
+            "flash_variants_expected": want,
+            "wall_s": time.perf_counter() - t0}
+
+
 #: the dry-run cell run on the card: one decode step of mamba2-2.7b at
 #: long_500k from a zeroed cache
 DRYRUN_CELL = ("mamba2-2.7b", "long_500k")
@@ -4647,6 +5042,9 @@ def main() -> int:
     plrec = phase_pipeline(get_config("tinyllama-1.1b"), device)
     emit(plrec)
     torch.cuda.empty_cache()
+    mtrec = phase_mesh_train(device)
+    emit(mtrec)
+    torch.cuda.empty_cache()
     emit(phase_dryrun(device))
 
     replaces = {"lut_eval6": "src/repro/kernels/lut_eval.py:90",
@@ -4664,11 +5062,12 @@ def main() -> int:
                 "lut_eval": lrec["launches"]["lut_eval"],
                 # kratos-dd serving, the new families' timed serving
                 # runs, the timed training run, gemma2-2b's chunked
-                # forward and the pipeline
+                # forward, the pipeline and the mesh run (every rank's)
                 "flash_attention": flash_launches + sum(
                     r["timed"]["launches"]["flash_attention"]
                     for r in (moerec, i8rec, vlmrec, encrec, trec, chrec))
-                + plrec["bf16"]["launches"]["flash_attention"],
+                + plrec["bf16"]["launches"]["flash_attention"]
+                + sum(mtrec["per_rank_launches"]),
                 "bitplane_matmul": bit_launches,
                 # the two models' timed forwards (64 + 32 SSD layers)
                 "ssd_scan": sum(r["forward"]["launches"]["ssd_scan"]
@@ -4732,7 +5131,11 @@ def main() -> int:
             "pipeline tinyllama-1.1b":
                 plrec["bf16"]["variants"]["flash_attention"],
             "pipeline float32 tinyllama-1.1b":
-                plrec["float32"]["variants"]["flash_attention"]},
+                plrec["float32"]["variants"]["flash_attention"],
+            "mesh train bf16 (rank 0)":
+                mtrec["timed"]["variants"]["flash_attention"],
+            "mesh train gate float32 (rank 0)":
+                mtrec["gate"]["variants"]["flash_attention"]},
         "bitplane_matmul": {
             "quantized": qrec["variants"]["bitplane_matmul"]},
         "ssd_scan": {
@@ -4766,4 +5169,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4], sys.argv[5]))
     sys.exit(main())

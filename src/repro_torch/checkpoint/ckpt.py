@@ -14,9 +14,16 @@ indices): ``0/blocks/wq``, ``1/mu/embed``, ``1/count`` for ``(params,
 opt_state)``.  bfloat16 leaves are stored as float32 (exact; numpy has no
 bfloat16).  A save writes into a temporary directory and renames it into
 place, so a crash mid-write never leaves a partial ``step_`` directory;
-the ``keep_last`` newest are kept.  The reference's ``shardings`` (a mesh
-to restore onto) has no counterpart on one card: ``restore`` takes a
-device instead.
+the ``keep_last`` newest are kept.
+
+On a mesh (DTensor leaves) a save gathers each leaf whole
+(``full_tensor()``, a collective every rank joins), rank 0 alone writes
+the same files, and every rank waits at a barrier before the old steps are
+collected, so no rank reads a step that is not yet in place.  A restore
+places each leaf as its template leaf lies: a DTensor template leaf on its
+mesh in its placements (the reference's ``shardings``), which may differ
+from the mesh the checkpoint was saved from; a plain one on its device or
+on ``device``.
 """
 from __future__ import annotations
 
@@ -27,9 +34,11 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree
 from ..device import resolve_device
+from ..parallel.api import is_distributed
 
 SEP = "/"
 
@@ -52,10 +61,30 @@ def save(directory: str, step: int, nested, keep_last: int = 3,
          extra: dict | None = None) -> str:
     flat = _flatten(nested)
     final = os.path.join(directory, f"step_{step:08d}")
+    on_mesh = any(is_distributed(v) for v in flat.values())
+    writer = not on_mesh or dist.get_rank() == 0
+    arrays = {}
+    for k, v in flat.items():   # one leaf gathered at a time
+        v = v.full_tensor() if is_distributed(v) else v
+        if writer:
+            arrays[k] = _to_numpy(v)
+        del v
+    if writer:
+        _write(directory, final, step, arrays, extra)
+    if on_mesh:
+        dist.barrier()
+    if writer:
+        _gc(directory, keep_last)
+    return final
+
+
+def _write(directory: str, final: str, step: int, arrays: dict,
+           extra: dict | None) -> None:
+    """The arrays and manifest into a temporary directory, renamed into
+    place as ``final``."""
     os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
     try:
-        arrays = {k: _to_numpy(v) for k, v in flat.items()}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         manifest = {
             "step": step,
@@ -71,8 +100,6 @@ def save(directory: str, step: int, nested, keep_last: int = 3,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    _gc(directory, keep_last)
-    return final
 
 
 def _gc(directory: str, keep_last: int) -> None:
@@ -95,9 +122,11 @@ def restore(directory: str, template, step: int | None = None,
     """``(tree, step)``: the checkpoint at ``step`` (the latest by
     default) in ``template``'s nesting, each leaf in its template leaf's
     type, on ``device`` (resolved by :func:`repro_torch.device.
-    resolve_device`) or, by default, on its template leaf's device.
-    Leaves are read one at a time, each moved to its device before the
-    next is read, so the host holds one leaf, not the whole state."""
+    resolve_device`) or, by default, on its template leaf's device; a
+    DTensor template leaf's on its mesh in its placements, each rank
+    keeping its own piece.  Leaves are read one at a time, each moved to
+    its device before the next is read, so the host holds one leaf, not
+    the whole state."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -114,8 +143,19 @@ def restore(directory: str, template, step: int | None = None,
             if list(a.shape) != list(tmpl.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{a.shape} vs {tuple(tmpl.shape)}")
-            leaves.append(torch.from_numpy(a).to(
-                device=tmpl.device if dev is None else dev,
-                dtype=tmpl.dtype))
+            leaves.append(_place(torch.from_numpy(a), tmpl, dev))
             del a
     return tree.unflatten(template, leaves), step
+
+
+def _place(t: torch.Tensor, tmpl, dev):
+    """A restored leaf in its template leaf's type, where the template
+    leaf lies (or on ``dev``)."""
+    if is_distributed(tmpl):
+        from torch.distributed.tensor import distribute_tensor
+
+        local_dev = tmpl.to_local().device if dev is None else dev
+        return distribute_tensor(t.to(device=local_dev, dtype=tmpl.dtype),
+                                 tmpl.device_mesh, tmpl.placements,
+                                 src_data_rank=None)
+    return t.to(device=tmpl.device if dev is None else dev, dtype=tmpl.dtype)

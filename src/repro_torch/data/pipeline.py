@@ -47,10 +47,13 @@ def batch_for_step(cfg: ModelConfig, seq_len: int, global_batch: int,
     return out
 
 
-def to_device(batch: dict, device=None) -> dict:
+def to_device(batch: dict, device=None, mesh=None) -> dict:
     """The batch as tensors on ``device`` (the card unless asked for the
     CPU): integer arrays (tokens, labels) as int64, torch's index type;
-    the rest in their own type."""
+    the rest in their own type.  With a ``DeviceMesh`` ``mesh`` each leaf
+    is a DTensor placed by :func:`repro_torch.parallel.sharding.
+    batch_specs` (rows over the data axes); every rank holds the same
+    global batch (a pure function of the step) and keeps its own rows."""
     dev = resolve_device(device)
     out = {}
     for k, v in batch.items():
@@ -58,4 +61,9 @@ def to_device(batch: dict, device=None) -> dict:
         if not t.is_floating_point():
             t = t.to(torch.int64)
         out[k] = t.to(dev)
+    if mesh is not None:
+        from ..parallel import sharding
+
+        out = sharding.distribute(out, sharding.batch_specs(None, mesh, out),
+                                  mesh)
     return out

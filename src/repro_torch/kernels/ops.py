@@ -148,6 +148,9 @@ def _flash_forward(q, k, v, causal, window, softcap, scale, use_kernel):
             flash_attention.launches += 1
             flash_attention.variants[variant(q.dtype, q.shape[2],
                                              q.shape[1] // k.shape[1])] += 1
+            heads = f"{q.shape[1]}/{k.shape[1]}"
+            flash_attention.heads[heads] = \
+                flash_attention.heads.get(heads, 0) + 1
         return out
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
@@ -255,6 +258,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn, names in _VARIANTS.items():
         fn.variants = dict.fromkeys(names, 0)
+    flash_attention.heads = {}
 
 
 reset_launch_counts()
@@ -262,6 +266,13 @@ reset_launch_counts()
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def flash_head_counts() -> dict[str, int]:
+    """The flash kernel's launches since the last
+    :func:`reset_launch_counts` by the heads they got, ``"Hq/Hkv"`` (on a
+    mesh, each rank's local heads)."""
+    return dict(flash_attention.heads)
 
 
 def variant_counts() -> dict[str, dict[str, int]]:

@@ -7,8 +7,10 @@ Blocks operate on one layer's parameter slice (no leading L axis).  A
 cache is a dict of one layer's tensors (``k``/``v`` ``[B, T, Hkv, D]``,
 int8 with float32 ``k_scale``/``v_scale`` ``[B, T, Hkv]`` for the int8
 cache; ``conv`` ``[B, Kc-1, H*P]``, ``ssm`` ``[B, H, P, N]``), updated in
-place.  The reference's ``constrain`` calls are sharding hints for a
-mesh; on one card they are nothing.
+place.  On a mesh (DTensor activations and weights) the MoE dispatch
+keeps the reference's ``constrain`` pins, and the row-sharded output
+products end in :func:`repro_torch.models.layers.reduce_model`; on one
+device both are nothing.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
-from .layers import attention, glu_ffn, rms_norm, rope
+from ..parallel.api import constrain, is_distributed
+from .layers import (attention, glu_ffn, mesh_axes, mesh_placements,
+                     reduce_model, rms_norm, rope)
 
 HUGE_WINDOW = 1 << 30
 #: the profiler range the dropless expert products run in
@@ -68,7 +72,7 @@ def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
     else:
         out = attention(cfg, q, k, v, causal=causal, window=window,
                         softcap=cfg.attn_softcap, use_kernel=use_kernel)
-    out = out.reshape(B, S, Hq * D) @ p["wo"]
+    out = reduce_model(out.reshape(B, S, Hq * D) @ p["wo"])
     if "post_ln" in p:  # gemma2 post-attention norm
         out = rms_norm(out, p["post_ln"], cfg.rms_eps)
     return out, cache
@@ -112,7 +116,8 @@ def _cached_kv(cache: dict, end: int | None, dtype):
 def ffn_block(cfg: ModelConfig, p, x):
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
     if cfg.act == "gelu_mlp":
-        out = F.gelu(h @ p["wi"], approximate="tanh") @ p["wo_ff"]
+        out = reduce_model(F.gelu(h @ p["wi"], approximate="tanh")
+                           @ p["wo_ff"])
     else:
         out = glu_ffn(h, p["wi"], p["wo_ff"], cfg.act)
     if "post_ln2" in p:
@@ -154,11 +159,14 @@ def _moe_gates(probs, idx, E: int):
 def _moe_expert_weights(p, cdt):
     """The expert weights ``we_i [E, d, 2f]``, ``we_o [E, f, d]`` in
     ``cdt``: float8 ones (``train.step._fp8_expert_params``) dequantized
-    by their per-channel scales."""
+    by their per-channel scales, after the ``moe_expert_w8`` pin (on a
+    mesh the float8 tensor is resharded, then dequantized locally)."""
     we_i, we_o = p["we_i"], p["we_o"]
     if "we_i_scale" in p:
+        we_i = constrain(we_i, "moe_expert_w8")
         we_i = we_i.to(cdt) * p["we_i_scale"].to(cdt)
     if "we_o_scale" in p:
+        we_o = constrain(we_o, "moe_expert_w8")
         we_o = we_o.to(cdt) * p["we_o_scale"].to(cdt)
     return we_i, we_o
 
@@ -195,19 +203,56 @@ def moe_block(cfg: ModelConfig, p, x):
     slot = torch.clamp(slot, 0, C - 1).long()
     slot_oh = F.one_hot(slot, C).float() * keep[..., None]
     disp = torch.einsum("ngke,ngkc->ngec", onehot, slot_oh).to(cdt)
+    disp = constrain(disp, "moe_dispatch")
     xe = torch.einsum("ngd,ngec->necd", ht, disp)
+    xe = constrain(xe, "moe_expert_in")
     we_i, we_o = _moe_expert_weights(p, cdt)
-    he = torch.einsum("necd,edf->necf", xe, we_i)
-    gate, up = torch.chunk(he, 2, dim=-1)
-    he = F.silu(gate.float()).to(cdt) * up
-    ye = torch.einsum("necf,efd->necd", he, we_o)
+    ye = constrain(_capacity_experts(xe, we_i, we_o), "moe_expert_in")
     comb = torch.einsum("ngke,ngkc,ngk->ngec", onehot, slot_oh,
                         gate_vals).to(cdt)
+    comb = constrain(comb, "moe_dispatch")
     yt = torch.einsum("necd,ngec->ngd", ye, comb)
     out = yt.reshape(B, S, d).to(x.dtype)
     if cfg.n_shared_experts > 0:
         out = out + glu_ffn(h, p["ws_i"], p["ws_o"], "swiglu")
     return out, _moe_aux_loss(cfg, probs, onehot)
+
+
+def _expert_ffn(xe, we_i, we_o):
+    """The capacity dispatch's expert SwiGLU: ``xe [n, E, C, d]`` through
+    ``we_i [E, d, 2f]`` and ``we_o [E, f, d]`` -> ``[n, E, C, d]``."""
+    he = torch.einsum("necd,edf->necf", xe, we_i)
+    gate, up = torch.chunk(he, 2, dim=-1)
+    he = F.silu(gate.float()).to(xe.dtype) * up
+    return torch.einsum("necf,efd->necd", he, we_o)
+
+
+def _capacity_experts(xe, we_i, we_o):
+    """:func:`_expert_ffn`; on a mesh under ``local_map``, each rank
+    running its own experts (``E`` over ``model``, the weights gathered
+    over the data axes, which shard their ``d`` FSDP-style) on its own
+    groups (``n`` over the data axes when they divide it)."""
+    if not is_distributed(xe):
+        return _expert_ffn(xe, we_i, we_o)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xe.device_mesh
+    dp, n_dp, mp = mesh_axes(mesh)
+    n_on_dp = xe.shape[0] % n_dp == 0
+    e_dim = xe.shape[1] % mp == 0
+    x_pl = mesh_placements(mesh, {**{n: 0 if n_on_dp else None for n in dp},
+                                  "model": 1 if e_dim else None})
+    w_pl = mesh_placements(mesh, {"model": 0 if e_dim else None})
+    # a rank's weight gradient covers its own groups only: partial over
+    # the data axes when they split the groups
+    wg_pl = [Partial() if n in dp and n_on_dp else w
+             for n, w in zip(mesh.mesh_dim_names, w_pl)]
+    return local_map(_expert_ffn, out_placements=x_pl,
+                     in_placements=(x_pl, w_pl, w_pl),
+                     in_grad_placements=(x_pl, wg_pl, wg_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         xe, we_i, we_o)
 
 
 def _dropless_experts(ht, we_i, we_o, weight):
@@ -312,7 +357,8 @@ def ssd_block(cfg: ModelConfig, p, x, cache=None, use_kernel: bool = True):
     d_skip = p["d_skip"].to(x.dtype).repeat_interleave(P)
     y = y + xh.reshape(B, S, H * P) * d_skip
     y = y.to(x.dtype) * F.silu(zx.float()).to(x.dtype)
-    out = rms_norm(y, p["out_ln"], cfg.rms_eps) @ p["out_proj"]
+    out = reduce_model(rms_norm(y, p["out_ln"], cfg.rms_eps)
+                       @ p["out_proj"])
     return out, cache
 
 

@@ -8,6 +8,13 @@ kernel on a CUDA tensor and runs the plain version on a CPU tensor;
 ``use_kernel=False`` runs :func:`attention_ref`, the reference's masked
 attention, or, under ``cfg.chunked_local_attn`` and the reference's
 conditions (:func:`chunked_applies`), :func:`local_chunked_attention`.
+
+On a mesh the activations and weights are DTensors, and every op but
+attention runs by DTensor's own rules.  Attention runs under
+``local_map`` (:func:`attention_on_mesh`): each rank attends with its own
+batch rows (``data``) and heads (``model``), through the same route as
+on one device; :func:`reduce_model` sums a row-sharded product's partial
+results over ``model``.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..parallel.api import is_distributed
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -176,6 +184,84 @@ def _prefix_len(kv_len, q_positions, S: int) -> int:
     return end
 
 
+def mesh_axes(mesh) -> tuple[list[str], int, int]:
+    """``(data axes, their total size, the model axis's size)`` of a
+    ``DeviceMesh``: every axis but ``model`` is a data axis."""
+    names = mesh.mesh_dim_names
+    dp = [n for n in names if n != "model"]
+    n_dp = math.prod(mesh.size(names.index(n)) for n in dp)
+    mp = mesh.size(names.index("model")) if "model" in names else 1
+    return dp, n_dp, mp
+
+
+def mesh_placements(mesh, dims: dict):
+    """Placements on ``mesh``: ``Shard(dims[name])`` on each mesh
+    dimension whose name ``dims`` maps to a tensor dimension,
+    ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(dims[n]) if dims.get(n) is not None else Replicate()
+            for n in mesh.mesh_dim_names]
+
+
+def attention_on_mesh(fn, q, k, v):
+    """``fn(q, k, v)`` (one device's attention on ``[B, S, H, D]``) on
+    DTensors, under ``local_map``: every rank runs ``fn`` on its own batch
+    rows (over the data axes, when they divide B) and its own query heads
+    (over ``model``, when it divides Hq) and holds its part of the output.
+    Keys and values are sharded alike when ``model`` divides their heads;
+    otherwise each rank gets every kv head and picks, for each of its
+    query heads, the one the query head reads (grouped-query attention on
+    local heads), so the grouping is the one-device grouping whatever the
+    split.  The local tensors are made contiguous, the layout the kernel
+    reads."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    B, _, Hq, _ = q.shape
+    Hkv = k.shape[2]
+    dp, n_dp, mp = mesh_axes(mesh)
+    bdim = 0 if B % n_dp == 0 else None
+    hq = 2 if Hq % mp == 0 else None
+    hk = 2 if (hq is not None and Hkv % mp == 0) else None
+    q_pl = mesh_placements(mesh, {**{n: bdim for n in dp}, "model": hq})
+    kv_pl = mesh_placements(mesh, {**{n: bdim for n in dp}, "model": hk})
+    G = Hq // Hkv
+
+    def local(ql, kl, vl):
+        ql, kl, vl = ql.contiguous(), kl.contiguous(), vl.contiguous()
+        if hq is not None and hk is None and mp > 1:
+            hl = ql.shape[2]
+            first = mesh.get_local_rank("model") * hl
+            pick = torch.arange(first, first + hl, device=ql.device) // G
+            kl, vl = kl[:, :, pick], vl[:, :, pick]
+        return fn(ql, kl, vl)
+
+    # picked kv heads: each rank's kv gradient covers its own query heads
+    # only, a partial sum over model
+    kv_grad = kv_pl if hk is not None or hq is None else [
+        Partial() if n == "model" else p
+        for n, p in zip(mesh.mesh_dim_names, kv_pl)]
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def reduce_model(x):
+    """The all-reduce over ``model`` that ends a row-sharded product (the
+    contraction dimension split over ``model``, so each rank holds a
+    partial sum): a DTensor's partial placements become replicas.  A plain
+    tensor, or a DTensor with nothing partial, comes back as it is."""
+    if not is_distributed(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
 def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=None,
               softcap=None, scale=None, kv_len=None, q_positions=None,
               use_kernel: bool = True):
@@ -185,7 +271,18 @@ def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=None,
     :func:`local_chunked_attention` where :func:`chunked_applies`.  The
     kernel route needs no block-local form: flash with ``window``
     computes the same function and skips the masked key tiles, O(S * 2w)
-    work too."""
+    work too.  On DTensors either route runs per rank on local heads
+    (:func:`attention_on_mesh`); a mesh takes no ``kv_len`` or
+    ``q_positions`` (no cached serving on a mesh)."""
+    if is_distributed(q):
+        if kv_len is not None or q_positions is not None:
+            raise NotImplementedError(
+                "attention on a mesh takes no kv_len / q_positions")
+        return attention_on_mesh(
+            lambda ql, kl, vl: attention(
+                cfg, ql, kl, vl, causal=causal, window=window,
+                softcap=softcap, scale=scale, use_kernel=use_kernel),
+            q, k, v)
     if not use_kernel:
         if chunked_applies(cfg, q, k, window=window, kv_len=kv_len,
                            causal=causal):
@@ -213,7 +310,7 @@ def glu_ffn(x, wi, wo, act: str):
         g = F.gelu(wide(gate), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(act)
-    return (g * up) @ wo
+    return reduce_model((g * up) @ wo)
 
 
 #: a stacked leaf with more elements than this (8 GiB as float32) is drawn

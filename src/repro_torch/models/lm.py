@@ -14,18 +14,22 @@ attention window is a static int.  With ``cfg.remat`` and a gradient to
 take, each layer of every stack runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint(..., nothing_saveable)`` around each layer):
 only its input is kept, and the backward recomputes the layer.  The
-reference's ``constrain`` calls are sharding hints for a mesh; on one card
-they are nothing.
+reference's ``constrain(x, "activation")`` calls stand at its places
+(after the embedding and after every decoder layer but the encdec
+family's): on a mesh they pin the residual stream to batch over data,
+replicated over model; on one device they are nothing.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import tree
 from ..configs.base import ModelConfig
+from ..parallel.api import constrain, is_distributed
 from . import blocks
 from .blocks import HUGE_WINDOW
 from .layers import (attention_ref, dtype_of, gen_device, init_dense,
@@ -194,8 +198,52 @@ def stacks(cfg: ModelConfig) -> list[tuple[str, int, list[int]]]:
                                                 offset=nd))]
 
 
+def _embed_on_mesh(w, tokens):
+    """``w[tokens]`` for a table ``w [V, d]`` sharded by rows and / or
+    columns, under ``local_map``: the ids replicated over the mesh, each
+    rank looks up the ids in its own row range (zeros for the others) in
+    its own columns.  The result is partial (a sum) over the mesh
+    dimensions that split the rows, sharded over those that split the
+    columns; the table's gradient is each rank's own slice, whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    rows = [m for m, p in enumerate(w.placements) if p.is_shard(0)]
+    out_pl = [Partial() if p.is_shard(0) else
+              Shard(2) if p.is_shard(1) else Replicate()
+              for p in w.placements]
+    rep = [Replicate()] * mesh.ndim
+
+    def lookup(ids, wl):
+        n = wl.shape[0]
+        block = 0
+        for m in rows:          # the row block's index, major dim first
+            block = block * mesh.size(m) + mesh.get_local_rank(m)
+        local = ids - block * n
+        outside = (local < 0) | (local >= n)
+        out = F.embedding(torch.where(outside, 0, local), wl)
+        return torch.where(outside[..., None], 0.0, out)
+
+    if not is_distributed(tokens):
+        from torch.distributed.tensor import distribute_tensor
+
+        tokens = distribute_tensor(tokens, mesh, rep, src_data_rank=None)
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(rep, w.placements),
+                     in_grad_placements=(rep, w.placements),
+                     device_mesh=mesh, redistribute_inputs=True)(tokens, w)
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    emb = params["embed"][tokens]
+    """The token embeddings in the compute type.  On a mesh the table
+    stays sharded (``[V on model, d on data]``): the token ids are
+    gathered over the mesh and each rank looks up the rows of its
+    vocabulary slice in its ``d`` columns (:func:`_embed_on_mesh`); the
+    partial sums over ``model`` are added where the result is next read
+    (by the ``activation`` pin).  No rank ever holds the whole table."""
+    w = params["embed"]
+    emb = _embed_on_mesh(w, tokens) if is_distributed(w) else w[tokens]
     if cfg.name.startswith("gemma"):
         emb = emb * (cfg.d_model ** 0.5)
     return emb.to(dtype_of(cfg.compute_dtype))
@@ -223,8 +271,8 @@ def _layer(cfg: ModelConfig, p: dict, window, positions, use_kernel: bool,
 
     def body(x, enc_out=None):
         if cfg.family == "ssm":
-            return x + blocks.ssd_block(cfg, p, x,
-                                        use_kernel=use_kernel)[0], zero
+            x = x + blocks.ssd_block(cfg, p, x, use_kernel=use_kernel)[0]
+            return constrain(x, "activation"), zero
         if cfg.family == "hybrid":
             a, _ = blocks.hybrid_block(cfg, p, x, positions, window,
                                        use_kernel=use_kernel)
@@ -237,8 +285,10 @@ def _layer(cfg: ModelConfig, p: dict, window, positions, use_kernel: bool,
         if "router" in p:
             moe = blocks.moe_block if train else blocks.moe_block_dropless
             m, aux = moe(cfg, p, x)
-            return x + m, aux
-        return x + blocks.ffn_block(cfg, p, x), zero
+            return constrain(x + m, "activation"), aux
+        x = x + blocks.ffn_block(cfg, p, x)
+        return (x if enc_out is not None else constrain(x, "activation"),
+                zero)
 
     return body
 
@@ -265,6 +315,11 @@ def _cross_attn(cfg: ModelConfig, p, x, enc):
     v = (enc @ p["x_wv"]).reshape(B, -1, Hkv, D)
     out = attention_ref(q, k, v, causal=False)
     return out.reshape(B, S, Hq * D) @ p["x_wo"]
+
+
+def _local(t):
+    """A DTensor's local tensor (its device is this rank's), else ``t``."""
+    return t.to_local() if is_distributed(t) else t
 
 
 def _run(fn, remat: bool, *args):
@@ -309,7 +364,8 @@ def forward(cfg: ModelConfig, params, tokens, *, patch_embeds=None,
         pe = patch_embeds.to(x.dtype) @ params["patch_proj"]
         x = torch.cat([pe, x], dim=1)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    x = constrain(x, "activation")
+    positions = torch.arange(S, device=_local(x).device)[None, :].expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled() and (x.requires_grad or any(
         t.requires_grad for t in tree.leaves(params)))
     enc_out = None
@@ -318,7 +374,7 @@ def forward(cfg: ModelConfig, params, tokens, *, patch_embeds=None,
             raise ValueError("an encdec forward needs encoder_feats")
         enc_out = encode(cfg, params, encoder_feats.to(x.dtype),
                          use_kernel=use_kernel, remat=remat)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=positions.device)
     for stack, _, windows in stacks(cfg):
         for i, window in enumerate(windows):
             body = _layer(cfg, layer_params(params, i, stack), window,

@@ -3,10 +3,11 @@
 Model code may name a distribution-critical intermediate,
 ``constrain(x, "moe_dispatch")``; a launcher installs a rule table mapping
 those names to specs (:func:`repro_torch.parallel.sharding.activation_rules`)
-with :func:`sharding_rules`.  The port runs on one card, where a
-constraint has nothing to place: :func:`constrain` returns ``x``
-unchanged, as the reference's does outside a mesh, so the port's models
-leave the calls out (``models/blocks.py``, ``models/lm.py``).
+with :func:`sharding_rules`.  On a mesh the named tensor is a DTensor,
+and :func:`constrain` redistributes it to the rule's placements (the
+counterpart of ``jax.lax.with_sharding_constraint``).  Outside any rule
+table, for a name no rule names, or on a plain tensor (one device) it
+returns ``x`` unchanged, so the models run as they are on one card.
 """
 from __future__ import annotations
 
@@ -33,7 +34,53 @@ def sharding_rules(rules: dict):
         _state.rules = prev
 
 
+def is_distributed(t) -> bool:
+    """Whether ``t`` is a DTensor (a tensor placed on a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def on_mesh(leaves):
+    """A context for arithmetic on mesh tensors: when any of ``leaves``
+    is a DTensor, plain tensors met inside (positions, masks, step
+    counts, learning rates, made alike on every rank) count as replicated
+    over the mesh; otherwise nothing."""
+    if any(is_distributed(t) for t in leaves):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def like(t, ref):
+    """``t`` redistributed to the placements of ``ref`` when both are
+    DTensors (a gradient to its parameter's, a new optimizer statistic to
+    the one it replaces); otherwise ``t``."""
+    if not (is_distributed(t) and is_distributed(ref)):
+        return t
+    if tuple(t.placements) == tuple(ref.placements):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
+
+
+def plain(t):
+    """A DTensor as the whole tensor on this rank (gathered if it is
+    sharded, reduced if it is partial); a plain tensor as it is."""
+    return t.full_tensor() if is_distributed(t) else t
+
+
 def constrain(x, name: str):
-    """``x`` itself: on one card a sharding constraint changes nothing,
-    whether or not a rule names ``name``."""
-    return x
+    """``x`` redistributed to the placements of the installed rule
+    ``name`` on its own mesh; ``x`` itself when no rule names ``name`` or
+    ``x`` is a plain tensor."""
+    rules = current_rules()
+    if not rules or name not in rules or not is_distributed(x):
+        return x
+    from .sharding import placements
+
+    want = placements(rules[name], x.device_mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)

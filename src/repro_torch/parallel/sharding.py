@@ -10,17 +10,21 @@ Strategy (MaxText-style 2-D + optional pod axis), as the reference's:
 * a dimension the axis size does not divide stays replicated, so the
   tables are computed, not written per arch.
 
-Every function is pure: a config, a :class:`repro_torch.launch.mesh.Mesh`
-record and a tree of shapes (``meta`` tensors, nested dicts) in, a tree
-of :class:`Spec` out.  The reference's ``named`` (a ``NamedSharding`` of
-a spec) has no counterpart: :func:`activation_rules` returns the specs.
+The rule functions are pure: a config, a mesh (a
+:class:`repro_torch.launch.mesh.Mesh` record or a ``DeviceMesh``) and a
+tree of shapes (``meta`` tensors, nested dicts) in, a tree of
+:class:`Spec` out.  The reference's ``named`` (a ``NamedSharding`` of a
+spec) has no counterpart: :func:`activation_rules` returns the specs, and
+:func:`placements` turns a spec into the DTensor placements of a
+``DeviceMesh``; :func:`distribute` places a tree by its specs, the
+counterpart of ``jax.device_put(x, NamedSharding(mesh, spec))``.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
 from ..configs.base import ModelConfig
-from ..launch.mesh import Mesh
+from ..launch.mesh import Mesh, as_record
 
 
 class Spec(tuple):
@@ -55,12 +59,14 @@ def spec_paths(t, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
 
 
 def dp_axes(mesh: Mesh) -> tuple[str, ...]:
+    mesh = as_record(mesh)
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
 def axis_size(mesh: Mesh, axes) -> int:
     if axes is None:
         return 1
+    mesh = as_record(mesh)
     if isinstance(axes, str):
         axes = (axes,)
     n = 1
@@ -82,6 +88,7 @@ def _div(dim: int, mesh: Mesh, axes):
 def param_specs(cfg: ModelConfig, mesh: Mesh, params_shape) -> dict:
     """A :class:`Spec` tree matching ``params_shape``
     (:func:`repro_torch.launch.specs.params_shape`)."""
+    mesh = as_record(mesh)
     DP = dp_axes(mesh)
     M = "model"
 
@@ -125,6 +132,7 @@ def opt_specs(cfg: ModelConfig, mesh: Mesh, pspecs, opt_shape) -> dict:
     unfactored ``v`` mirror their parameter's spec; the factored
     statistics drop the dimension they reduce (``vr`` the last, ``vc``
     the second to last); the step count is replicated."""
+    mesh = as_record(mesh)
     by_key = dict(spec_paths(pspecs))
 
     def spec_for(keys: tuple, leaf) -> Spec:
@@ -154,6 +162,7 @@ def opt_specs(cfg: ModelConfig, mesh: Mesh, pspecs, opt_shape) -> dict:
 
 def batch_specs(cfg: ModelConfig, mesh: Mesh, batch_shape) -> dict:
     """Every batch leaf's leading (batch) axis over the data axes."""
+    mesh = as_record(mesh)
     DP = dp_axes(mesh)
 
     def spec_for(path, leaf) -> Spec:
@@ -179,6 +188,7 @@ def _kv_time_axes(dims, b, h, mesh: Mesh, DP):
 def cache_specs(cfg: ModelConfig, mesh: Mesh, cache_shape) -> dict:
     """Decode caches: kv heads over ``model`` when divisible, batch over
     the data axes when divisible, the time axis over what is left."""
+    mesh = as_record(mesh)
     DP = dp_axes(mesh)
     M = "model"
 
@@ -206,6 +216,7 @@ def activation_rules(cfg: ModelConfig, mesh: Mesh, *,
                      n_moe_groups: int = 0) -> dict:
     """The rule table for :func:`repro_torch.parallel.api.constrain`,
     name -> :class:`Spec`."""
+    mesh = as_record(mesh)
     DP = dp_axes(mesh)
     M = "model"
     rules = {"activation": Spec(DP, None, None)}
@@ -223,7 +234,60 @@ def activation_rules(cfg: ModelConfig, mesh: Mesh, *,
 def spec_shards(spec: Spec, mesh: Mesh) -> int:
     """How many pieces ``spec`` cuts a leaf into on ``mesh``: the product
     of the sizes of the axes its entries name."""
+    mesh = as_record(mesh)
     n = 1
     for e in spec:
         n *= axis_size(mesh, e)
     return n
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements
+# ---------------------------------------------------------------------------
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``:
+    ``Shard(i)`` on each mesh dimension that entry ``i`` names,
+    ``Replicate()`` on the others.  A tuple entry such as ``("pod",
+    "data")`` shards one tensor dimension over several mesh dimensions,
+    the first named major, as JAX lays it out; DTensor orders them by mesh
+    dimension, so the names must come in the mesh's order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"{spec}: axes {axes} of dimension {i} are "
+                             f"not in the mesh's order {tuple(names)}")
+        for m in dims:
+            out[m] = Shard(i)
+    return tuple(out)
+
+
+def _spec_at(specs, path: tuple) -> Spec:
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def distribute(tree_, specs, mesh):
+    """Every tensor leaf of ``tree_`` (nested dicts and tuples) as a
+    DTensor on ``mesh`` placed by its spec in ``specs`` (the same nesting,
+    a :class:`Spec` per leaf).  Each rank keeps its own piece of the
+    tensor it holds, with no communication: every rank must hold the same
+    values, as ranks that drew them from one seed do."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from .. import tree
+
+    flat = tree.flatten_with_path(tree_)
+    return tree.unflatten(tree_, [
+        distribute_tensor(x, mesh, placements(_spec_at(specs, path), mesh),
+                          src_data_rank=None)
+        for path, x in flat])

@@ -13,6 +13,12 @@
 The step is eager.  The counterpart of the reference's donated buffers is
 that params and optimizer state are rebound every step, so the previous
 step's tensors are freed as soon as the new ones exist.
+
+On a mesh the params are DTensors (``parallel.sharding.distribute``) and
+the caller installs the activation rules; every rank builds the same
+global batch and keeps its rows, reads the same metrics (they are
+replicated), so every rank takes the same quarantine decisions, and the
+checkpoints are gathered and written by rank 0 (``checkpoint.ckpt``).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from .. import tree
 from ..checkpoint import ckpt
 from ..configs.base import ModelConfig
 from ..data.pipeline import batch_for_step, to_device
+from ..parallel.api import is_distributed
 from .step import TrainConfig, make_train_step
 
 log = logging.getLogger("repro_torch.train")
@@ -54,15 +61,17 @@ def fit(cfg: ModelConfig, params, fitc: FitConfig,
         tcfg: TrainConfig | None = None, hooks=None,
         use_kernel: bool = True) -> dict:
     """Train from ``params`` (or the latest checkpoint under
-    ``fitc.ckpt_dir``) to step ``fitc.steps`` on the device the params
-    lie on.  ``hooks``: callables ``h(step, metrics)`` after each good
-    step.  Returns ``params``, ``opt_state``, the good steps' ``losses``,
-    ``final_step`` and ``step_s``, each good step's wall in seconds (host
-    clock from the batch's upload to the loss on the host, which waits
-    for the device)."""
+    ``fitc.ckpt_dir``) to step ``fitc.steps`` on the device (or the mesh)
+    the params lie on.  ``hooks``: callables ``h(step, metrics)`` after
+    each good step.  Returns ``params``, ``opt_state``, the good steps'
+    ``losses``, ``final_step`` and ``step_s``, each good step's wall in
+    seconds (host clock from the batch's upload to the loss on the host,
+    which waits for the device)."""
     tcfg = tcfg or TrainConfig()
     train_step, opt_init = make_train_step(cfg, tcfg, use_kernel=use_kernel)
-    device = tree.leaves(params)[0].device
+    leaf = tree.leaves(params)[0]
+    mesh = leaf.device_mesh if is_distributed(leaf) else None
+    device = leaf.to_local().device if mesh is not None else leaf.device
     opt_state = opt_init(params)
 
     start = 0
@@ -79,7 +88,7 @@ def fit(cfg: ModelConfig, params, fitc: FitConfig,
         t0 = time.perf_counter()
         batch = to_device(batch_for_step(cfg, fitc.seq_len,
                                          fitc.global_batch, step,
-                                         seed=fitc.seed), device)
+                                         seed=fitc.seed), device, mesh)
         params, opt_state, metrics = train_step(params, opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.perf_counter() - t0

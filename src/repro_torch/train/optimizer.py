@@ -9,6 +9,11 @@ over nested dicts of tensors, not ``torch.optim``.
 * ``adafactor`` — factored second moments (rank-1 row / column
   statistics) for configs whose AdamW state cannot fit.
 
+On a mesh the leaves are DTensors: the updates run on each rank's own
+shards, the moments in their parameter's placements (the statistics of a
+factored one less the dimension they reduce), and the global norm is one
+all-reduce over every rank.
+
 An update returns new tensors and leaves its inputs as they were, as the
 reference's does; the caller drops the old state (the train loop rebinds
 it each step).
@@ -20,8 +25,10 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from .. import tree
+from ..parallel.api import is_distributed, like, on_mesh
 
 
 @dataclass(frozen=True)
@@ -52,15 +59,39 @@ def lr_schedule(cfg: OptConfig, step) -> torch.Tensor:
 
 
 def global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.leaves(grads)))
+    """The norm over every leaf.  On a mesh (DTensor leaves) it is one
+    all-reduce over every rank: each rank sums the squares of its own
+    shards, counting a shard only on the first of the ranks that hold it
+    alike, and the ranks' sums are added; the norm is a plain tensor,
+    equal on every rank."""
+    leaves = tree.leaves(grads)
+    if not any(is_distributed(g) for g in leaves):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    total = None
+    for g in leaves:
+        part = torch.sum(torch.square(g.to_local().float()))
+        if not _first_holder(g):
+            part = torch.zeros_like(part)
+        total = part if total is None else total + part
+    dist.all_reduce(total)   # the mesh spans the process group
+    return torch.sqrt(total)
+
+
+def _first_holder(g) -> bool:
+    """Whether this rank is the first, along every mesh dimension ``g``
+    is replicated over, of the ranks that hold its shard."""
+    mesh = g.device_mesh
+    return all(mesh.get_local_rank(m) == 0
+               for m, pl in enumerate(g.placements) if pl.is_replicate())
 
 
 def clip_by_global_norm(grads, max_norm: float):
     """``(grads in float32, scaled to norm <= max_norm; the norm)``."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree.map(lambda g: g.float() * scale, grads), norm
+    with on_mesh(tree.leaves(grads)):
+        return tree.map(lambda g: g.float() * scale, grads), norm
 
 
 # ---------------------------------------------------------------------------
@@ -69,13 +100,15 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _count(params) -> torch.Tensor:
-    dev = tree.leaves(params)[0].device
+    """The step count: a plain tensor, alike on every rank of a mesh."""
+    leaf = tree.leaves(params)[0]
+    dev = leaf.to_local().device if is_distributed(leaf) else leaf.device
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
 def adamw_init(params) -> dict:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):   # a DTensor's moments in its placements
+        return torch.zeros_like(p, dtype=torch.float32)
 
     return {"mu": tree.map(zeros, params), "nu": tree.map(zeros, params),
             "count": _count(params)}
@@ -85,6 +118,11 @@ def adamw_init(params) -> dict:
 def adamw_update(cfg: OptConfig, grads, state, params):
     """``(new params, new state, gradient norm before clipping)``."""
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    with on_mesh(tree.leaves(params)):
+        return _adamw_apply(cfg, grads, state, params, gnorm)
+
+
+def _adamw_apply(cfg: OptConfig, grads, state, params, gnorm):
     count = state["count"] + 1
     lr = lr_schedule(cfg, count)
     b1, b2 = cfg.b1, cfg.b2
@@ -98,7 +136,7 @@ def adamw_update(cfg: OptConfig, grads, state, params):
     def upd(p, m, v):
         step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         step = step + cfg.weight_decay * p.float()
-        return (p.float() - lr * step).to(p.dtype)
+        return like((p.float() - lr * step).to(p.dtype), p)
 
     new_params = tree.map(upd, params, mu, nu)
     return new_params, {"mu": mu, "nu": nu, "count": count}, gnorm
@@ -113,13 +151,34 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
+def _zeros_without(p, dim: int | None):
+    """float32 zeros of ``p``'s shape less dimension ``dim`` (none for
+    None).  For a DTensor ``p`` they keep its placements, a shard of the
+    dropped dimension becoming a replica (``parallel.sharding.opt_specs``'
+    rule for ``vr`` / ``vc``)."""
+    shape = list(p.shape)
+    if dim is not None:
+        del shape[dim]
+    if not is_distributed(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import zeros as dzeros
+
+    dim = None if dim is None else dim % p.ndim
+    pls = []
+    for pl in p.placements:
+        if pl.is_shard() and dim is not None and pl.dim >= dim:
+            pl = Replicate() if pl.dim == dim else Shard(pl.dim - 1)
+        pls.append(pl)
+    return dzeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                  placements=pls)
+
+
 def adafactor_init(params) -> dict:
     def init_one(p):
-        kw = dict(dtype=torch.float32, device=p.device)
         if _factored(p.shape):
-            return {"vr": torch.zeros(p.shape[:-1], **kw),
-                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **kw)}
-        return {"v": torch.zeros(p.shape, **kw)}
+            return {"vr": _zeros_without(p, -1), "vc": _zeros_without(p, -2)}
+        return {"v": _zeros_without(p, None)}
 
     # each parameter's moments are a dict in its place
     return {"v": tree.map(init_one, params), "count": _count(params)}
@@ -134,6 +193,11 @@ def _at(nested, path: tuple):
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, grads, state, params):
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    with on_mesh(tree.leaves(params)):
+        return _adafactor_apply(cfg, grads, state, params, gnorm)
+
+
+def _adafactor_apply(cfg: OptConfig, grads, state, params, gnorm):
     count = state["count"] + 1
     lr = lr_schedule(cfg, count)
     decay = 1.0 - (count.to(torch.float32) + 1.0) ** -0.8
@@ -152,7 +216,8 @@ def adafactor_update(cfg: OptConfig, grads, state, params):
             nv = {"v": decay * v["v"] + (1 - decay) * g2}
             step = g / (torch.sqrt(nv["v"]) + cfg.eps)
         step = step + cfg.weight_decay * p.float()
-        return (p.float() - lr * step).to(p.dtype), nv
+        nv = {k: like(t, v[k]) for k, t in nv.items()}
+        return like((p.float() - lr * step).to(p.dtype), p), nv
 
     flat = tree.flatten_with_path(params)
     outs = [upd(p, _at(grads, path), _at(state["v"], path))

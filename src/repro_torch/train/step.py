@@ -24,6 +24,7 @@ import torch
 from .. import tree
 from ..configs.base import ModelConfig
 from ..models.lm import forward
+from ..parallel.api import like, on_mesh, plain
 from .losses import chunked_xent
 from .optimizer import OptConfig, make_optimizer
 
@@ -96,12 +97,15 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig,
 
 
 def value_and_grad(loss_fn, params, batch):
-    """``((total, (loss, aux)), grads)`` of ``loss_fn`` at ``params``."""
+    """``((total, (loss, aux)), grads)`` of ``loss_fn`` at ``params``.
+    On a mesh (DTensor leaves) each gradient comes back in its
+    parameter's placements."""
     flat = tree.flatten_with_path(params)
     leaves = [p.detach().requires_grad_() for _, p in flat]
-    total, (loss, aux) = loss_fn(tree.unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    with on_mesh(leaves):
+        total, (loss, aux) = loss_fn(tree.unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else like(g, p)
              for p, g in zip(leaves, grads)]
     return ((total.detach(), (loss.detach(), aux.detach())),
             tree.unflatten(params, grads))
@@ -125,8 +129,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             micro = [{k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                       for k, v in batch.items()} for i in range(n)]
             loss = aux = None
-            grads = tree.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree.map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for mb in micro:
                 (_, (l_mb, a_mb)), g_mb = value_and_grad(loss_fn, params,
                                                           mb)
@@ -140,7 +144,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             (_, (loss, aux)), grads = value_and_grad(loss_fn, params, batch)
             grads = _compress(grads, tcfg.grad_compress)
         new_params, new_opt, gnorm = opt_update(grads, opt_state, params)
-        metrics = {"loss": loss, "aux_loss": aux, "grad_norm": gnorm}
+        metrics = {"loss": plain(loss), "aux_loss": plain(aux),
+                   "grad_norm": plain(gnorm)}
         return new_params, new_opt, metrics
 
     return train_step, opt_init

@@ -53,7 +53,8 @@ def test_phase_functions_importable():
                  "tied_router_rows", "lowest_index_topk", "phase_moe_topk",
                  "sample_positions", "call_recorder", "chunked_gate",
                  "phase_serve_chunked", "pipeline_run", "phase_pipeline",
-                 "phase_dryrun"):
+                 "phase_dryrun", "mesh_shape", "mesh_gate", "mesh_timed",
+                 "mesh_train_rank", "phase_mesh_train"):
         assert callable(getattr(cs, name)), name
 
 

@@ -5,9 +5,13 @@ width, and one planted fault per new gate, which the gate must reject:
 - ``moe_topk``: a routing tie broken toward the high index;
 - ``chunked``: a block-local mask with no first-block rule (block 0 also
   sees the zero keys standing before it);
-- ``pipeline``: a tick that drains the wrong microbatch.
+- ``pipeline``: a tick that drains the wrong microbatch;
+- ``mesh_train`` (on a gloo group of 2, a ``(1, 2)`` mesh, in
+  subprocesses): the all-reduce over ``model`` after the row-sharded
+  ``wo`` product dropped, each rank keeping its partial sum.
 """
 import dataclasses
+import json
 import sys
 from pathlib import Path
 
@@ -141,3 +145,93 @@ def test_new_gate_rejects_a_planted_fault(monkeypatch, gate):
     monkeypatch.setattr(module, name, fault)
     with pytest.raises(cs.SmokeFailure):
         run()
+
+
+#: the mesh rehearsal's sizes: gate (layers, batch, sequence) and timed
+#: run (steps, batch, sequence)
+MESH = ((2, 2, 64), (3, 4, 64))
+
+MESH_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, ARGS[0])
+import torch
+import chip_smoke as cs
+from torch.distributed.tensor import DTensor, Replicate
+from repro_torch.models import blocks
+
+
+def dropped(x):
+    # the partial sums over model kept as they are: no all-reduce
+    if not isinstance(x, DTensor) or not any(
+            p.is_partial() for p in x.placements):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements],
+        run_check=False)
+
+
+if ARGS[1] == "fault":
+    blocks.reduce_model = dropped
+# the heads every attention call gets (the kernel's count is the card's)
+from repro_torch.kernels import ref
+heads, plain = set(), ref.flash_attention_ref
+
+
+def seen(q, k, v, **kw):
+    heads.add(f"{q.shape[1]}/{k.shape[1]}")
+    return plain(q, k, v, **kw)
+
+
+ref.flash_attention_ref = seen
+gate, timed = json.loads(ARGS[3])
+try:
+    rec = cs.mesh_train_rank("tinyllama-1.1b", torch.device("cpu"), 2,
+                             gate, timed, workdir=cs.Path(ARGS[2]),
+                             smoke=True)
+    out = {"mesh": rec["mesh"], "gate": rec["gate"], "timed": rec["timed"],
+           "heads": sorted(heads)}
+except cs.SmokeFailure as e:
+    out = {"refused": str(e)[:300]}
+print(json.dumps(out))
+"""
+
+
+def _mesh_ranks(tmp_path, mode: str) -> list:
+    from _torch_ranks import run_ranks
+
+    return run_ranks(MESH_SCRIPT, 2, tmp_path, str(ROOT), mode,
+                     str(tmp_path / "ckpt"), json.dumps(MESH), timeout=240)
+
+
+@pytest.mark.parametrize("cards,shape", [(1, (1, 1)), (2, (1, 2)),
+                                         (3, (1, 2)), (4, (2, 2)),
+                                         (8, (2, 2))])
+def test_mesh_shape_takes_up_to_four_cards_in_pairs(cards, shape):
+    assert cs.mesh_shape(cards) == shape
+
+
+def test_mesh_train_phase_rehearsed_on_cpu(tmp_path):
+    """The phase's rank part on a ``(1, 2)`` gloo mesh at smoke width:
+    the float32 gate and the timed run through ``launch.train`` pass,
+    every flash call on the local heads (tinyllama smoke: 4 query heads
+    and 1 kv head, so 2 and 2 once each rank picks the kv head its query
+    heads read)."""
+    for rec in _mesh_ranks(tmp_path, "sound"):
+        assert rec["mesh"] == {"data": 1, "model": 2}
+        gate, timed = rec["gate"], rec["timed"]
+        assert gate["worst_grad_share_of_tol"] <= 1.0
+        assert gate["loss"]["mesh_vs_unsharded"] <= gate["loss"]["tol"]
+        # the mesh runs on local heads, the unsharded ones on all 4 / 1
+        assert rec["heads"] == ["2/2", "4/1"]
+        assert gate["flash_heads"] == timed["flash_heads"] == {}  # no card
+        assert all(r <= t for r, t in zip(timed["rel_vs_unsharded"],
+                                          timed["tol"]))
+        assert len(timed["float32_losses"]) == MESH[1][0]
+        assert len(timed["losses"]) == MESH[1][0]
+        assert timed["peak_bytes"] is None   # no device: not measured
+    assert (tmp_path / "ckpt" / "run" / "step_00000003").is_dir()
+
+
+def test_mesh_gate_rejects_a_dropped_model_all_reduce(tmp_path):
+    for rec in _mesh_ranks(tmp_path, "fault"):
+        assert "mesh gate" in rec.get("refused", ""), rec

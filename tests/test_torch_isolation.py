@@ -83,6 +83,63 @@ def test_port_runs_with_jax_and_reference_blocked():
     assert "ISOLATED" in out.stdout
 
 
+MESH_BLOCKED = r"""
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import os, tempfile
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch import tree
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs.base import get_config
+from repro_torch.data.pipeline import batch_for_step, to_device
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.serve import make_params
+from repro_torch.parallel import sharding
+from repro_torch.parallel.api import sharding_rules
+from repro_torch.parallel.pipeline import pipeline_apply
+from repro_torch.train.step import TrainConfig, make_train_step
+
+CPU = torch.device("cpu")
+cfg = get_config("qwen1.5-0.5b").smoke()
+mesh = make_host_mesh(2, CPU)
+params = make_params(cfg, CPU)
+params = sharding.distribute(params, sharding.param_specs(cfg, mesh, params),
+                             mesh)
+step_fn, opt_init = make_train_step(cfg, TrainConfig())
+opt = opt_init(params)
+with sharding_rules(sharding.activation_rules(cfg, mesh)):
+    params, opt, m = step_fn(params, opt, to_device(
+        batch_for_step(cfg, 16, 2, 0), CPU, mesh))
+d = ARGS[0]
+ckpt.save(d, 1, (params, opt))
+(back, _), step = ckpt.restore(d, (params, opt))
+same = all(torch.equal(a.full_tensor(), b.full_tensor())
+           for a, b in zip(tree.leaves(back), tree.leaves(params)))
+ring = init_device_mesh("cpu", (2,), mesh_dim_names=("stage",))
+y = pipeline_apply(lambda p, h: h * p, torch.tensor([2.0, 3.0]),
+                   torch.ones(3, 1), ring)
+blocked = [k for k, v in sys.modules.items() if v is not None and (
+    k.split(".")[0] in ("jax", "repro"))]
+print(json.dumps({"loss": float(m["loss"]), "same": same, "step": step,
+                  "pipeline": y[:, 0].tolist(), "blocked": blocked}))
+"""
+
+
+def test_mesh_path_runs_with_jax_and_reference_blocked(tmp_path):
+    """The mesh modules (``launch.mesh``, ``parallel.sharding``'s
+    placements, the sharded train step, the mesh checkpoint, the pipeline
+    across ranks) run on 2 gloo ranks with ``jax`` and ``repro``
+    unimportable."""
+    from _torch_ranks import run_ranks
+
+    recs = run_ranks("import json\n" + MESH_BLOCKED, 2, tmp_path,
+                     str(tmp_path / "ck"), timeout=180)
+    for rec in recs:
+        assert rec["blocked"] == [] and rec["same"] and rec["step"] == 1
+        assert rec["loss"] > 0 and rec["pipeline"] == [6.0, 6.0, 6.0]
+
+
 def _imported_modules(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text())):
@@ -175,6 +232,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
     cfg = get_config("kratos-dd").smoke()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         to_device(batch_for_step(cfg, 8, 2, 0))
+    from repro_torch.launch import mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_host_mesh()
     assert to_device(batch_for_step(cfg, 8, 2, 0), "cpu")["tokens"] \
         .device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -320,12 +320,40 @@ def test_meshes():
     assert (single.axis_names, single.shape, single.size) == (
         ("data", "model"), {"data": 16, "model": 16}, 256)
     assert (multi.axis_names, multi.size) == (("pod", "data", "model"), 512)
-    host = mesh.make_host_mesh()
-    assert host.size == 1 and host.shape == {"data": 1, "model": 1}
-    with pytest.raises(ValueError, match="model_parallel"):
-        mesh.make_host_mesh(2)
+    # the host mesh: a DeviceMesh over the process group, here a gloo
+    # group of one formed on the way
+    try:
+        host = mesh.make_host_mesh(device="cpu")
+        assert host.mesh_dim_names == ("data", "model")
+        assert tuple(host.shape) == (1, 1) and host.size() == 1
+        assert mesh.as_record(host) == mesh.Mesh.of((1, 1),
+                                                    ("data", "model"))
+        with pytest.raises(ValueError, match="model_parallel"):
+            mesh.make_host_mesh(2, device="cpu")
+    finally:
+        mesh.close_group()
     assert sharding.dp_axes(multi) == ("pod", "data")
     assert sharding.dp_axes(single) == ("data",)
+
+
+def test_spec_placements_on_a_device_mesh():
+    """A spec as DTensor placements: ``Shard(i)`` on each mesh dimension
+    entry i names, a tuple entry over several (major first, in the
+    mesh's order), ``Replicate()`` elsewhere."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    pod = SimpleNamespace(mesh_dim_names=("pod", "data", "model"))
+    flat = SimpleNamespace(mesh_dim_names=("data", "model"))
+    P = sharding.Spec
+    assert sharding.placements(P("model", ("pod", "data")), pod) == (
+        Shard(1), Shard(1), Shard(0))
+    assert sharding.placements(P(None, "model"), flat) == (
+        Replicate(), Shard(1))
+    assert sharding.placements(P(None, None), flat) == (Replicate(),) * 2
+    with pytest.raises(ValueError, match="order"):
+        sharding.placements(P(("data", "pod")), pod)
 
 
 def test_constrain_is_identity_under_rules():
