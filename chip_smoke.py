@@ -214,17 +214,35 @@ exits non-zero:
     ``max(1e-4, 4 x d'_s)`` of the unsharded bf16 one (d'_s the bf16
     run's distance from the float32 run at that step), per-rank peak
     memory, step ms; every flash call the kernel's on the rank's local
-    heads; then dryrun: the records of every (arch x shape) cell
+    heads; then mesh_serve: ``deepseek-moe-16b`` at full width served
+    through the mesh path (``serve.generate(..., mesh=)``, the weights
+    placed by ``param_specs``, the cache by ``cache_specs``; the same
+    cards and mesh shapes as mesh_train): a float32 gate over its first
+    4 layers (the mesh's kernel route against its plain route and the
+    unsharded run, within 5e-3, equal tokens), a bf16 plain-route prefill
+    of 8 x 512 over a cache of 512 (its peak above the phase's base), and
+    the timed bf16 run (8 x 512, 32 new tokens: 28 ``mma`` + 868
+    ``split`` flash calls on the rank's local heads) beside the unsharded
+    run, its tokens equal to it on one card; then dryrun: the records of
+    every (arch x shape) cell
     with ``fits_one_card`` against the card's memory, and mamba2-2.7b's
     long_500k cell run (one decode step at position 524,287 from a zeroed
-    cache), its peak memory beside the record's argument bytes;
+    cache), its peak memory beside the record's argument bytes; and the
+    traces (``launch.trace``, in processes of their own, each over a fake
+    group of its mesh's size) of
+    deepseek-moe-16b train_4k and that cell on both production meshes,
+    mesh_train's step on ``(2, 2)``, and on a mesh of one that cell's
+    decode and mesh_serve's plain prefill, each of the last two within
+    10 % of the peak the card measured (the traces start after the build,
+    at the host's lowest priority);
 28. summary: the ``kernels`` line (all six kernels; for those with
     variants, each variant's calls on the main paths; ``lut_eval6``'s
     times and bound are its level variant's, the one the main paths
     launch, with the op's beside, and its launches include the search
     and serve_flow phases'; ``flash_attention``'s include the new
     families' timed serving runs, the training run's and every mesh
-    rank's, with its training calls per step and times beside), the card
+    rank's, training and serving, with its training calls per step and
+    times beside), the card
     line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each phase that drives the main
@@ -233,10 +251,12 @@ It exits non-zero without a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -4648,10 +4668,12 @@ def mesh_train_rank(arch: str, device, mp: int, gate=MESH_GATE,
                       "timed_s": time.perf_counter() - t0}}
 
 
-def _mesh_rank_main(rank: int, world: int, init: str, workdir: str) -> int:
-    """A spawned rank of the mesh phase (``--mesh-rank``): its card, an
-    NCCL group over ``init``, the checkpoint directory every rank shares,
-    its record as the last output line."""
+def _mesh_rank_main(rank: int, world: int, init: str, workdir: str,
+                    what: str = "train") -> int:
+    """A spawned rank of a mesh phase (``--mesh-rank``; ``what``: the
+    training phase, or ``serve``): its card, an NCCL group over ``init``,
+    the checkpoint directory every rank shares, its record as the last
+    output line."""
     import torch
     import torch.distributed as dist
 
@@ -4660,18 +4682,24 @@ def _mesh_rank_main(rank: int, world: int, init: str, workdir: str) -> int:
     dist.init_process_group("nccl", init_method=init, rank=rank,
                             world_size=world, device_id=device)
     try:
-        rec = mesh_train_rank("tinyllama-1.1b", device,
-                              mesh_shape(world)[1], workdir=Path(workdir))
+        if what == "serve":
+            rec = mesh_serve_rank(MESH_SERVE_ARCH, device,
+                                  mesh_shape(world)[1])
+        else:
+            rec = mesh_train_rank("tinyllama-1.1b", device,
+                                  mesh_shape(world)[1],
+                                  workdir=Path(workdir))
     finally:
         dist.destroy_process_group()
     emit(rec)
     return 0
 
 
-def _spawn_mesh_ranks(world: int) -> list:
-    """The mesh phase in ``world`` processes, one per card, joined by an
-    NCCL group over a ``file://`` store; every rank's record.  Raises
-    (after stopping every rank) if any fails or the time limit passes."""
+def _spawn_mesh_ranks(world: int, what: str = "train") -> list:
+    """A mesh phase (``what``, as :func:`_mesh_rank_main` takes it) in
+    ``world`` processes, one per card, joined by an NCCL group over a
+    ``file://`` store; every rank's record.  Raises (after stopping every
+    rank) if any fails or the time limit passes."""
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
     init = f"file://{workdir / 'store'}"
     procs, outs = [], []
@@ -4682,7 +4710,7 @@ def _spawn_mesh_ranks(world: int) -> list:
             procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()),
                  "--mesh-rank", str(r), str(world), init,
-                 str(workdir / "ckpt")],
+                 str(workdir / "ckpt"), what],
                 stdout=out, stderr=subprocess.STDOUT, cwd=str(ROOT)))
         deadline = time.monotonic() + MESH_RANK_TIMEOUT
         while time.monotonic() < deadline:
@@ -4766,13 +4794,356 @@ def phase_mesh_train(device, gate=MESH_GATE, timed=MESH_TIMED) -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
+#: the mesh serving phase's model: deepseek-moe-16b at full width, with
+#: serve_moe's gate and timed sizes
+MESH_SERVE_ARCH = "deepseek-moe-16b"
+
+
+def _mesh_params(cfg, params, mesh, own: bool):
+    """``params`` placed on ``mesh`` by ``param_specs``
+    (``serve.place_params``: on a mesh of one the same storages, no copy);
+    with ``own`` each rank's shards copied out, so that the whole
+    tensors can be freed."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree
+    from repro_torch.launch import serve
+
+    placed = serve.place_params(cfg, params, mesh)
+    if not own:
+        return placed
+    return tree.map(lambda t: DTensor.from_local(
+        t.to_local().clone(), t.device_mesh, t.placements, run_check=False,
+        shape=t.shape, stride=t.stride()), placed)
+
+
+def _max_diff(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def mesh_serve_rank(arch: str, device, mp: int, gate=MOE_GATE,
+                    timed=MOE_TIMED, gate_layers: int = MOE_GATE_LAYERS,
+                    smoke: bool = False) -> dict:
+    """One rank's part of the mesh serving phase, in a process group that
+    is formed already: the ``("data", "model")`` mesh with ``mp`` on
+    model; a float32 gate over the first ``gate_layers`` layers (the
+    mesh's kernel route against its plain route and against the
+    unsharded kernel route, ``serve_gate``'s tolerance, equal tokens);
+    then at full depth in bf16 a plain-route prefill of ``timed``'s batch
+    over a cache of its prompt length (the dry run's prefill cell; its
+    peak above the phase's base is what the trace is held to), the timed
+    unsharded run and the timed mesh run (``serve.generate(...,
+    mesh=)``; a mesh of one serves from the same weights)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.api import sharding_rules
+    from repro_torch.serve.decode import prefill
+    from repro_torch.serve.kvcache import init_cache
+
+    cfg = get_config(arch)
+    cfg = cfg.smoke() if smoke else cfg
+    mesh = make_host_mesh(mp, device)
+    world = dist.get_world_size()
+    own = world > 1
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+
+    cut32 = as_float32(cut_depth(cfg, gate_layers))
+    params32 = serve.make_params(cut32, device, seed=0)
+    placed32 = _mesh_params(cut32, params32, mesh, own)
+    B, S, new = gate
+    prompts, extra = serve.make_inputs(cut32, B, S, device, seed=0)
+    kern, counts = _counted(lambda: serve.generate(
+        cut32, placed32, prompts, new, keep_logits=True, mesh=mesh,
+        **extra))
+    variants = _variants()
+    plain_mesh = serve.generate(cut32, placed32, prompts, new,
+                                use_kernel=False, keep_logits=True,
+                                mesh=mesh, **extra)
+    one = serve.generate(cut32, params32, prompts, new, keep_logits=True,
+                         **extra)
+    d_plain = _max_diff(kern["logits"], plain_mesh["logits"])
+    d_one = _max_diff(kern["logits"], one["logits"])
+    check(d_plain <= SERVE_TOL
+          and torch.equal(kern["tokens"], plain_mesh["tokens"]),
+          f"{cut32.name} mesh serving gate: the kernel route's logits "
+          f"differ from the plain route's by {d_plain} (tol {SERVE_TOL}) "
+          f"or its tokens do")
+    check(d_one <= SERVE_TOL and torch.equal(kern["tokens"], one["tokens"]),
+          f"{cut32.name} mesh serving gate: the mesh's logits differ from "
+          f"the unsharded run's by {d_one} (tol {SERVE_TOL}) or its tokens "
+          f"do")
+    gate_rec = {"layers": cut32.n_layers, "batch": B, "prompt_len": S,
+                "max_new": new, "max_abs_logit_diff_vs_plain": d_plain,
+                "max_abs_logit_diff_vs_unsharded": d_one, "tol": SERVE_TOL,
+                "tokens_identical": True, "launches": counts,
+                "variants": variants}
+    del params32, placed32, kern, plain_mesh, one
+    gate_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    _reset_peak(device)
+    base = torch.cuda.memory_allocated(device) if cuda else None
+    params = serve.make_params(cfg, device, seed=0)
+    setup_peak = _peak(device) - base if cuda else None
+    placed = _mesh_params(cfg, params, mesh, own)
+    B, S, new = timed
+    prompts, extra = serve.make_inputs(cfg, B, S, device, seed=1)
+
+    # the dry run's prefill cell on this mesh: the plain route over a
+    # cache of S positions, the peak above the phase's base
+    _reset_peak(device)
+    cache = init_cache(cfg, B, S, device=device, mesh=mesh)
+    toks = sharding.distribute(
+        {"t": prompts}, sharding.batch_specs(None, mesh, {"t": prompts}),
+        mesh)["t"]
+    g = min(cfg.moe_group_size, B * S)
+    with sharding_rules(sharding.activation_rules(cfg, mesh,
+                                                  n_moe_groups=B * S // g)):
+        (logits, _), prefill_ms = _timed(lambda: prefill(
+            cfg, placed, cache, toks, use_kernel=False), device)
+    check(_finite(logits.full_tensor()),
+          f"{cfg.name}: the mesh's plain-route prefill gave non-finite "
+          f"logits")
+    prefill_rec = {"batch": B, "prompt_len": S, "cache_len": S,
+                   "route": "plain", "ms": prefill_ms,
+                   "peak_bytes": _peak(device) - base if cuda else None,
+                   "base_bytes": base, "setup_peak_bytes": setup_peak}
+    del cache, logits, toks
+
+    serve.generate(cfg, params, prompts, 2, **extra)   # warm
+    _reset_peak(device)
+    one, one_counts = _counted(lambda: serve.generate(
+        cfg, params, prompts, new, keep_logits=True, **extra))
+    one_peak = _peak(device)
+    one_tokens, one_logits = one["tokens"], one["logits"]
+    unsharded = {k: one[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                     "tok_per_s", "decode_tok_per_s")}
+    del one
+    if own:
+        del params
+    serve.generate(cfg, placed, prompts, 2, mesh=mesh, **extra)   # warm
+    _reset_peak(device)
+    res, mcounts = _counted(lambda: serve.generate(
+        cfg, placed, prompts, new, keep_logits=True, mesh=mesh, **extra))
+    mvariants, heads = _variants(), ops.flash_head_counts()
+    mesh_peak = _peak(device)
+    d = _max_diff(res["logits"], one_logits)
+    same = bool(torch.equal(res["tokens"], one_tokens))
+    # the steps up to the first token that differs (any row) saw the same
+    # inputs on both runs: their logits differ by the arithmetic alone
+    differ = (res["tokens"] != one_tokens).any(dim=0).nonzero()
+    first = int(differ[0]) if len(differ) else None
+    agreed = slice(None) if first is None else slice(0, first + 1)
+    d_agreed = _max_diff(res["logits"][:, agreed], one_logits[:, agreed])
+    if world == 1:
+        check(d <= SERVE_TOL and same,
+              f"{cfg.name} on a mesh of one: logits {d} from the unsharded "
+              f"run's (tol {SERVE_TOL}), tokens equal: {same}")
+    check(_finite(res["logits"]), f"{cfg.name}: non-finite mesh logits")
+    timed_rec = {"batch": B, "prompt_len": S, "max_new": new,
+                 "dtype": cfg.compute_dtype,
+                 **{k: res[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                        "tok_per_s", "decode_tok_per_s")},
+                 "peak_bytes": mesh_peak, "unsharded": {
+                     **unsharded, "peak_bytes": one_peak,
+                     "launches": one_counts},
+                 "max_abs_logit_diff_vs_unsharded": d,
+                 "tokens_identical": same, "first_differing_step": first,
+                 "max_abs_logit_diff_while_tokens_agree": d_agreed,
+                 "tol": SERVE_TOL,
+                 "launches": mcounts, "variants": mvariants,
+                 "flash_heads": heads}
+    return {"rank": dist.get_rank(), "world": world,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "gate": gate_rec, "prefill_plain": prefill_rec,
+            "timed": timed_rec,
+            "walls": {"gate_s": gate_s,
+                      "timed_s": time.perf_counter() - t1}}
+
+
+def phase_mesh_serve(device, gate=MOE_GATE, timed=MOE_TIMED,
+                     gate_layers: int = MOE_GATE_LAYERS) -> dict:
+    """deepseek-moe-16b at full width (28 layers, 64 experts) served
+    through the mesh path on the visible cards (:func:`mesh_shape`): on
+    one card a ``(1, 1)`` mesh over an NCCL group of one, in this process
+    (the gate, and the mesh's tokens equal to the unsharded run's with
+    the logits within the gate); on more, one spawned process per card
+    (their tokens and logits against each rank's unsharded run are
+    recorded, not held: bf16 partial sums meet in another order).  Every
+    flash call is the kernel's on the rank's local heads: ``ffma`` in
+    the float32 gate, one ``mma`` per layer at the prefill and one
+    ``split`` per layer and decode step."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import close_group, init_group
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    shape = mesh_shape(cards)
+    world = shape[0] * shape[1]
+    if world == 1:
+        init_group(device)
+        try:
+            recs = [mesh_serve_rank(MESH_SERVE_ARCH, device, 1, gate, timed,
+                                    gate_layers)]
+        finally:
+            close_group()
+    else:
+        torch.cuda.empty_cache()
+        recs = _spawn_mesh_ranks(world, "serve")
+    cfg = get_config(MESH_SERVE_ARCH)
+    L, mp = cfg.n_layers, shape[1]
+    want = {"gate": {"mma": 0, "split": 0, "ffma": gate_layers * gate[2]},
+            "timed": {"mma": L, "split": L * (timed[2] - 1), "ffma": 0}}
+    heads = f"{cfg.n_heads // mp}/{cfg.n_kv_heads // mp}"
+    if device.type == "cuda":
+        for r in recs:
+            for what in ("gate", "timed"):
+                check(r[what]["variants"]["flash_attention"] == want[what],
+                      f"mesh serving rank {r['rank']} {what}: flash "
+                      f"variants {r[what]['variants']['flash_attention']}, "
+                      f"expected {want[what]}")
+            check(r["timed"]["flash_heads"] == {
+                heads: sum(want["timed"].values())},
+                  f"mesh serving rank {r['rank']}: flash heads "
+                  f"{r['timed']['flash_heads']}, expected {heads}")
+    lead = recs[0]
+    return {"phase": "mesh_serve", "arch": cfg.name, "layers": L,
+            "experts": [cfg.n_experts, cfg.top_k], "cards": world,
+            "mesh": list(shape), "local_heads": heads, "gate": lead["gate"],
+            "prefill_plain": lead["prefill_plain"], "timed": lead["timed"],
+            "per_rank_peak_bytes": [r["timed"]["peak_bytes"] for r in recs],
+            "per_rank_unsharded_peak_bytes": [
+                r["timed"]["unsharded"]["peak_bytes"] for r in recs],
+            "per_rank_tokens_identical": [r["timed"]["tokens_identical"]
+                                          for r in recs],
+            "per_rank_launches": [r["timed"]["launches"]["flash_attention"]
+                                  for r in recs],
+            "flash_variants_expected": want,
+            "wall_s": time.perf_counter() - t0}
+
+
 #: the dry-run cell run on the card: one decode step of mamba2-2.7b at
 #: long_500k from a zeroed cache
 DRYRUN_CELL = ("mamba2-2.7b", "long_500k")
 
 
+#: the cells the dry-run phase traces (``launch.trace``: the real step on
+#: ``meta`` tensors over a fake group of the mesh's size, plain route) on
+#: both production meshes
+TRACE_CELLS = (("deepseek-moe-16b", "train_4k"), DRYRUN_CELL)
+#: each trace process's time limit, seconds
+TRACE_TIMEOUT = 900
+#: the traced peak (arguments + the step's) of a step the card also runs,
+#: as a share of the measured peak
+TRACE_PEAK_TOL = 0.10
+
+
+def start_traces() -> dict:
+    """Start the dry-run phase's traces, one process per mesh size: the
+    ``TRACE_CELLS`` on the ``single`` and ``multi`` production meshes;
+    on a mesh of one, ``DRYRUN_CELL``'s decode and mesh_serve's
+    plain-route prefill (``MOE_TIMED``'s batch over a cache of its prompt
+    length), the steps the card runs; on ``(2, 2)``, mesh_train's step
+    (``MESH_TIMED``'s batch and sequence).  They run at the host's lowest
+    priority while the card works through the phases (the 512-rank
+    mesh's train step takes minutes: DTensor plans its redistributions
+    over three mesh dimensions); :func:`collect_traces` reads them."""
+    B, S, _ = MOE_TIMED
+    one = [list(DRYRUN_CELL), [MESH_SERVE_ARCH, ["prefill", B, S]]]
+    mesh_train = [["tinyllama-1.1b", ["train", MESH_TIMED[1],
+                                      MESH_TIMED[2]]]]
+    names = json.dumps(["data", "model"])
+    runs = {"single": ["--mesh", "single"], "multi": ["--mesh", "multi"],
+            "one": ["--sizes", "[1, 1]", "--names", names],
+            "2x2": ["--sizes", "[2, 2]", "--names", names]}
+    cells = {"single": [list(c) for c in TRACE_CELLS],
+             "multi": [list(c) for c in TRACE_CELLS], "one": one,
+             "2x2": mesh_train}
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else [])))
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.trace", *args,
+         "--cells", json.dumps(cells[tag])], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT), env=env,
+        preexec_fn=lambda: os.nice(19))
+        for tag, args in runs.items()}
+    atexit.register(_stop, procs)   # a phase that fails leaves none behind
+    return procs
+
+
+def _stop(procs: dict) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def collect_traces(procs: dict, timeout: float = TRACE_TIMEOUT) -> dict:
+    """Every trace record of :func:`start_traces`' processes, ``{(mesh
+    tag, arch, shape as JSON): record}``; raises if a process fails or
+    passes its time limit (every one is stopped)."""
+    out = {}
+    try:
+        for tag, p in procs.items():
+            stdout, stderr = p.communicate(timeout=timeout)
+            check(p.returncode == 0, f"the {tag} trace exited "
+                                     f"{p.returncode}: {stderr[-2000:]}")
+            for line in stdout.splitlines():
+                if line.startswith("{"):
+                    r = json.loads(line)
+                    out[(tag, r.pop("arch"),
+                         json.dumps(r.pop("shape")))] = r
+    finally:
+        _stop(procs)
+    return out
+
+
+def traced_peak(rec: dict) -> int:
+    """A traced step's peak: its arguments and its own live bytes."""
+    check(rec.get("status") == "ok", f"a trace failed: {rec.get('error')}")
+    mem = rec["memory"]
+    return mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+
+
+def trace_reading(traces: dict, measured: dict) -> dict:
+    """The traces in a record: each one's peak, FLOPs, collective bytes
+    by kind and time; each step the card ran (``measured``: ``{name:
+    (trace key, measured peak above the phase's base)}``) with its traced
+    peak within ``TRACE_PEAK_TOL`` of the measured one (no card: not
+    held)."""
+    cells = {f"{tag} {arch} {shape}": {
+        "status": r["status"], **({"error": r["error"]}
+                                  if r["status"] != "ok" else {
+            "peak_bytes": traced_peak(r), "memory": r["memory"],
+            "flops": r["cost"]["flops"],
+            "collectives": r["collectives"], "trace_s": r["trace_s"]})}
+        for (tag, arch, shape), r in traces.items()}
+    held = {}
+    for name, (key, peak) in measured.items():
+        want = traced_peak(traces[key])
+        held[name] = {"traced_peak_bytes": want, "measured_peak_bytes": peak,
+                      "traced_over_measured": (want / peak if peak
+                                               else None)}
+        if peak is not None:
+            check(abs(want - peak) <= TRACE_PEAK_TOL * peak,
+                  f"{name}: traced peak {want} against the card's {peak} "
+                  f"(tol {TRACE_PEAK_TOL})")
+    return {"cells": cells, "held": held, "tol": TRACE_PEAK_TOL}
+
+
 def phase_dryrun(device, card_bytes: int | None = None,
-                 run_cfg=None) -> dict:
+                 run_cfg=None, traces: dict | None = None,
+                 serve_peak: int | None = None) -> dict:
     """The dry-run records of every (arch x shape) cell
     (``launch.dryrun.cell_record``, nothing allocated) with
     ``fits_one_card`` against the card's memory, then ``DRYRUN_CELL``
@@ -4780,7 +5151,11 @@ def phase_dryrun(device, card_bytes: int | None = None,
     from a zeroed cache, the peak memory over the step (above what was
     allocated before the phase) beside the record's argument bytes, and
     the set-up's peak (the draws' float32 temporaries) beside
-    (``run_cfg`` stands in for the cell's config in a rehearsal)."""
+    (``run_cfg`` stands in for the cell's config in a rehearsal).  With
+    ``traces`` (:func:`start_traces`' processes), their records, the
+    cell's traced peak on a mesh of one and mesh_serve's plain-route
+    prefill's (``serve_peak``, measured there) each held to the card's
+    (:func:`trace_reading`)."""
     import torch
 
     from repro_torch.configs.base import SHAPES, get_config, list_configs
@@ -4842,6 +5217,17 @@ def phase_dryrun(device, card_bytes: int | None = None,
     peak = (torch.cuda.max_memory_allocated(device) - base
             if device.type == "cuda" else None)
     del params, cache, logits
+    traced = None
+    if traces is not None:
+        t2 = time.perf_counter()
+        got = collect_traces(traces)
+        B, S, _ = MOE_TIMED
+        traced = {**trace_reading(got, {
+            f"{cell[0]} {cell[1]} decode": (
+                ("one", cell[0], json.dumps(cell[1])), peak),
+            f"mesh_serve {MESH_SERVE_ARCH} plain prefill": (
+                ("one", MESH_SERVE_ARCH, json.dumps(["prefill", B, S])),
+                serve_peak)}), "collect_s": time.perf_counter() - t2}
     return {"phase": "dryrun", "card_bytes": card_bytes,
             "columns": ["arch", "shape", "kind", "n_params",
                         "n_active_params", "model_flops", "bytes",
@@ -4859,7 +5245,7 @@ def phase_dryrun(device, card_bytes: int | None = None,
                     "base_bytes": base if device.type == "cuda" else None,
                     "step_ms": step_ms, "launches": counts,
                     "wall_s": time.perf_counter() - t1},
-            "wall_s": time.perf_counter() - t0}
+            "trace": traced, "wall_s": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -4885,6 +5271,9 @@ def main() -> int:
                  or "spill" in ln] for s in build.sources()}
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "per_source_s": secs, "ptxas": ptxas})
+    # host work at the lowest priority while the card works through the
+    # phases; read by the dryrun phase at the end
+    traces = start_traces()
 
     suites = full_suites()
     nets = [n for v in suites.values() for n in v]
@@ -5045,7 +5434,11 @@ def main() -> int:
     mtrec = phase_mesh_train(device)
     emit(mtrec)
     torch.cuda.empty_cache()
-    emit(phase_dryrun(device))
+    msrec = phase_mesh_serve(device)
+    emit(msrec)
+    torch.cuda.empty_cache()
+    emit(phase_dryrun(device, traces=traces,
+                      serve_peak=msrec["prefill_plain"]["peak_bytes"]))
 
     replaces = {"lut_eval6": "src/repro/kernels/lut_eval.py:90",
                 "lut_eval": "src/repro/kernels/lut_eval.py:47",
@@ -5062,12 +5455,13 @@ def main() -> int:
                 "lut_eval": lrec["launches"]["lut_eval"],
                 # kratos-dd serving, the new families' timed serving
                 # runs, the timed training run, gemma2-2b's chunked
-                # forward, the pipeline and the mesh run (every rank's)
+                # forward, the pipeline and the mesh runs (every rank's)
                 "flash_attention": flash_launches + sum(
                     r["timed"]["launches"]["flash_attention"]
                     for r in (moerec, i8rec, vlmrec, encrec, trec, chrec))
                 + plrec["bf16"]["launches"]["flash_attention"]
-                + sum(mtrec["per_rank_launches"]),
+                + sum(mtrec["per_rank_launches"])
+                + sum(msrec["per_rank_launches"]),
                 "bitplane_matmul": bit_launches,
                 # the two models' timed forwards (64 + 32 SSD layers)
                 "ssd_scan": sum(r["forward"]["launches"]["ssd_scan"]
@@ -5135,7 +5529,11 @@ def main() -> int:
             "mesh train bf16 (rank 0)":
                 mtrec["timed"]["variants"]["flash_attention"],
             "mesh train gate float32 (rank 0)":
-                mtrec["gate"]["variants"]["flash_attention"]},
+                mtrec["gate"]["variants"]["flash_attention"],
+            "mesh serve bf16 (rank 0)":
+                msrec["timed"]["variants"]["flash_attention"],
+            "mesh serve gate float32 (rank 0)":
+                msrec["gate"]["variants"]["flash_attention"]},
         "bitplane_matmul": {
             "quantized": qrec["variants"]["bitplane_matmul"]},
         "ssd_scan": {
@@ -5171,5 +5569,5 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
-                                 sys.argv[4], sys.argv[5]))
+                                 sys.argv[4], sys.argv[5], *sys.argv[6:7]))
     sys.exit(main())

@@ -268,10 +268,13 @@ def ssd_recurrence(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dtx = dtf[..., None] * x.float()                          # [Bb, L, H, P]
     Bf, Cf = B.float(), C.float()
     ys = []
-    for t in range(L):
-        upd = dtx[:, t, :, :, None] * Bf[:, t, None, None, :]
-        h = h * decay[:, t, :, None, None] + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    # each input split into its L steps at once: a gradient then comes
+    # back as one stack, not as L full-size tensors of one step each
+    for dtx_t, dec_t, B_t, C_t in zip(dtx.unbind(1), decay.unbind(1),
+                                      Bf.unbind(1), Cf.unbind(1)):
+        upd = dtx_t[..., None] * B_t[:, None, None, :]
+        h = h * dec_t[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C_t))
     return torch.stack(ys, dim=1), h
 
 

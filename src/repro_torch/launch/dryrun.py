@@ -2,7 +2,7 @@
 ``repro/launch/dryrun.py``), allocating nothing.
 
     python -m repro_torch.launch.dryrun --all [--mesh both]
-        [--out build/dryrun] [--force] [--device cpu]
+        [--out build/dryrun] [--force] [--device cpu] [--jobs 4]
 
 For each cell a record ``<out>/<arch>__<shape>.json``: the parameter
 count, the active parameters (a MoE layer's experts discounted to the k
@@ -13,7 +13,8 @@ AdamW state fits no mesh), cache and batch — taken from ``meta`` tensors
 (:mod:`repro_torch.launch.specs`).  ``fits_one_card`` holds those bytes
 against the card's memory (None with ``--device cpu``: no card to hold
 them against); activations and workspace are not counted, so it is a
-lower bound: a cell that does not fit by it fits by nothing.
+lower bound: a cell that does not fit by it fits by nothing (the traced
+peak below counts the step's own bytes).
 Beside them, the per-device argument bytes under the production
 ``(16, 16)`` and ``(2, 16, 16)`` meshes' specs
 (:mod:`repro_torch.parallel.sharding`): each leaf's bytes divided by the
@@ -21,8 +22,17 @@ product of the sizes of the axes its spec shards it over.
 
 The reference lowers and compiles each cell with XLA and reads its
 memory and cost analyses and the collectives of the partitioned HLO.
-The port has no XLA: there is no lowering, no compile and no collective
-parse here, and no record of them.
+The port traces each cell's real step instead (:mod:`.trace`, in worker
+processes of their own, each over a fake process group of the mesh's
+size; ``--jobs`` of them at once): ``per_device[mesh]`` gains the
+reference's ``memory`` (``argument_size_in_bytes``, equal to
+``argument_bytes``; ``output_size_in_bytes``, ``alias_size_in_bytes``,
+``temp_size_in_bytes``), ``cost`` (``flops``, ``transcendentals``,
+``bytes accessed``, all per device) and ``collectives`` (count and result
+bytes by kind, ``total_bytes``), with ``trace_s``, the trace's
+``status`` (``"error"`` and its message where it failed) and
+``fits_card_traced``: whether arguments and the step's peak together fit
+the card (None with ``--device cpu``).
 """
 from __future__ import annotations
 
@@ -30,6 +40,9 @@ import argparse
 import json
 import math
 import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -198,6 +211,64 @@ def run_cell(arch: str, shape_name: str, out_dir, card_bytes=None,
     return record
 
 
+def _trace_worker(tag: str, cells: list) -> list:
+    """One trace process (``python -m repro_torch.launch.trace``) over
+    ``cells`` on mesh ``tag``: ``[(arch, shape, tag, record), ...]``, a
+    cell the process left unrecorded given ``status: "error"`` with its
+    exit code and errors."""
+    src = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.trace", "--mesh", tag,
+         "--cells", json.dumps(cells)],
+        capture_output=True, text=True, env=env)
+    got = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            r = json.loads(line)
+            got[(r.pop("arch"), r.pop("shape"))] = r
+    for a, s in cells:
+        got.setdefault((a, s), {
+            "status": "error",
+            "error": f"the trace process exited {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}"})
+    for r in got.values():
+        r.pop("mesh", None)
+    return [(a, s, tag, got[(a, s)]) for a, s in cells]
+
+
+def trace_records(cells: list, meshes=("single", "multi"),
+                  jobs: int = 1) -> dict:
+    """The trace of every ``(arch, shape)`` cell on every mesh,
+    ``{(arch, shape, mesh): record}``: each mesh's cells split among
+    ``jobs`` worker processes, ``jobs`` of them running at once."""
+    tasks = [(tag, cells[i::jobs]) for tag in meshes for i in range(jobs)
+             if cells[i::jobs]]
+    out = {}
+    with ThreadPoolExecutor(max(1, jobs)) as pool:
+        for rows in pool.map(lambda t: _trace_worker(*t), tasks):
+            out.update({(a, s, tag): r for a, s, tag, r in rows})
+    return out
+
+
+def add_trace(record: dict, tag: str, trace: dict) -> dict:
+    """``record`` with ``trace`` (a mesh's traced step) beside its
+    per-device argument bytes, and whether the two fit the card."""
+    dev = record["per_device"][tag]
+    dev.update(trace)
+    mem = trace.get("memory")
+    card = record["card_bytes"]
+    dev["fits_card_traced"] = None if (card is None or mem is None) else (
+        mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] <= card)
+    return record
+
+
+def _traced(record: dict, meshes) -> bool:
+    return all("status" in record["per_device"].get(t, {}) for t in meshes)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -210,6 +281,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="the card whose memory fits_one_card is taken "
                          "against (default: the CUDA card; cpu: none)")
+    ap.add_argument("--jobs", type=int, default=4,
+                    help="trace processes at once")
     args = ap.parse_args(argv)
 
     card = card_bytes_of(args.device)
@@ -218,21 +291,41 @@ def main(argv=None):
     shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
     meshes = {"single": ("single",), "multi": ("multi",),
               "both": ("single", "multi")}[args.mesh]
-    for arch in archs:
-        for shape in shapes:
-            r = run_cell(arch, shape, args.out, card, meshes,
-                         force=args.force)
-            if r["status"] == "ok":
-                extra = (f"params={r['n_params']:.4g} "
-                         f"flops={r['model_flops']:.3g} "
-                         f"args={r['argument_bytes'] / 2**30:.2f}GiB "
-                         f"fits={r['fits_one_card']} " + " ".join(
-                             f"{t}/dev={d['argument_bytes'] / 2**30:.2f}GiB"
-                             for t, d in r["per_device"].items()))
-            else:
-                extra = r.get("reason", "")
-            print(f"[{r['arch']:18s} {r['shape']:12s}] {r['status']}: "
-                  f"{extra}", flush=True)
+    records = {(arch, shape): run_cell(arch, shape, args.out, card, meshes,
+                                       force=args.force)
+               for arch in archs for shape in shapes}
+    todo = [c for c, r in records.items() if r["status"] == "ok"
+            and (args.force or not _traced(r, meshes))]
+    for (arch, shape, tag), t in trace_records(todo, meshes,
+                                               args.jobs).items():
+        r = add_trace(records[(arch, shape)], tag, t)
+        (Path(args.out) / f"{arch}__{shape}.json").write_text(
+            json.dumps(r, indent=1))
+    for r in records.values():
+        print(f"[{r['arch']:18s} {r['shape']:12s}] {r['status']}: "
+              f"{_summary(r)}", flush=True)
+
+
+def _summary(r: dict) -> str:
+    """A record in a line: counts and argument bytes, then each mesh's
+    traced step where there is one."""
+    if r["status"] != "ok":
+        return r.get("reason", "")
+    out = [f"params={r['n_params']:.4g} flops={r['model_flops']:.3g} "
+           f"args={r['argument_bytes'] / 2**30:.2f}GiB "
+           f"fits={r['fits_one_card']}"]
+    for tag, d in r["per_device"].items():
+        out.append(f"{tag}/dev={d['argument_bytes'] / 2**30:.2f}GiB")
+        if d.get("status") == "ok":
+            mem = d["memory"]
+            peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            out.append(f"(traced: flops={d['cost']['flops']:.3g} "
+                       f"peak={peak / 2**30:.2f}GiB coll="
+                       f"{d['collectives']['total_bytes'] / 2**20:.1f}MiB "
+                       f"in {d['trace_s']:.1f}s)")
+        elif d.get("status") == "error":
+            out.append(f"(trace error: {d['error'][:120]})")
+    return " ".join(out)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ raises unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -28,6 +29,9 @@ import torch
 from ..configs.base import ModelConfig, get_config
 from ..device import resolve_device
 from ..models.lm import init_params
+from ..parallel.api import plain, sharding_rules
+from ..parallel.sharding import (activation_rules, batch_specs, distribute,
+                                 param_specs)
 from ..serve.decode import decode_step, prefill
 from ..serve.kvcache import init_cache
 
@@ -41,6 +45,13 @@ def make_params(cfg: ModelConfig, device, seed: int = 0) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return init_params(gen, cfg)
+
+
+def place_params(cfg: ModelConfig, params: dict, mesh) -> dict:
+    """``params`` (alike on every rank) as DTensors on ``mesh`` placed by
+    ``param_specs``: each rank keeps its own shard of each leaf, and no
+    data moves."""
+    return distribute(params, param_specs(cfg, mesh, params), mesh)
 
 
 def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, device,
@@ -62,13 +73,39 @@ def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, device,
     return torch.from_numpy(toks).to(device), extra
 
 
+def _rules(cfg: ModelConfig, mesh, tokens: int):
+    """The reference's activation rules on ``mesh`` for a step over
+    ``tokens`` tokens (``n_moe_groups`` = tokens // the MoE group size);
+    nothing without a mesh."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    g = min(cfg.moe_group_size, tokens)
+    return sharding_rules(activation_rules(cfg, mesh,
+                                           n_moe_groups=tokens // g))
+
+
+def _place(batch: dict, mesh) -> dict:
+    """Batch tensors over the mesh's data axes (``batch_specs``); as they
+    are without a mesh."""
+    if mesh is None:
+        return batch
+    return distribute(batch, batch_specs(None, mesh, batch), mesh)
+
+
 def generate(cfg: ModelConfig, params, prompts, max_new: int, *,
              encoder_feats=None, patch_embeds=None, use_kernel: bool = True,
-             keep_logits: bool = False) -> dict:
+             keep_logits: bool = False, mesh=None) -> dict:
     """Prefill ``prompts [B, S]`` (with an encdec model's
     ``encoder_feats`` or a vlm model's ``patch_embeds``, P of them) and
     decode ``max_new`` tokens greedily from position ``S + P`` over a
     cache of ``S + P + max_new`` positions.
+
+    With ``mesh`` (a ``DeviceMesh``; ``params`` placed on it by
+    ``param_specs``, see :func:`place_params`) it serves across the mesh:
+    the prompts and frames or patches over the data axes, the cache by
+    ``cache_specs``, each step under the reference's activation rules
+    (``n_moe_groups`` = B S // g at prefill, B // g at decode); each
+    step's logits are gathered for the greedy choice.
 
     Returns the tokens ``[B, max_new]``, the wall times (host clock around
     work that ends in a device synchronisation) and, with ``keep_logits``,
@@ -80,19 +117,27 @@ def generate(cfg: ModelConfig, params, prompts, max_new: int, *,
     cache = init_cache(cfg, B, S + extra + max_new,
                        encoder_len=(encoder_feats.shape[1]
                                     if encoder_feats is not None else None),
-                       device=device)
+                       device=device, mesh=mesh)
+    inputs = _place({k: v for k, v in (("tokens", prompts),
+                                       ("encoder_feats", encoder_feats),
+                                       ("patch_embeds", patch_embeds))
+                     if v is not None}, mesh)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(cfg, params, cache, prompts,
-                            encoder_feats=encoder_feats,
-                            patch_embeds=patch_embeds, use_kernel=use_kernel)
+    with _rules(cfg, mesh, B * S):
+        logits, cache = prefill(cfg, params, cache, inputs.pop("tokens"),
+                                use_kernel=use_kernel, **inputs)
+    logits = plain(logits)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
     _sync(device)
     t1 = time.perf_counter()
     out, kept = [tok], [logits.float()] if keep_logits else []
     for i in range(max_new - 1):
-        logits, cache = decode_step(cfg, params, cache, tok,
-                                    S + extra + i, use_kernel=use_kernel)
+        with _rules(cfg, mesh, B):
+            logits, cache = decode_step(
+                cfg, params, cache, _place({"t": tok}, mesh)["t"],
+                S + extra + i, use_kernel=use_kernel)
+        logits = plain(logits)
         tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
         out.append(tok)
         if keep_logits:

@@ -10,7 +10,9 @@ cache; ``conv`` ``[B, Kc-1, H*P]``, ``ssm`` ``[B, H, P, N]``), updated in
 place.  On a mesh (DTensor activations and weights) the MoE dispatch
 keeps the reference's ``constrain`` pins, and the row-sharded output
 products end in :func:`repro_torch.models.layers.reduce_model`; on one
-device both are nothing.
+device both are nothing.  A cache on a mesh is a tree of DTensors placed
+by ``cache_specs``; its writes stay on the rank that owns each row, head
+or time slice (:func:`_write_rows`).
 """
 from __future__ import annotations
 
@@ -20,9 +22,10 @@ from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
-from ..parallel.api import constrain, is_distributed
-from .layers import (attention, glu_ffn, mesh_axes, mesh_placements,
-                     reduce_model, rms_norm, rope)
+from ..parallel.api import constrain, is_distributed, write_into
+from .layers import (attention, glu_ffn, merge_heads, mesh_axes,
+                     mesh_placements, reduce_model, rms_norm, rope,
+                     split_heads)
 
 HUGE_WINDOW = 1 << 30
 #: the profiler range the dropless expert products run in
@@ -46,9 +49,9 @@ def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(B, S, Hq, D)
-    k = k.reshape(B, S, Hkv, D)
-    v = v.reshape(B, S, Hkv, D)
+    q = split_heads(q, B, S, Hq, D)
+    k = split_heads(k, B, S, Hkv, D)
+    v = split_heads(v, B, S, Hkv, D)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cache is not None:
@@ -61,6 +64,13 @@ def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
             kd, vd = _cached_kv(cache, end, x.dtype)
             out = attention(cfg, q, kd, vd, causal=causal, window=window,
                             softcap=cfg.attn_softcap)
+        elif is_distributed(x):
+            # the reference's masked attention on each rank's rows and
+            # heads: the fill as a host int, the queries at its tail
+            kd, vd = _cached_kv(cache, None, x.dtype)
+            out = attention(cfg, q, kd, vd, causal=causal, window=window,
+                            softcap=cfg.attn_softcap, kv_len=end,
+                            use_kernel=False)
         else:
             # the reference: the whole cache, masked by kv_len
             kd, vd = _cached_kv(cache, None, x.dtype)
@@ -72,7 +82,7 @@ def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
     else:
         out = attention(cfg, q, k, v, causal=causal, window=window,
                         softcap=cfg.attn_softcap, use_kernel=use_kernel)
-    out = reduce_model(out.reshape(B, S, Hq * D) @ p["wo"])
+    out = reduce_model(merge_heads(out, B, S, Hq * D) @ p["wo"])
     if "post_ln" in p:  # gemma2 post-attention norm
         out = rms_norm(out, p["post_ln"], cfg.rms_eps)
     return out, cache
@@ -90,15 +100,40 @@ def q8(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _write_kv(cache: dict, k, v, index: int) -> None:
     """Write the new keys and values into the cache at ``index`` (in
     place), quantized when the cache is int8."""
-    end = index + k.shape[1]
     if "k_scale" in cache:
         for name, t in (("k", k), ("v", v)):
             codes, scale = q8(t)
-            cache[name][:, index:end] = codes
-            cache[name + "_scale"][:, index:end] = scale
+            _write_rows(cache[name], codes, index)
+            _write_rows(cache[name + "_scale"], scale, index)
     else:
-        cache["k"][:, index:end] = k.to(cache["k"].dtype)
-        cache["v"][:, index:end] = v.to(cache["v"].dtype)
+        _write_rows(cache["k"], k, index)
+        _write_rows(cache["v"], v, index)
+
+
+def _write_rows(dst, src, index: int) -> None:
+    """``dst[:, index:index + S] = src`` in place (``dst`` a cache entry
+    ``[B, T, ...]``, ``src`` ``[B, S, ...]``).  On a mesh the new rows are
+    laid out as ``dst`` is over batch and heads and whole over time, and
+    each rank writes those of them that fall in its own time slice (all
+    of them when time is not sharded, none on a rank whose slice misses
+    them): the write never leaves the rank that owns the row."""
+    end = index + src.shape[1]
+    if not is_distributed(dst):
+        dst[:, index:end] = src.to(dst.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+
+    from ..parallel.sharding import local_shape
+
+    mesh = dst.device_mesh
+    src = src.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                  for p in dst.placements]).to_local()
+    local = dst.to_local()
+    _, off = local_shape(dst.shape, mesh, dst.placements)
+    lo, hi = max(index, off[1]), min(end, off[1] + local.shape[1])
+    if lo < hi:
+        local[:, lo - off[1]:hi - off[1]] = \
+            src[:, lo - index:hi - index].to(local.dtype)
 
 
 def _cached_kv(cache: dict, end: int | None, dtype):
@@ -275,6 +310,33 @@ def _dropless_experts(ht, we_i, we_o, weight):
         return torch.bmm(weight[:, None, :], ye.transpose(0, 1))[:, 0]
 
 
+def _dropless_on_mesh(ht, we_i, we_o, weight):
+    """:func:`_dropless_experts` on DTensors, under ``local_map``: each
+    rank runs its own experts (``E`` over ``model``, their weights
+    gathered over the data axes, which shard ``d`` FSDP-style) on its own
+    tokens (``T`` over the data axes when they divide it), weighted by
+    its columns of ``weight``; the sum over every expert is then a sum of
+    the ranks' partial results over ``model``
+    (:func:`repro_torch.models.layers.reduce_model`)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ht.device_mesh
+    dp, n_dp, mp = mesh_axes(mesh)
+    t_dim = 0 if ht.shape[0] % n_dp == 0 else None
+    e_dim = we_i.shape[0] % mp == 0
+    dps = {n: t_dim for n in dp}
+    x_pl = mesh_placements(mesh, dps)
+    w_pl = mesh_placements(mesh, {"model": 0 if e_dim else None})
+    g_pl = mesh_placements(mesh, {**dps, "model": 1 if e_dim else None})
+    out_pl = [Partial() if n == "model" and e_dim else p
+              for n, p in zip(mesh.mesh_dim_names, x_pl)]
+    return reduce_model(local_map(
+        _dropless_experts, out_placements=out_pl,
+        in_placements=(x_pl, w_pl, w_pl, g_pl), device_mesh=mesh,
+        redistribute_inputs=True)(ht, we_i, we_o, weight))
+
+
 def moe_block_dropless(cfg: ModelConfig, p, x):
     """Per-token dropless top-k routing, the evaluation and serving path:
     every token reaches its k experts whatever other tokens share its
@@ -292,7 +354,10 @@ def moe_block_dropless(cfg: ModelConfig, p, x):
     weight = (onehot * gate_vals[..., None]).sum(1)          # [T, E]
 
     we_i, we_o = _moe_expert_weights(p, cdt)
-    yt = _dropless_experts(ht, we_i, we_o, weight.to(cdt))
+    if is_distributed(ht):
+        yt = _dropless_on_mesh(ht, we_i, we_o, weight.to(cdt))
+    else:
+        yt = _dropless_experts(ht, we_i, we_o, weight.to(cdt))
     out = yt.reshape(B, S, d).to(x.dtype)
     if cfg.n_shared_experts > 0:
         out = out + glu_ffn(h, p["ws_i"], p["ws_o"], "swiglu")
@@ -317,6 +382,42 @@ def _causal_conv(x, w, state=None):
     return out, new_state
 
 
+def _scan(fn, xh, dt, A, Bm, Cm, *state):
+    """``fn(xh, dt, A, Bm, Cm[, h])``, an SSD scan or recurrence (``xh``
+    ``[B, S, H, P]``, ``dt`` ``[B, S, H]``, ``A`` ``[H]``, ``Bm`` / ``Cm``
+    ``[B, S, N]``, the state ``h`` ``[B, H, P, N]``); on DTensors under
+    ``local_map``: each rank scans its own batch rows (over the data
+    axes, when they divide B) and heads (over ``model``, when it divides
+    H) as one device does, so no step of the scan communicates.  A
+    rank's gradient of ``A`` covers its own rows (partial over the data
+    axes), of ``Bm`` / ``Cm`` its own heads (partial over ``model``)."""
+    if not is_distributed(xh):
+        return fn(xh, dt, A, Bm, Cm, *state)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xh.device_mesh
+    dp, n_dp, mp = mesh_axes(mesh)
+    b = 0 if xh.shape[0] % n_dp == 0 else None
+    hd = xh.shape[2] % mp == 0
+
+    def pl(bdim, hdim, partial=()):
+        return [Partial() if n in partial else p for n, p in zip(
+            mesh.mesh_dim_names,
+            mesh_placements(mesh, {**{n: bdim for n in dp},
+                                   "model": hdim if hd else None}))]
+
+    x_pl, a_pl, bc_pl, h_pl = pl(b, 2), pl(None, 0), pl(b, None), pl(b, 1)
+    a_grad = pl(None, 0, dp if b is not None else ())
+    bc_grad = pl(b, None, ("model",) if hd else ())
+    ins = (x_pl, x_pl, a_pl, bc_pl, bc_pl) + (h_pl,) * len(state)
+    grads = (x_pl, x_pl, a_grad, bc_grad, bc_grad) + (h_pl,) * len(state)
+    return local_map(fn, out_placements=(x_pl, h_pl) if state else x_pl,
+                     in_placements=ins, in_grad_placements=grads,
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         xh, dt, A, Bm, Cm, *state)
+
+
 def ssd_block(cfg: ModelConfig, p, x, cache=None, use_kernel: bool = True):
     """Mamba-2 SSD mixer.  x: ``[B, S, d]``.  Without ``cache`` the scan
     runs through :func:`repro_torch.kernels.ops.ssd_scan` (the CUDA kernel
@@ -338,21 +439,23 @@ def ssd_block(cfg: ModelConfig, p, x, cache=None, use_kernel: bool = True):
     conv_state = cache["conv"] if cache is not None else None
     xin, new_conv = _causal_conv(xin, p["conv_w"], conv_state)
     xin = F.silu(xin.float()).to(x.dtype)
-    xh = xin.reshape(B, S, H, P)
+    xh = split_heads(xin, B, S, H, P)
     if cache is not None:
         # recurrent decode: S small (1 per decode step; the prompt length
         # at prefill)
-        y, hst = ref.ssd_recurrence(xh, dt, A, Bm, Cm, cache["ssm"].float())
+        y, hst = _scan(ref.ssd_recurrence, xh, dt, A, Bm, Cm,
+                       cache["ssm"].float())
         y = y.reshape(B, S, H * P)
-        cache["conv"].copy_(new_conv)
-        cache["ssm"].copy_(hst)
+        write_into(cache["conv"], new_conv)
+        write_into(cache["ssm"], hst)
     elif use_kernel:
-        y = ops.ssd_scan(xh, dt, A, Bm, Cm).reshape(B, S, H * P)
+        y = _scan(ops.ssd_scan, xh, dt, A, Bm, Cm).reshape(B, S, H * P)
     elif cfg.ssd_chunk and S % cfg.ssd_chunk == 0 and S > cfg.ssd_chunk:
-        y = ref.ssd_scan_chunked_ref(xh, dt, A, Bm, Cm, chunk=cfg.ssd_chunk
-                                     ).reshape(B, S, H * P)
+        y = _scan(lambda *a: ref.ssd_scan_chunked_ref(*a,
+                                                      chunk=cfg.ssd_chunk),
+                  xh, dt, A, Bm, Cm).reshape(B, S, H * P)
     else:
-        y = ref.ssd_scan_ref(xh, dt, A, Bm, Cm).reshape(B, S, H * P)
+        y = _scan(ref.ssd_scan_ref, xh, dt, A, Bm, Cm).reshape(B, S, H * P)
     # jnp.repeat: each head's skip weight repeated over its P channels
     d_skip = p["d_skip"].to(x.dtype).repeat_interleave(P)
     y = y + xh.reshape(B, S, H * P) * d_skip

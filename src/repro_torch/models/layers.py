@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..parallel.api import is_distributed
+from ..parallel.api import follow, is_distributed
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -54,15 +54,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
          ) -> torch.Tensor:
-    """x: ``[..., S, H, D]``; positions: ``[..., S]``."""
+    """x: ``[..., S, H, D]``; positions: ``[..., S]``, a plain tensor
+    alike on every rank: on a mesh the angles follow ``x`` onto it,
+    replicated."""
     d = x.shape[-1]
     half = d // 2
     ft = wide_type(x.dtype)
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=ft,
-                                          device=x.device) / half))
+                                          device=positions.device) / half))
     ang = positions[..., :, None].to(ft) * freqs[None, :]
-    cos = torch.cos(ang)[..., :, None, :]   # [..., S, 1, half]
-    sin = torch.sin(ang)[..., :, None, :]
+    cos = follow(torch.cos(ang)[..., :, None, :], x)   # [..., S, 1, half]
+    sin = follow(torch.sin(ang)[..., :, None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -72,7 +74,8 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
                   scale=None, kv_len=None, q_positions=None):
     """Masked multi-head attention on ``[B, S, H, D]`` layout with GQA.
 
-    ``kv_len``: optional ``[B]`` active cache lengths (decode).
+    ``kv_len``: optional ``[B]`` active cache lengths (decode), or an
+    int, the same for every row.
     ``q_positions``: optional ``[B, Sq]`` absolute positions of queries.
     """
     B, Sq, Hq, D = q.shape
@@ -97,6 +100,8 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
         mask = mask & (kpos[:, None, :] <= qpos[:, :, None])
     if window is not None:
         mask = mask & (kpos[:, None, :] > qpos[:, :, None] - window)
+    if isinstance(kv_len, int):
+        kv_len = torch.full((B,), kv_len, dtype=torch.int64, device=dev)
     if kv_len is not None:
         mask = mask & (kpos[:, None, :] < kv_len[:, None, None])
     logits = torch.where(mask[:, None, None, :, :], logits,
@@ -169,7 +174,9 @@ def _prefix_len(kv_len, q_positions, S: int) -> int:
     the reference's masked attention over a cache equals the kernel over
     the cache's first ``kv_len`` keys exactly when ``kv_len`` is the same
     for every row and the queries sit at ``kv_len - S + arange(S)``.
-    Anything else raises: there is no fallback."""
+    Anything else raises: there is no fallback.  An int ``kv_len`` is
+    the host's own count, read without a device sync (or, on a mesh, a
+    gather)."""
     if kv_len is None:
         raise ValueError("the kernel route needs kv_len with q_positions")
     lens = kv_len.tolist() if isinstance(kv_len, torch.Tensor) else [kv_len]
@@ -182,6 +189,38 @@ def _prefix_len(kv_len, q_positions, S: int) -> int:
             raise ValueError("q_positions must be kv_len - S + arange(S) on "
                              "every row for the kernel route")
     return end
+
+
+def split_heads(t, *shape):
+    """``t [..., H * D]`` as ``shape`` (``[..., H, D]``).  On a mesh a last
+    dimension sharded over ranks whose count does not divide H (llava's
+    56 heads, hymba's 25, tinyllama's 4 kv heads over a ``model`` axis of
+    16) is gathered first: DTensor splits no sharded dimension unevenly,
+    and attention then runs every head on each rank, as
+    :func:`attention_on_mesh` does when ``model`` does not divide them."""
+    if is_distributed(t):
+        from torch.distributed.tensor import Replicate
+
+        mesh, last = t.device_mesh, t.ndim - 1
+        n = math.prod(mesh.size(m) for m, p in enumerate(t.placements)
+                      if p.is_shard(last))
+        if shape[-2] % n:
+            t = t.redistribute(mesh, [Replicate() if p.is_shard(last) else p
+                                      for p in t.placements])
+    return t.reshape(*shape)
+
+
+def merge_heads(t, *shape):
+    """``t [..., H, D]`` as ``shape`` (``[..., H * D]``).  On a mesh where
+    the heads were not sharded (:func:`split_heads`) the gradient is held
+    to the merged tensor's layout: a product's gradient may come back
+    sharded over ``model``, which the reshape's backward could not split
+    into the heads."""
+    out = t.reshape(*shape)
+    if is_distributed(out) and not any(p.is_shard(out.ndim - 1)
+                                       for p in out.placements):
+        out = out.redistribute(out.device_mesh, out.placements)
+    return out
 
 
 def mesh_axes(mesh) -> tuple[list[str], int, int]:
@@ -249,6 +288,17 @@ def attention_on_mesh(fn, q, k, v):
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
+def cross_attention(q, k, v):
+    """The reference's masked attention, non-causal (cross-attention over
+    the encoder's keys and values); on DTensors per rank on its own rows
+    and heads (:func:`attention_on_mesh`)."""
+    if is_distributed(q):
+        return attention_on_mesh(
+            lambda ql, kl, vl: attention_ref(ql, kl, vl, causal=False),
+            q, k, v)
+    return attention_ref(q, k, v, causal=False)
+
+
 def reduce_model(x):
     """The all-reduce over ``model`` that ends a row-sharded product (the
     contraction dimension split over ``model``, so each rank holds a
@@ -272,17 +322,27 @@ def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=None,
     kernel route needs no block-local form: flash with ``window``
     computes the same function and skips the masked key tiles, O(S * 2w)
     work too.  On DTensors either route runs per rank on local heads
-    (:func:`attention_on_mesh`); a mesh takes no ``kv_len`` or
-    ``q_positions`` (no cached serving on a mesh)."""
+    (:func:`attention_on_mesh`); a mesh takes ``kv_len`` as an int (the
+    cache's fill, the same for every row; the queries then sit at
+    ``kv_len - S + arange(S)``, as in cached serving) and no
+    ``q_positions``."""
     if is_distributed(q):
-        if kv_len is not None or q_positions is not None:
-            raise NotImplementedError(
-                "attention on a mesh takes no kv_len / q_positions")
-        return attention_on_mesh(
-            lambda ql, kl, vl: attention(
-                cfg, ql, kl, vl, causal=causal, window=window,
-                softcap=softcap, scale=scale, use_kernel=use_kernel),
-            q, k, v)
+        if q_positions is not None or not (kv_len is None
+                                           or isinstance(kv_len, int)):
+            raise ValueError("attention on a mesh takes kv_len as an int "
+                             "and no q_positions")
+
+        def local(ql, kl, vl):
+            qp = None
+            if kv_len is not None and not use_kernel:
+                S = ql.shape[1]
+                qp = torch.arange(kv_len - S, kv_len, device=ql.device)
+                qp = qp[None, :].expand(ql.shape[0], S)
+            return attention(cfg, ql, kl, vl, causal=causal, window=window,
+                             softcap=softcap, scale=scale, kv_len=kv_len,
+                             q_positions=qp, use_kernel=use_kernel)
+
+        return attention_on_mesh(local, q, k, v)
     if not use_kernel:
         if chunked_applies(cfg, q, k, window=window, kv_len=kv_len,
                            causal=causal):

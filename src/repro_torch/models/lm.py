@@ -32,8 +32,8 @@ from ..configs.base import ModelConfig
 from ..parallel.api import constrain, is_distributed
 from . import blocks
 from .blocks import HUGE_WINDOW
-from .layers import (attention_ref, dtype_of, gen_device, init_dense,
-                     rms_norm, wide)
+from .layers import (cross_attention, dtype_of, gen_device, init_dense,
+                     merge_heads, reduce_model, rms_norm, split_heads, wide)
 
 
 #: leaves that stay float32 whatever ``param_dtype`` is (the SSD's step
@@ -310,11 +310,11 @@ def _cross_attn(cfg: ModelConfig, p, x, enc):
     B, S, _ = x.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["x_ln"], cfg.rms_eps)
-    q = (h @ p["x_wq"]).reshape(B, S, Hq, D)
-    k = (enc @ p["x_wk"]).reshape(B, -1, Hkv, D)
-    v = (enc @ p["x_wv"]).reshape(B, -1, Hkv, D)
-    out = attention_ref(q, k, v, causal=False)
-    return out.reshape(B, S, Hq * D) @ p["x_wo"]
+    q = split_heads(h @ p["x_wq"], B, S, Hq, D)
+    k = split_heads(enc @ p["x_wk"], B, enc.shape[1], Hkv, D)
+    v = split_heads(enc @ p["x_wv"], B, enc.shape[1], Hkv, D)
+    out = cross_attention(q, k, v)
+    return reduce_model(merge_heads(out, B, S, Hq * D) @ p["x_wo"])
 
 
 def _local(t):

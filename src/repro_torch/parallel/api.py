@@ -65,6 +65,29 @@ def like(t, ref):
     return t.redistribute(ref.device_mesh, ref.placements)
 
 
+def follow(t, ref):
+    """``t``, a plain tensor made alike on every rank (positions, rotary
+    angles), as a DTensor replicated over ``ref``'s mesh when ``ref`` is
+    a DTensor; otherwise ``t``.  No communication."""
+    if is_distributed(t) or not is_distributed(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def write_into(dst, src) -> None:
+    """``dst.copy_(src)`` in place; on a mesh each rank copies into its
+    own shard of ``dst`` from ``src`` laid out as ``dst`` is."""
+    if not is_distributed(dst):
+        dst.copy_(src)
+        return
+    src = follow(src, dst).redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
 def plain(t):
     """A DTensor as the whole tensor on this rank (gathered if it is
     sharded, reduced if it is partial); a plain tensor as it is."""
@@ -73,14 +96,17 @@ def plain(t):
 
 def constrain(x, name: str):
     """``x`` redistributed to the placements of the installed rule
-    ``name`` on its own mesh; ``x`` itself when no rule names ``name`` or
-    ``x`` is a plain tensor."""
+    ``name`` on its own mesh (a dimension its axes do not divide, such as
+    a decode batch of 1 over ``data``, stays replicated: the same values
+    as the reference's padded shards, with no uneven DTensor shards);
+    ``x`` itself when no rule names ``name`` or ``x`` is a plain
+    tensor."""
     rules = current_rules()
     if not rules or name not in rules or not is_distributed(x):
         return x
     from .sharding import placements
 
-    want = placements(rules[name], x.device_mesh)
+    want = placements(rules[name], x.device_mesh, x.shape)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)

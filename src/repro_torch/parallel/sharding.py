@@ -246,13 +246,15 @@ def spec_shards(spec: Spec, mesh: Mesh) -> int:
 # ---------------------------------------------------------------------------
 
 
-def placements(spec: Spec, mesh) -> tuple:
+def placements(spec: Spec, mesh, shape=None) -> tuple:
     """The DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``:
     ``Shard(i)`` on each mesh dimension that entry ``i`` names,
-    ``Replicate()`` on the others.  A tuple entry such as ``("pod",
-    "data")`` shards one tensor dimension over several mesh dimensions,
-    the first named major, as JAX lays it out; DTensor orders them by mesh
-    dimension, so the names must come in the mesh's order."""
+    ``Replicate()`` on the others (and, given the tensor's ``shape``, on
+    those of an entry whose axes do not divide its dimension).  A tuple
+    entry such as ``("pod", "data")`` shards one tensor dimension over
+    several mesh dimensions, the first named major, as JAX lays it out;
+    DTensor orders them by mesh dimension, so the names must come in the
+    mesh's order."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = list(mesh.mesh_dim_names)
@@ -261,6 +263,8 @@ def placements(spec: Spec, mesh) -> tuple:
         if entry is None:
             continue
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        if shape is not None and shape[i] % axis_size(mesh, axes):
+            continue
         dims = [names.index(a) for a in axes]
         if dims != sorted(dims):
             raise ValueError(f"{spec}: axes {axes} of dimension {i} are "
@@ -281,13 +285,65 @@ def distribute(tree_, specs, mesh):
     DTensor on ``mesh`` placed by its spec in ``specs`` (the same nesting,
     a :class:`Spec` per leaf).  Each rank keeps its own piece of the
     tensor it holds, with no communication: every rank must hold the same
-    values, as ranks that drew them from one seed do."""
-    from torch.distributed.tensor import distribute_tensor
+    values, as ranks that drew them from one seed do.  A leaf whose piece
+    is the whole tensor (replicated, or on a mesh of one) is wrapped as it
+    is, with no copy: a mesh of one serves from the very weights a single
+    card does."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     from .. import tree
 
-    flat = tree.flatten_with_path(tree_)
-    return tree.unflatten(tree_, [
-        distribute_tensor(x, mesh, placements(_spec_at(specs, path), mesh),
-                          src_data_rank=None)
-        for path, x in flat])
+    def one(path, x):
+        pl = placements(_spec_at(specs, path), mesh)
+        if all(not p.is_shard() or mesh.size(m) == 1
+               for m, p in enumerate(pl)):
+            return DTensor.from_local(x, mesh, pl, run_check=False,
+                                      shape=x.shape, stride=x.stride())
+        return distribute_tensor(x, mesh, pl, src_data_rank=None)
+
+    return tree.unflatten(tree_, [one(path, x) for path, x in
+                                  tree.flatten_with_path(tree_)])
+
+
+def local_shape(shape, mesh, placements_) -> tuple[tuple, tuple]:
+    """``(local shape, global offset)`` of this rank's shard of a tensor
+    of ``shape`` placed by ``placements_`` on the ``DeviceMesh`` ``mesh``,
+    from the rank's mesh coordinate alone (DTensor's own helper builds
+    index vectors on the host).  Every dimension a placement shards must
+    divide evenly, as the specs here make them."""
+    local, off = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for m, p in enumerate(placements_):
+        if not p.is_shard():
+            continue
+        n = mesh.size(m)
+        if local[p.dim] % n:
+            raise ValueError(f"dimension {p.dim} of {tuple(shape)} does "
+                             f"not divide over {n} ranks")
+        local[p.dim] //= n
+        off[p.dim] += coord[m] * local[p.dim]   # mesh dimensions major first
+    return tuple(local), tuple(off)
+
+
+def allocate(shapes, specs, mesh, device, fill=0):
+    """Every leaf of a tree of ``meta`` tensors (nested dicts) as a
+    DTensor on ``mesh`` placed by its spec in ``specs``, each rank
+    allocating only its own shard on ``device``, filled with ``fill``
+    (``None``: left uninitialised) — the counterpart of ``jax.jit``'s
+    ``out_shardings`` on a zeroed tree.  No rank ever holds a whole
+    leaf."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from .. import tree
+
+    def one(path, x):
+        pl = placements(_spec_at(specs, path), mesh)
+        shp, _ = local_shape(x.shape, mesh, pl)
+        t = (torch.empty(shp, dtype=x.dtype, device=device) if fill is None
+             else torch.full(shp, fill, dtype=x.dtype, device=device))
+        return DTensor.from_local(t, mesh, pl, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    return tree.unflatten(shapes, [one(path, x) for path, x in
+                                   tree.flatten_with_path(shapes)])

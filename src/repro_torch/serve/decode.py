@@ -14,15 +14,27 @@ its encoder once at prefill and caches each layer's cross-attention keys
 and values.  SSD layers run the recurrence step by step from the cached
 state (prefill and decode alike), as the reference does: the ``ssd_scan``
 kernel serves only the teacher-forced forward.
+
+On a mesh the weights (placed by ``param_specs``), the cache
+(``init_cache(..., mesh=)``) and the tokens (batch over the data axes)
+are DTensors, and the caller installs the reference's
+``activation_rules`` (``n_moe_groups`` = ``T // g`` at prefill, ``B // g``
+at decode): the residual stream is pinned where the reference pins it
+(``constrain(x, "activation")``), attention runs on each rank's own rows
+and heads through the same route as on one device, and every cache write
+stays on the rank that owns the row, head or time slice.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import tree
 from ..configs.base import ModelConfig
 from ..models import blocks
-from ..models.layers import attention_ref, rms_norm
+from ..models.layers import (cross_attention, merge_heads, reduce_model,
+                             rms_norm, split_heads)
 from ..models.lm import embed_tokens, encode, layer_params, stacks, unembed
+from ..parallel.api import constrain, is_distributed, on_mesh, write_into
 from .kvcache import init_cache
 
 _KV = ("k", "v", "k_scale", "v_scale")
@@ -34,9 +46,9 @@ def _cross_attn_cached(cfg: ModelConfig, p, x, layer):
     B, S, _ = x.shape
     Hq, D = cfg.n_heads, cfg.hd
     h = rms_norm(x, p["x_ln"], cfg.rms_eps)
-    q = (h @ p["x_wq"]).reshape(B, S, Hq, D)
-    out = attention_ref(q, layer["xk"], layer["xv"], causal=False)
-    return out.reshape(B, S, Hq * D) @ p["x_wo"]
+    q = split_heads(h @ p["x_wq"], B, S, Hq, D)
+    out = cross_attention(q, layer["xk"], layer["xv"])
+    return reduce_model(merge_heads(out, B, S, Hq * D) @ p["x_wo"])
 
 
 def _layer_step(cfg: ModelConfig, x, p, layer, window, positions,
@@ -94,8 +106,10 @@ def _encode_to_cache(cfg: ModelConfig, params, cache, encoder_feats,
     Hkv, D = cfg.n_kv_heads, cfg.hd
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
-        cache["xk"][i] = (enc @ p["x_wk"].to(dt)).reshape(Be, Te, Hkv, D)
-        cache["xv"][i] = (enc @ p["x_wv"].to(dt)).reshape(Be, Te, Hkv, D)
+        write_into(cache["xk"][i],
+                   split_heads(enc @ p["x_wk"].to(dt), Be, Te, Hkv, D))
+        write_into(cache["xv"][i],
+                   split_heads(enc @ p["x_wv"].to(dt), Be, Te, Hkv, D))
 
 
 def prefill(cfg: ModelConfig, params, cache, tokens, *, encoder_feats=None,
@@ -104,27 +118,39 @@ def prefill(cfg: ModelConfig, params, cache, tokens, *, encoder_feats=None,
     ``[B, P, d]`` for vlm, at positions ``0 .. P-1``; with the encoder's
     keys and values from ``encoder_feats`` for encdec); returns
     ``(logits_last [B, 1, V], cache)``."""
-    x = embed_tokens(cfg, params, tokens)
-    if cfg.family == "vlm" and patch_embeds is not None:
-        pe = patch_embeds.to(x.dtype) @ params["patch_proj"]
-        x = torch.cat([pe, x], dim=1)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    if cfg.family == "encdec":
-        _encode_to_cache(cfg, params, cache, encoder_feats, use_kernel)
-    x = _run_layers(cfg, params, cache, x, positions, 0, use_kernel)
-    return unembed(cfg, params, x[:, -1:, :]), cache
+    with on_mesh(tree.leaves(params)):
+        x = embed_tokens(cfg, params, tokens)
+        if cfg.family == "vlm" and patch_embeds is not None:
+            pe = patch_embeds.to(x.dtype) @ params["patch_proj"]
+            x = torch.cat([pe, x], dim=1)
+        B, S, _ = x.shape
+        positions = _positions(x, 0, B, S)
+        x = constrain(x, "activation")
+        if cfg.family == "encdec":
+            _encode_to_cache(cfg, params, cache, encoder_feats, use_kernel)
+        x = _run_layers(cfg, params, cache, x, positions, 0, use_kernel)
+        return unembed(cfg, params, x[:, -1:, :]), cache
+
+
+def _positions(x, start: int, B: int, S: int):
+    """``start + arange(S)`` on every row ``[B, S]``: a plain tensor on
+    the device of ``x`` (a rank's own on a mesh), alike on every rank."""
+    dev = x.to_local().device if is_distributed(x) else x.device
+    pos = torch.arange(start, start + S, dtype=torch.int64, device=dev)
+    return pos[None, :].expand(B, S)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int, *,
                 use_kernel: bool = True):
     """One decode step.  tokens ``[B, 1]``; pos: the cache fill (an int).
     Returns ``(logits [B, 1, V], cache)``."""
-    x = embed_tokens(cfg, params, tokens)
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    x = _run_layers(cfg, params, cache, x, positions, int(pos), use_kernel)
-    return unembed(cfg, params, x), cache
+    with on_mesh(tree.leaves(params)):
+        x = embed_tokens(cfg, params, tokens)
+        positions = _positions(x, int(pos), x.shape[0], 1)
+        x = constrain(x, "activation")
+        x = _run_layers(cfg, params, cache, x, positions, int(pos),
+                        use_kernel)
+        return unembed(cfg, params, x), cache
 
 
 def greedy_generate(cfg: ModelConfig, params, prompt, max_new: int,

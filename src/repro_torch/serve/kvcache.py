@@ -9,6 +9,13 @@ axis over every decoder layer (a MoE model's dense layers first):
   ``ssm`` ``[L, B, H, P, N]`` in float32 (ssm, hybrid);
 * the encoder's cross-attention keys and values ``xk``/``xv``
   ``[L, B, Te, Hkv, D]`` in the compute dtype (encdec).
+
+On a mesh (``mesh=``, a ``DeviceMesh``) every leaf is a DTensor placed
+by :func:`repro_torch.parallel.sharding.cache_specs`: kv heads over
+``model``, the batch over the data axes, the time axis over whichever of
+them is left (a batch of 1 at long context), each rank allocating only
+its own shard.  The blocks write each step's rows into the rank that
+owns them (:func:`repro_torch.models.blocks._write_rows`).
 """
 from __future__ import annotations
 
@@ -20,10 +27,17 @@ from ..models.layers import dtype_of
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               encoder_len: int | None = None, device=None) -> dict:
-    """Allocate the zeroed cache on ``device`` (default: the card).
-    ``encoder_len`` is the encoder's length (default ``encoder_seq``)."""
+               encoder_len: int | None = None, device=None,
+               mesh=None) -> dict:
+    """Allocate the zeroed cache on ``device`` (default: the card), or
+    with ``mesh`` each rank's shard of it there.  ``encoder_len`` is the
+    encoder's length (default ``encoder_seq``)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.sharding import allocate, cache_specs
+
+        shapes = init_cache(cfg, batch, max_len, encoder_len, "meta")
+        return allocate(shapes, cache_specs(cfg, mesh, shapes), mesh, dev)
     dt = dtype_of(cfg.compute_dtype)
     int8 = cfg.kv_cache_dtype == "int8"
     L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.hd
