@@ -223,18 +223,23 @@ exits non-zero:
     of 8 x 512 over a cache of 512 (its peak above the phase's base), and
     the timed bf16 run (8 x 512, 32 new tokens: 28 ``mma`` + 868
     ``split`` flash calls on the rank's local heads) beside the unsharded
-    run, its tokens equal to it on one card; then dryrun: the records of
+    run, its tokens equal to it on one card; on more cards its logits,
+    over the steps to the first differing token, within ``max(5e-3, 4 x
+    d')`` of it (d' the unsharded plain route's distance from the
+    unsharded run there); then dryrun: the records of
     every (arch x shape) cell
     with ``fits_one_card`` against the card's memory, and mamba2-2.7b's
     long_500k cell run (one decode step at position 524,287 from a zeroed
     cache), its peak memory beside the record's argument bytes; and the
     traces (``launch.trace``, in processes of their own, each over a fake
-    group of its mesh's size) of
+    group of its mesh's size, every one of which must run) of
     deepseek-moe-16b train_4k and that cell on both production meshes,
-    mesh_train's step on ``(2, 2)``, and on a mesh of one that cell's
-    decode and mesh_serve's plain prefill, each of the last two within
-    10 % of the peak the card measured (the traces start after the build,
-    at the host's lowest priority);
+    mesh_train's step on ``(2, 2)``, that cell's decode on a mesh of one
+    and mesh_serve's plain prefill on the mesh it ran on, each of the
+    last two within 10 % of the peak the card measured (rank 0's), and
+    their temporaries within 10 % of the card's (the peak of the bytes
+    the tensors requested, less the step's arguments; the traces start
+    after the build, at the host's lowest priority);
 28. summary: the ``kernels`` line (all six kernels; for those with
     variants, each variant's calls on the main paths; ``lut_eval6``'s
     times and bound are its level variant's, the one the main paths
@@ -4534,6 +4539,15 @@ def _peak(device):
             if device.type == "cuda" else None)
 
 
+def _requested(device, which: str = "current") -> int:
+    """The bytes the program's tensors on the card hold (``current``) or
+    held at most since the last reset (``peak``), as requested: without
+    the allocator's rounding into blocks, which a trace does not model."""
+    import torch
+
+    return torch.cuda.memory_stats(device)[f"requested_bytes.all.{which}"]
+
+
 def _reset_peak(device) -> None:
     import torch
 
@@ -4821,6 +4835,16 @@ def _max_diff(a, b) -> float:
     return float((a - b).abs().max())
 
 
+def _agreed_diff(tokens, logits, ref_tokens, ref_logits) -> tuple:
+    """Two greedy runs' largest logit difference over the steps up to
+    the first token that differs in any row (the steps whose inputs were
+    the same on both runs), and that step (None where none differs)."""
+    differ = (tokens != ref_tokens).any(dim=0).nonzero()
+    first = int(differ[0]) if len(differ) else None
+    agreed = slice(None) if first is None else slice(0, first + 1)
+    return _max_diff(logits[:, agreed], ref_logits[:, agreed]), first
+
+
 def mesh_serve_rank(arch: str, device, mp: int, gate=MOE_GATE,
                     timed=MOE_TIMED, gate_layers: int = MOE_GATE_LAYERS,
                     smoke: bool = False) -> dict:
@@ -4829,11 +4853,18 @@ def mesh_serve_rank(arch: str, device, mp: int, gate=MOE_GATE,
     model; a float32 gate over the first ``gate_layers`` layers (the
     mesh's kernel route against its plain route and against the
     unsharded kernel route, ``serve_gate``'s tolerance, equal tokens);
-    then at full depth in bf16 a plain-route prefill of ``timed``'s batch
-    over a cache of its prompt length (the dry run's prefill cell; its
-    peak above the phase's base is what the trace is held to), the timed
-    unsharded run and the timed mesh run (``serve.generate(...,
-    mesh=)``; a mesh of one serves from the same weights)."""
+    then at full depth in bf16 the timed unsharded run (on more than one
+    rank also the unsharded plain route's, whose distance from it over
+    the steps their tokens agree is the arithmetic's own noise d'; then
+    the whole weights are freed), a plain-route prefill of ``timed``'s
+    batch over a cache of its prompt length (the dry run's prefill cell;
+    its peak above the phase's base and its temporaries are what the
+    trace is held to), and the timed mesh run (``serve.generate(..., mesh=)``;
+    a mesh of one serves from the same weights): on a mesh of one its
+    tokens equal the unsharded run's and its logits lie within
+    ``SERVE_TOL``; on more ranks, where bf16 partial sums meet in another
+    order, its logits over the steps to the first differing token lie
+    within ``max(SERVE_TOL, NOISE_MARGIN x d')``."""
     import torch
     import torch.distributed as dist
 
@@ -4890,19 +4921,46 @@ def mesh_serve_rank(arch: str, device, mp: int, gate=MOE_GATE,
     t1 = time.perf_counter()
     _reset_peak(device)
     base = torch.cuda.memory_allocated(device) if cuda else None
+    base_req = _requested(device) if cuda else None
     params = serve.make_params(cfg, device, seed=0)
     setup_peak = _peak(device) - base if cuda else None
     placed = _mesh_params(cfg, params, mesh, own)
     B, S, new = timed
     prompts, extra = serve.make_inputs(cfg, B, S, device, seed=1)
 
+    serve.generate(cfg, params, prompts, 2, **extra)   # warm
+    _reset_peak(device)
+    one, one_counts = _counted(lambda: serve.generate(
+        cfg, params, prompts, new, keep_logits=True, **extra))
+    one_peak = _peak(device)
+    # kept on the host: the card then holds the steps' own bytes alone
+    one_tokens, one_logits = one["tokens"].cpu(), one["logits"].cpu()
+    unsharded = {k: one[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                     "tok_per_s", "decode_tok_per_s")}
+    del one
+    noise = None
+    if own:
+        # what two bf16 runs of the same function differ by on one card
+        # when only the order of their arithmetic differs (the unsharded
+        # plain route against the kernel route), routing flips included:
+        # the mesh run is held to it; then the whole weights are freed
+        plain_one = serve.generate(cfg, params, prompts, new,
+                                   use_kernel=False, keep_logits=True,
+                                   **extra)
+        noise = _agreed_diff(plain_one["tokens"].cpu(),
+                             plain_one["logits"].cpu(), one_tokens,
+                             one_logits)
+        del plain_one, params
+
     # the dry run's prefill cell on this mesh: the plain route over a
-    # cache of S positions, the peak above the phase's base
+    # cache of S positions, the peak above the phase's base (on more than
+    # one rank, with the rank's shards of the weights alone)
     _reset_peak(device)
     cache = init_cache(cfg, B, S, device=device, mesh=mesh)
     toks = sharding.distribute(
         {"t": prompts}, sharding.batch_specs(None, mesh, {"t": prompts}),
         mesh)["t"]
+    held = _requested(device) - base_req if cuda else None
     g = min(cfg.moe_group_size, B * S)
     with sharding_rules(sharding.activation_rules(cfg, mesh,
                                                   n_moe_groups=B * S // g)):
@@ -4914,39 +4972,36 @@ def mesh_serve_rank(arch: str, device, mp: int, gate=MOE_GATE,
     prefill_rec = {"batch": B, "prompt_len": S, "cache_len": S,
                    "route": "plain", "ms": prefill_ms,
                    "peak_bytes": _peak(device) - base if cuda else None,
-                   "base_bytes": base, "setup_peak_bytes": setup_peak}
+                   "argument_bytes": held,
+                   "temp_bytes": (_requested(device, "peak") - base_req
+                                  - held if cuda else None),
+                   "base_bytes": base,
+                   "setup_peak_bytes": setup_peak}
     del cache, logits, toks
 
-    serve.generate(cfg, params, prompts, 2, **extra)   # warm
-    _reset_peak(device)
-    one, one_counts = _counted(lambda: serve.generate(
-        cfg, params, prompts, new, keep_logits=True, **extra))
-    one_peak = _peak(device)
-    one_tokens, one_logits = one["tokens"], one["logits"]
-    unsharded = {k: one[k] for k in ("prefill_ms", "decode_ms_per_step",
-                                     "tok_per_s", "decode_tok_per_s")}
-    del one
-    if own:
-        del params
     serve.generate(cfg, placed, prompts, 2, mesh=mesh, **extra)   # warm
     _reset_peak(device)
     res, mcounts = _counted(lambda: serve.generate(
         cfg, placed, prompts, new, keep_logits=True, mesh=mesh, **extra))
     mvariants, heads = _variants(), ops.flash_head_counts()
     mesh_peak = _peak(device)
-    d = _max_diff(res["logits"], one_logits)
-    same = bool(torch.equal(res["tokens"], one_tokens))
-    # the steps up to the first token that differs (any row) saw the same
-    # inputs on both runs: their logits differ by the arithmetic alone
-    differ = (res["tokens"] != one_tokens).any(dim=0).nonzero()
-    first = int(differ[0]) if len(differ) else None
-    agreed = slice(None) if first is None else slice(0, first + 1)
-    d_agreed = _max_diff(res["logits"][:, agreed], one_logits[:, agreed])
+    tokens, logits = res["tokens"].cpu(), res["logits"].cpu()
+    d = _max_diff(logits, one_logits)
+    same = bool(torch.equal(tokens, one_tokens))
+    d_agreed, first = _agreed_diff(tokens, logits, one_tokens, one_logits)
+    check(_finite(logits), f"{cfg.name}: non-finite mesh logits")
     if world == 1:
-        check(d <= SERVE_TOL and same,
+        tol = SERVE_TOL
+        check(d <= tol and same,
               f"{cfg.name} on a mesh of one: logits {d} from the unsharded "
-              f"run's (tol {SERVE_TOL}), tokens equal: {same}")
-    check(_finite(res["logits"]), f"{cfg.name}: non-finite mesh logits")
+              f"run's (tol {tol}), tokens equal: {same}")
+    else:
+        tol = max(SERVE_TOL, NOISE_MARGIN * noise[0])
+        check(d_agreed <= tol,
+              f"{cfg.name} on {tuple(mesh.shape)}: logits {d_agreed} from "
+              f"the unsharded run's over the steps to the first differing "
+              f"token ({first}), tol {tol} from the unsharded routes' "
+              f"{noise[0]} (to their step {noise[1]})")
     timed_rec = {"batch": B, "prompt_len": S, "max_new": new,
                  "dtype": cfg.compute_dtype,
                  **{k: res[k] for k in ("prefill_ms", "decode_ms_per_step",
@@ -4957,7 +5012,11 @@ def mesh_serve_rank(arch: str, device, mp: int, gate=MOE_GATE,
                  "max_abs_logit_diff_vs_unsharded": d,
                  "tokens_identical": same, "first_differing_step": first,
                  "max_abs_logit_diff_while_tokens_agree": d_agreed,
-                 "tol": SERVE_TOL,
+                 "unsharded_plain_vs_kernel_while_tokens_agree": (
+                     None if noise is None else noise[0]),
+                 "unsharded_routes_first_differing_step": (
+                     None if noise is None else noise[1]),
+                 "tol": tol,
                  "launches": mcounts, "variants": mvariants,
                  "flash_heads": heads}
     return {"rank": dist.get_rank(), "world": world,
@@ -4975,8 +5034,8 @@ def phase_mesh_serve(device, gate=MOE_GATE, timed=MOE_TIMED,
     one card a ``(1, 1)`` mesh over an NCCL group of one, in this process
     (the gate, and the mesh's tokens equal to the unsharded run's with
     the logits within the gate); on more, one spawned process per card
-    (their tokens and logits against each rank's unsharded run are
-    recorded, not held: bf16 partial sums meet in another order).  Every
+    (each rank's logits held to its unsharded run's over the steps to
+    the first differing token: :func:`mesh_serve_rank`).  Every
     flash call is the kernel's on the rank's local heads: ``ffma`` in
     the float32 gate, one ``mma`` per layer at the prefill and one
     ``split`` per layer and decode step."""
@@ -5025,6 +5084,9 @@ def phase_mesh_serve(device, gate=MOE_GATE, timed=MOE_TIMED,
                 r["timed"]["unsharded"]["peak_bytes"] for r in recs],
             "per_rank_tokens_identical": [r["timed"]["tokens_identical"]
                                           for r in recs],
+            "per_rank_diff_while_tokens_agree": [
+                r["timed"]["max_abs_logit_diff_while_tokens_agree"]
+                for r in recs],
             "per_rank_launches": [r["timed"]["launches"]["flash_attention"]
                                   for r in recs],
             "flash_variants_expected": want,
@@ -5043,46 +5105,56 @@ TRACE_CELLS = (("deepseek-moe-16b", "train_4k"), DRYRUN_CELL)
 #: each trace process's time limit, seconds
 TRACE_TIMEOUT = 900
 #: the traced peak (arguments + the step's) of a step the card also runs,
-#: as a share of the measured peak
+#: and its traced temporaries (the step's own bytes), each as a share of
+#: the measured one
 TRACE_PEAK_TOL = 0.10
 
 
-def start_traces() -> dict:
-    """Start the dry-run phase's traces, one process per mesh size: the
-    ``TRACE_CELLS`` on the ``single`` and ``multi`` production meshes;
-    on a mesh of one, ``DRYRUN_CELL``'s decode and mesh_serve's
-    plain-route prefill (``MOE_TIMED``'s batch over a cache of its prompt
-    length), the steps the card runs; on ``(2, 2)``, mesh_train's step
-    (``MESH_TIMED``'s batch and sequence).  They run at the host's lowest
-    priority while the card works through the phases (the 512-rank
-    mesh's train step takes minutes: DTensor plans its redistributions
-    over three mesh dimensions); :func:`collect_traces` reads them."""
+def mesh_tag(shape) -> str:
+    """A trace's name for a mesh of ``shape``: ``"2x2"``."""
+    return "x".join(str(n) for n in shape)
+
+
+def serve_prefill_key(shape) -> tuple:
+    """The trace key (:func:`collect_traces`) of mesh_serve's plain-route
+    prefill (``MOE_TIMED``'s batch over a cache of its prompt length) on
+    a ``(data, model)`` mesh of ``shape``, the one it ran on."""
     B, S, _ = MOE_TIMED
-    one = [list(DRYRUN_CELL), [MESH_SERVE_ARCH, ["prefill", B, S]]]
-    mesh_train = [["tinyllama-1.1b", ["train", MESH_TIMED[1],
-                                      MESH_TIMED[2]]]]
-    names = json.dumps(["data", "model"])
-    runs = {"single": ["--mesh", "single"], "multi": ["--mesh", "multi"],
-            "one": ["--sizes", "[1, 1]", "--names", names],
-            "2x2": ["--sizes", "[2, 2]", "--names", names]}
+    return (mesh_tag(shape), MESH_SERVE_ARCH, json.dumps(["prefill", B, S]))
+
+
+def start_traces(serve_mesh=(1, 1)) -> dict:
+    """Start the dry-run phase's traces, one process per mesh: the
+    ``TRACE_CELLS`` on the ``single`` and ``multi`` production meshes;
+    the steps the card runs on the meshes it runs them on:
+    ``DRYRUN_CELL``'s decode on a mesh of one, mesh_serve's plain-route
+    prefill on ``serve_mesh`` (:func:`mesh_shape` of the visible cards),
+    and mesh_train's step (``MESH_TIMED``'s batch and sequence) on
+    ``(2, 2)``, whose collectives the four-card run sends.  They run at
+    the host's lowest priority while the card works through the phases
+    (the 512-rank mesh's train step takes minutes: DTensor plans its
+    redistributions over three mesh dimensions); :func:`collect_traces`
+    reads them.  ``{tag: (process, cells)}``."""
+    from repro_torch.launch import trace
+
     cells = {"single": [list(c) for c in TRACE_CELLS],
-             "multi": [list(c) for c in TRACE_CELLS], "one": one,
-             "2x2": mesh_train}
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
-                               if os.environ.get("PYTHONPATH") else [])))
-    procs = {tag: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.trace", *args,
-         "--cells", json.dumps(cells[tag])], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=str(ROOT), env=env,
-        preexec_fn=lambda: os.nice(19))
-        for tag, args in runs.items()}
+             "multi": [list(c) for c in TRACE_CELLS],
+             "1x1": [list(DRYRUN_CELL)],
+             "2x2": [["tinyllama-1.1b", ["train", MESH_TIMED[1],
+                                         MESH_TIMED[2]]]]}
+    tag, arch, shape = serve_prefill_key(serve_mesh)
+    cells.setdefault(tag, []).append([arch, json.loads(shape)])
+    names = ["data", "model"]
+    procs = {tag: (trace.start(
+        c, **({"mesh": tag} if tag in ("single", "multi") else {
+            "sizes": [int(n) for n in tag.split("x")], "names": names}),
+        nice=19), c) for tag, c in cells.items()}
     atexit.register(_stop, procs)   # a phase that fails leaves none behind
     return procs
 
 
 def _stop(procs: dict) -> None:
-    for p in procs.values():
+    for p, _ in procs.values():
         if p.poll() is None:
             p.kill()
             p.communicate()
@@ -5090,19 +5162,17 @@ def _stop(procs: dict) -> None:
 
 def collect_traces(procs: dict, timeout: float = TRACE_TIMEOUT) -> dict:
     """Every trace record of :func:`start_traces`' processes, ``{(mesh
-    tag, arch, shape as JSON): record}``; raises if a process fails or
-    passes its time limit (every one is stopped)."""
+    tag, arch, shape as JSON): record}``; a process that failed or passed
+    its time limit (and was stopped) leaves its cells ``status:
+    "error"``."""
+    from repro_torch.launch import trace
+
     out = {}
     try:
-        for tag, p in procs.items():
-            stdout, stderr = p.communicate(timeout=timeout)
-            check(p.returncode == 0, f"the {tag} trace exited "
-                                     f"{p.returncode}: {stderr[-2000:]}")
-            for line in stdout.splitlines():
-                if line.startswith("{"):
-                    r = json.loads(line)
-                    out[(tag, r.pop("arch"),
-                         json.dumps(r.pop("shape")))] = r
+        for tag, (p, cells) in procs.items():
+            for (arch, shape), r in zip(cells,
+                                        trace.collect(p, cells, timeout)):
+                out[(tag, arch, json.dumps(shape))] = r
     finally:
         _stop(procs)
     return out
@@ -5110,40 +5180,71 @@ def collect_traces(procs: dict, timeout: float = TRACE_TIMEOUT) -> dict:
 
 def traced_peak(rec: dict) -> int:
     """A traced step's peak: its arguments and its own live bytes."""
-    check(rec.get("status") == "ok", f"a trace failed: {rec.get('error')}")
     mem = rec["memory"]
     return mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
 
 
 def trace_reading(traces: dict, measured: dict) -> dict:
     """The traces in a record: each one's peak, FLOPs, collective bytes
-    by kind and time; each step the card ran (``measured``: ``{name:
-    (trace key, measured peak above the phase's base)}``) with its traced
-    peak within ``TRACE_PEAK_TOL`` of the measured one (no card: not
-    held)."""
+    by kind and time; every trace must have run.  Each step the card ran
+    (``measured``: ``{name: (trace key, measured peak, measured
+    temporaries)}``: the peak ``max_memory_allocated`` above the phase's
+    base, the temporaries the peak of the requested bytes less the
+    step's arguments, :func:`_requested`) with its traced peak and its
+    traced temporaries each within ``TRACE_PEAK_TOL`` of the card's (no
+    card: not held)."""
+    bad = {f"{tag} {arch} {shape}": r.get("error")
+           for (tag, arch, shape), r in traces.items()
+           if r.get("status") != "ok"}
+    check(not bad, f"a trace failed: {bad}")
     cells = {f"{tag} {arch} {shape}": {
-        "status": r["status"], **({"error": r["error"]}
-                                  if r["status"] != "ok" else {
-            "peak_bytes": traced_peak(r), "memory": r["memory"],
-            "flops": r["cost"]["flops"],
-            "collectives": r["collectives"], "trace_s": r["trace_s"]})}
+        "peak_bytes": traced_peak(r), "memory": r["memory"],
+        "flops": r["cost"]["flops"], "collectives": r["collectives"],
+        "trace_s": r["trace_s"]}
         for (tag, arch, shape), r in traces.items()}
     held = {}
-    for name, (key, peak) in measured.items():
+    for name, (key, peak, got_temp) in measured.items():
+        check(key in traces, f"{name}: no trace {key}")
         want = traced_peak(traces[key])
-        held[name] = {"traced_peak_bytes": want, "measured_peak_bytes": peak,
-                      "traced_over_measured": (want / peak if peak
-                                               else None)}
+        temp = traces[key]["memory"]["temp_size_in_bytes"]
+        held[name] = {
+            "trace": list(key), "traced_peak_bytes": want,
+            "measured_peak_bytes": peak,
+            "traced_over_measured": want / peak if peak else None,
+            "traced_temp_bytes": temp, "measured_temp_bytes": got_temp,
+            "traced_temp_over_measured": (temp / got_temp if got_temp
+                                          else None)}
         if peak is not None:
             check(abs(want - peak) <= TRACE_PEAK_TOL * peak,
                   f"{name}: traced peak {want} against the card's {peak} "
                   f"(tol {TRACE_PEAK_TOL})")
+        if got_temp is not None:
+            check(abs(temp - got_temp) <= TRACE_PEAK_TOL * got_temp,
+                  f"{name}: traced temporaries {temp} against the card's "
+                  f"{got_temp} (its requested peak less its arguments; "
+                  f"tol {TRACE_PEAK_TOL})")
     return {"cells": cells, "held": held, "tol": TRACE_PEAK_TOL}
+
+
+def held_steps(cell, peak, temp, served: dict | None) -> dict:
+    """The steps the card ran that :func:`trace_reading` holds to their
+    traces: ``cell``'s decode on a mesh of one (its measured ``peak`` and
+    ``temp``), and mesh_serve's plain-route prefill (``served``: that
+    phase's record) on the mesh it ran on, as rank 0 measured it."""
+    out = {f"{cell[0]} {cell[1]} decode": (
+        ("1x1", cell[0], json.dumps(cell[1])), peak, temp)}
+    if served is not None:
+        pre = served["prefill_plain"]
+        out[f"mesh_serve {MESH_SERVE_ARCH} plain prefill on "
+            f"{mesh_tag(served['mesh'])} (rank 0)"] = (
+            serve_prefill_key(served["mesh"]), pre["peak_bytes"],
+            pre["temp_bytes"])
+    return out
 
 
 def phase_dryrun(device, card_bytes: int | None = None,
                  run_cfg=None, traces: dict | None = None,
-                 serve_peak: int | None = None) -> dict:
+                 served: dict | None = None) -> dict:
     """The dry-run records of every (arch x shape) cell
     (``launch.dryrun.cell_record``, nothing allocated) with
     ``fits_one_card`` against the card's memory, then ``DRYRUN_CELL``
@@ -5154,7 +5255,8 @@ def phase_dryrun(device, card_bytes: int | None = None,
     (``run_cfg`` stands in for the cell's config in a rehearsal).  With
     ``traces`` (:func:`start_traces`' processes), their records, the
     cell's traced peak on a mesh of one and mesh_serve's plain-route
-    prefill's (``serve_peak``, measured there) each held to the card's
+    prefill's on the mesh it ran on (``served``: mesh_serve's record,
+    rank 0's peak and temporaries) each held to the card's
     (:func:`trace_reading`)."""
     import torch
 
@@ -5195,6 +5297,7 @@ def phase_dryrun(device, card_bytes: int | None = None,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
+        base_req = _requested(device)
     t1 = time.perf_counter()
     params = serve.make_params(cfg, device, seed=0)
     cache = init_cache(cfg, shape.global_batch, shape.seq_len,
@@ -5202,11 +5305,12 @@ def phase_dryrun(device, card_bytes: int | None = None,
     tok = torch.ones((shape.global_batch, 1), dtype=torch.int64,
                      device=device)
     held = dryrun.nbytes(params) + dryrun.nbytes(cache)
-    init_peak = None
+    init_peak = args = temp = None
     if device.type == "cuda":
         # the draws' float32 temporaries peak during the set-up; the step
         # is read from here
         init_peak = torch.cuda.max_memory_allocated(device) - base
+        args = _requested(device) - base_req
         torch.cuda.reset_peak_memory_stats(device)
     ((logits, _), step_ms), counts = _counted(lambda: _timed(
         lambda: decode_step(cfg, params, cache, tok, shape.seq_len - 1),
@@ -5214,20 +5318,18 @@ def phase_dryrun(device, card_bytes: int | None = None,
     check(tuple(logits.shape) == (shape.global_batch, 1, cfg.vocab)
           and _finite(logits), f"{cell}: decode gave "
                                f"{tuple(logits.shape)} or non-finite logits")
-    peak = (torch.cuda.max_memory_allocated(device) - base
-            if device.type == "cuda" else None)
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) - base
+        temp = _requested(device, "peak") - base_req - args
+    else:
+        peak = None
     del params, cache, logits
     traced = None
     if traces is not None:
         t2 = time.perf_counter()
         got = collect_traces(traces)
-        B, S, _ = MOE_TIMED
-        traced = {**trace_reading(got, {
-            f"{cell[0]} {cell[1]} decode": (
-                ("one", cell[0], json.dumps(cell[1])), peak),
-            f"mesh_serve {MESH_SERVE_ARCH} plain prefill": (
-                ("one", MESH_SERVE_ARCH, json.dumps(["prefill", B, S])),
-                serve_peak)}), "collect_s": time.perf_counter() - t2}
+        traced = {**trace_reading(got, held_steps(cell, peak, temp, served)),
+                  "collect_s": time.perf_counter() - t2}
     return {"phase": "dryrun", "card_bytes": card_bytes,
             "columns": ["arch", "shape", "kind", "n_params",
                         "n_active_params", "model_flops", "bytes",
@@ -5240,7 +5342,8 @@ def phase_dryrun(device, card_bytes: int | None = None,
             "run": {"cell": list(cell), "pos": shape.seq_len - 1,
                     "record_argument_bytes": rec["argument_bytes"],
                     "record_bytes": rec["bytes"],
-                    "allocated_bytes": held, "peak_bytes": peak,
+                    "allocated_bytes": held, "argument_bytes": args,
+                    "peak_bytes": peak, "temp_bytes": temp,
                     "setup_peak_bytes": init_peak,
                     "base_bytes": base if device.type == "cuda" else None,
                     "step_ms": step_ms, "launches": counts,
@@ -5273,7 +5376,7 @@ def main() -> int:
           "per_source_s": secs, "ptxas": ptxas})
     # host work at the lowest priority while the card works through the
     # phases; read by the dryrun phase at the end
-    traces = start_traces()
+    traces = start_traces(mesh_shape(torch.cuda.device_count()))
 
     suites = full_suites()
     nets = [n for v in suites.values() for n in v]
@@ -5437,8 +5540,7 @@ def main() -> int:
     msrec = phase_mesh_serve(device)
     emit(msrec)
     torch.cuda.empty_cache()
-    emit(phase_dryrun(device, traces=traces,
-                      serve_peak=msrec["prefill_plain"]["peak_bytes"]))
+    emit(phase_dryrun(device, traces=traces, served=msrec))
 
     replaces = {"lut_eval6": "src/repro/kernels/lut_eval.py:90",
                 "lut_eval": "src/repro/kernels/lut_eval.py:47",

@@ -2,7 +2,7 @@
 ``repro/launch/dryrun.py``), allocating nothing.
 
     python -m repro_torch.launch.dryrun --all [--mesh both]
-        [--out build/dryrun] [--force] [--device cpu] [--jobs 4]
+        [--out build/dryrun] [--force] [--device cpu]
 
 For each cell a record ``<out>/<arch>__<shape>.json``: the parameter
 count, the active parameters (a MoE layer's experts discounted to the k
@@ -24,8 +24,8 @@ The reference lowers and compiles each cell with XLA and reads its
 memory and cost analyses and the collectives of the partitioned HLO.
 The port traces each cell's real step instead (:mod:`.trace`, in worker
 processes of their own, each over a fake process group of the mesh's
-size; ``--jobs`` of them at once): ``per_device[mesh]`` gains the
-reference's ``memory`` (``argument_size_in_bytes``, equal to
+size; one for each two of the host's cores at once): ``per_device[mesh]``
+gains the reference's ``memory`` (``argument_size_in_bytes``, equal to
 ``argument_bytes``; ``output_size_in_bytes``, ``alias_size_in_bytes``,
 ``temp_size_in_bytes``), ``cost`` (``flops``, ``transcendentals``,
 ``bytes accessed``, all per device) and ``collectives`` (count and result
@@ -40,8 +40,6 @@ import argparse
 import json
 import math
 import os
-import subprocess
-import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -211,44 +209,30 @@ def run_cell(arch: str, shape_name: str, out_dir, card_bytes=None,
     return record
 
 
-def _trace_worker(tag: str, cells: list) -> list:
-    """One trace process (``python -m repro_torch.launch.trace``) over
-    ``cells`` on mesh ``tag``: ``[(arch, shape, tag, record), ...]``, a
-    cell the process left unrecorded given ``status: "error"`` with its
-    exit code and errors."""
-    src = str(Path(__file__).resolve().parents[2])
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [src] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.trace", "--mesh", tag,
-         "--cells", json.dumps(cells)],
-        capture_output=True, text=True, env=env)
-    got = {}
-    for line in proc.stdout.splitlines():
-        if line.startswith("{"):
-            r = json.loads(line)
-            got[(r.pop("arch"), r.pop("shape"))] = r
-    for a, s in cells:
-        got.setdefault((a, s), {
-            "status": "error",
-            "error": f"the trace process exited {proc.returncode}: "
-                     f"{proc.stderr[-2000:]}"})
-    for r in got.values():
-        r.pop("mesh", None)
-    return [(a, s, tag, got[(a, s)]) for a, s in cells]
+#: trace processes at once: one for each two of the host's cores (a
+#: trace runs one thread of Python)
+TRACE_PROCESSES = max(1, (os.cpu_count() or 2) // 2)
 
 
-def trace_records(cells: list, meshes=("single", "multi"),
-                  jobs: int = 1) -> dict:
+def trace_records(cells: list, meshes=("single", "multi")) -> dict:
     """The trace of every ``(arch, shape)`` cell on every mesh,
     ``{(arch, shape, mesh): record}``: each mesh's cells split among
-    ``jobs`` worker processes, ``jobs`` of them running at once."""
-    tasks = [(tag, cells[i::jobs]) for tag in meshes for i in range(jobs)
-             if cells[i::jobs]]
+    ``TRACE_PROCESSES`` processes (:func:`.trace.start`), that many of
+    them running at once."""
+    from . import trace
+
+    n = TRACE_PROCESSES
+    tasks = [(tag, cells[i::n]) for tag in meshes for i in range(n)
+             if cells[i::n]]
+
+    def run(task):
+        tag, part = task
+        recs = trace.collect(trace.start(part, mesh=tag), part)
+        return [(a, s, tag, r) for (a, s), r in zip(part, recs)]
+
     out = {}
-    with ThreadPoolExecutor(max(1, jobs)) as pool:
-        for rows in pool.map(lambda t: _trace_worker(*t), tasks):
+    with ThreadPoolExecutor(n) as pool:
+        for rows in pool.map(run, tasks):
             out.update({(a, s, tag): r for a, s, tag, r in rows})
     return out
 
@@ -281,8 +265,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="the card whose memory fits_one_card is taken "
                          "against (default: the CUDA card; cpu: none)")
-    ap.add_argument("--jobs", type=int, default=4,
-                    help="trace processes at once")
     args = ap.parse_args(argv)
 
     card = card_bytes_of(args.device)
@@ -296,8 +278,7 @@ def main(argv=None):
                for arch in archs for shape in shapes}
     todo = [c for c, r in records.items() if r["status"] == "ok"
             and (args.force or not _traced(r, meshes))]
-    for (arch, shape, tag), t in trace_records(todo, meshes,
-                                               args.jobs).items():
+    for (arch, shape, tag), t in trace_records(todo, meshes).items():
         r = add_trace(records[(arch, shape)], tag, t)
         (Path(args.out) / f"{arch}__{shape}.json").write_text(
             json.dumps(r, indent=1))

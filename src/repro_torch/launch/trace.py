@@ -5,7 +5,8 @@ the reference dry run's ``lower_cell`` + ``compile_cell``.
     python -m repro_torch.launch.trace --mesh single \\
         --cells '[["qwen1.5-0.5b", "train_4k"], ...]'
 
-prints one JSON record per cell.  The process forms the fake group
+prints one JSON record per cell (:func:`start` and :func:`collect` run
+it from another process).  The process forms the fake group
 (``torch.distributed``'s ``fake`` backend: every collective is a no-op
 that gives tensors of the right shapes) and builds a ``DeviceMesh`` of
 the production shape on it, so it must be a process of its own: it
@@ -51,9 +52,12 @@ import argparse
 import contextlib
 import json
 import math
+import os
+import subprocess
 import sys
 import time
 import weakref
+from pathlib import Path
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -445,6 +449,51 @@ def trace_jobs(jobs: list):
         except Exception as e:  # noqa: BLE001 - recorded, as in the reference
             rec = {"status": "error", "error": f"{type(e).__name__}: {e}"}
         yield job, rec
+
+
+def start(cells: list, mesh: str | None = None, sizes=None, names=None,
+          nice: int = 0) -> subprocess.Popen:
+    """This module run over ``cells`` (``[arch, shape]`` pairs, as
+    ``--cells`` takes them) on the production ``mesh``, or on a mesh of
+    ``sizes`` named ``names``, in a process of its own at ``nice``
+    priority; :func:`collect` reads it."""
+    where = (["--mesh", mesh] if sizes is None else
+             ["--sizes", json.dumps(list(sizes)), "--names",
+              json.dumps(list(names))])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parents[2])]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.trace", *where,
+         "--cells", json.dumps(cells)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        preexec_fn=(lambda: os.nice(nice)) if nice else None)
+
+
+def collect(proc: subprocess.Popen, cells: list,
+            timeout: float | None = None) -> list:
+    """The record of each of ``cells`` from :func:`start`'s ``proc``, in
+    their order, without the ``arch``, ``shape`` and ``mesh`` it printed;
+    a cell the process left unrecorded (it failed, or passed ``timeout``
+    seconds and was killed) has ``status: "error"`` and the process's
+    exit code and errors."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        why = f"the trace process exited {proc.returncode}"
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        why = f"the trace process passed its {timeout} s and was killed"
+    got = {}
+    for line in out.splitlines():
+        if line.startswith("{"):
+            r = json.loads(line)
+            r.pop("mesh", None)
+            got[(r.pop("arch"), json.dumps(r.pop("shape")))] = r
+    return [got.get((a, json.dumps(s)), {
+        "status": "error", "error": f"{why}: {err[-2000:]}"})
+        for a, s in cells]
 
 
 def main(argv=None) -> int:

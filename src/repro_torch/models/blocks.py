@@ -22,10 +22,11 @@ from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
-from ..parallel.api import constrain, is_distributed, write_into
+from ..parallel.api import (constrain, current_rules, is_distributed,
+                            write_into)
 from .layers import (attention, glu_ffn, merge_heads, mesh_axes,
                      mesh_placements, reduce_model, rms_norm, rope,
-                     split_heads)
+                     split_heads, whole_over_model)
 
 HUGE_WINDOW = 1 << 30
 #: the profiler range the dropless expert products run in
@@ -175,7 +176,9 @@ def _moe_route(cfg: ModelConfig, p, ht):
     experts, top-k (:func:`topk_lowest_index`), the gates renormalised
     over the k.  ``ht``'s leading axes are arbitrary.  Returns ``(probs
     [..., E], gate_vals [..., K], onehot [..., K, E])``, all float32."""
-    logits = ht.float() @ p["router"].float()
+    # every expert's logit on every model rank (the router's columns are
+    # sharded over model): the softmax and top-k then split no token
+    logits = whole_over_model(ht.float() @ p["router"].float())
     probs = torch.softmax(logits, dim=-1)
     gate_idx = topk_lowest_index(probs, cfg.top_k)[1]
     return (probs, *_moe_gates(probs, gate_idx, cfg.n_experts))
@@ -237,20 +240,61 @@ def moe_block(cfg: ModelConfig, p, x):
     keep = (slot >= 0) & (slot < C)
     slot = torch.clamp(slot, 0, C - 1).long()
     slot_oh = F.one_hot(slot, C).float() * keep[..., None]
-    disp = torch.einsum("ngke,ngkc->ngec", onehot, slot_oh).to(cdt)
+    disp = _dispatch_einsum("ngke,ngkc->ngec", onehot, slot_oh).to(cdt)
     disp = constrain(disp, "moe_dispatch")
-    xe = torch.einsum("ngd,ngec->necd", ht, disp)
+    xe = _dispatch_einsum("ngd,ngec->necd", ht, disp)
     xe = constrain(xe, "moe_expert_in")
     we_i, we_o = _moe_expert_weights(p, cdt)
     ye = constrain(_capacity_experts(xe, we_i, we_o), "moe_expert_in")
-    comb = torch.einsum("ngke,ngkc,ngk->ngec", onehot, slot_oh,
-                        gate_vals).to(cdt)
+    comb = _dispatch_einsum("ngke,ngkc,ngk->ngec", onehot, slot_oh,
+                            gate_vals).to(cdt)
     comb = constrain(comb, "moe_dispatch")
-    yt = torch.einsum("necd,ngec->ngd", ye, comb)
+    yt = _dispatch_einsum("necd,ngec->ngd", ye, comb)
     out = yt.reshape(B, S, d).to(x.dtype)
     if cfg.n_shared_experts > 0:
         out = out + glu_ffn(h, p["ws_i"], p["ws_o"], "swiglu")
     return out, _moe_aux_loss(cfg, probs, onehot)
+
+
+def _dispatch_einsum(eq: str, *ts):
+    """``torch.einsum(eq, *ts)`` of the capacity dispatch, whose operands
+    and result all lead with the groups ``n`` and name the experts ``e``;
+    on DTensors under ``local_map``, each rank on its own groups (``n``
+    over the data axes where the ``moe_dispatch`` rule puts it there and
+    they divide it) and its own experts (``e`` over ``model`` when it
+    divides E).  An operand without ``e`` is alike
+    on every ``model`` rank and its gradient there a partial sum; a result
+    without ``e`` (the combine) is a partial sum over ``model``.  DTensor's
+    own einsum flattens ``e`` with a neighbouring dimension, which some
+    torch versions refuse for a sharded dimension."""
+    if not is_distributed(ts[0]):
+        return torch.einsum(eq, *ts)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    subs, res = eq.split("->")
+    subs = subs.split(",")
+    mesh = ts[0].device_mesh
+    dp, n_dp, mp = mesh_axes(mesh)
+    rule = (current_rules() or {}).get("moe_dispatch")
+    n_dim = (0 if rule is not None and rule[0] is not None
+             and ts[0].shape[0] % n_dp == 0 else None)
+    E = next(t.shape[s.index("e")] for s, t in zip(subs, ts) if "e" in s)
+    e_on = E % mp == 0
+
+    def pl(s):
+        return mesh_placements(mesh, {**{a: n_dim for a in dp}, "model": (
+            s.index("e") if e_on and "e" in s else None)})
+
+    def partial(s):
+        return [Partial() if a == "model" and e_on and "e" not in s else q
+                for a, q in zip(mesh.mesh_dim_names, pl(s))]
+
+    return local_map(lambda *ls: torch.einsum(eq, *ls),
+                     out_placements=partial(res),
+                     in_placements=tuple(pl(s) for s in subs),
+                     in_grad_placements=tuple(partial(s) for s in subs),
+                     device_mesh=mesh, redistribute_inputs=True)(*ts)
 
 
 def _expert_ffn(xe, we_i, we_o):

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..parallel.api import follow, is_distributed
+from ..parallel.api import is_distributed
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -54,17 +54,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
          ) -> torch.Tensor:
-    """x: ``[..., S, H, D]``; positions: ``[..., S]``, a plain tensor
-    alike on every rank: on a mesh the angles follow ``x`` onto it,
-    replicated."""
+    """x: ``[..., S, H, D]``; positions: ``[..., S]``."""
     d = x.shape[-1]
     half = d // 2
     ft = wide_type(x.dtype)
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=ft,
-                                          device=positions.device) / half))
+                                          device=x.device) / half))
     ang = positions[..., :, None].to(ft) * freqs[None, :]
-    cos = follow(torch.cos(ang)[..., :, None, :], x)   # [..., S, 1, half]
-    sin = follow(torch.sin(ang)[..., :, None, :], x)
+    cos = torch.cos(ang)[..., :, None, :]   # [..., S, 1, half]
+    sin = torch.sin(ang)[..., :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -310,6 +308,20 @@ def reduce_model(x):
 
     return x.redistribute(x.device_mesh, [
         Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def whole_over_model(x):
+    """A DTensor made whole over ``model`` (its shards there gathered, its
+    partial sums there reduced), its other placements kept; a plain
+    tensor as it is."""
+    if not is_distributed(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    want = tuple(Replicate() if n == "model" else p
+                 for n, p in zip(mesh.mesh_dim_names, x.placements))
+    return x if want == tuple(x.placements) else x.redistribute(mesh, want)
 
 
 def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=None,

@@ -65,26 +65,14 @@ def like(t, ref):
     return t.redistribute(ref.device_mesh, ref.placements)
 
 
-def follow(t, ref):
-    """``t``, a plain tensor made alike on every rank (positions, rotary
-    angles), as a DTensor replicated over ``ref``'s mesh when ``ref`` is
-    a DTensor; otherwise ``t``.  No communication."""
-    if is_distributed(t) or not is_distributed(ref):
-        return t
-    from torch.distributed.tensor import DTensor, Replicate
-
-    mesh = ref.device_mesh
-    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                              run_check=False)
-
-
 def write_into(dst, src) -> None:
     """``dst.copy_(src)`` in place; on a mesh each rank copies into its
-    own shard of ``dst`` from ``src`` laid out as ``dst`` is."""
+    own shard of ``dst`` from ``src`` (a DTensor on the same mesh) laid
+    out as ``dst`` is."""
     if not is_distributed(dst):
         dst.copy_(src)
         return
-    src = follow(src, dst).redistribute(dst.device_mesh, dst.placements)
+    src = src.redistribute(dst.device_mesh, dst.placements)
     dst.to_local().copy_(src.to_local())
 
 

@@ -6,14 +6,19 @@ rehearsed on the CPU.
   the timed run pass, and the gate refuses a planted fault, the
   all-reduce over ``model`` after the row-sharded products (the experts'
   partial sums among them) dropped, each rank keeping its partial sum;
-- the traced peaks held to the card's: within ``TRACE_PEAK_TOL`` passes,
-  beyond it fails, and a failed trace fails.
+- the traced peaks and temporaries held to the card's: within
+  ``TRACE_PEAK_TOL`` passes, beyond it fails, and a failed trace fails;
+  mesh_serve's prefill is held to the trace of the mesh it ran on, and
+  the dry-run phase reads the traces of a four-card record so.
 """
 import json
 import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+from repro_torch.configs.base import get_config
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -72,8 +77,13 @@ def test_mesh_serve_phase_rehearsed_on_cpu(tmp_path):
         assert gate["max_abs_logit_diff_vs_unsharded"] <= gate["tol"]
         assert timed["tokens_identical"]
         assert timed["max_abs_logit_diff_vs_unsharded"] <= timed["tol"]
+        # two ranks: held to the unsharded routes' own distance
+        assert timed["unsharded_plain_vs_kernel_while_tokens_agree"] \
+            is not None
+        assert timed["max_abs_logit_diff_while_tokens_agree"] <= timed["tol"]
         assert timed["flash_heads"] == {}          # no card: no launches
         assert rec["prefill_plain"]["peak_bytes"] is None
+        assert rec["prefill_plain"]["temp_bytes"] is None
         assert rec["prefill_plain"]["cache_len"] == SIZES[1][1]
 
 
@@ -90,16 +100,84 @@ def _trace(arg: int, temp: int) -> dict:
 
 
 def test_traced_peak_is_held_to_the_card():
-    key = ("one", "mamba2-2.7b", json.dumps("long_500k"))
+    key = ("1x1", "mamba2-2.7b", json.dumps("long_500k"))
     traces = {key: _trace(1000, 50)}
-    rec = cs.trace_reading(traces, {"decode": (key, 1000)})
+    rec = cs.trace_reading(traces, {"decode": (key, 1000, 48)})
     assert rec["held"]["decode"]["traced_over_measured"] == 1.05
-    assert rec["cells"]["one mamba2-2.7b \"long_500k\""]["peak_bytes"] == 1050
+    assert rec["held"]["decode"]["traced_temp_over_measured"] == 50 / 48
+    assert rec["cells"]["1x1 mamba2-2.7b \"long_500k\""]["peak_bytes"] == 1050
     # no card: recorded, not held
-    assert cs.trace_reading(traces, {"decode": (key, None)})["held"][
+    assert cs.trace_reading(traces, {"decode": (key, None, None)})["held"][
         "decode"]["traced_over_measured"] is None
     with pytest.raises(cs.SmokeFailure, match="traced peak"):
-        cs.trace_reading(traces, {"decode": (key, 900)})
+        cs.trace_reading(traces, {"decode": (key, 900, 50)})
+    # the peak within its tolerance, the temporaries beyond theirs
+    with pytest.raises(cs.SmokeFailure, match="traced temporaries"):
+        cs.trace_reading(traces, {"decode": (key, 1000, 40)})
     with pytest.raises(cs.SmokeFailure, match="a trace failed"):
         cs.trace_reading({key: {"status": "error", "error": "boom"}},
-                         {"decode": (key, 1000)})
+                         {"decode": (key, 1000, 50)})
+    # a trace that failed fails the reading, held or not
+    other = ("single", "deepseek-moe-16b", json.dumps("train_4k"))
+    with pytest.raises(cs.SmokeFailure, match="a trace failed"):
+        cs.trace_reading({key: _trace(1000, 50),
+                          other: {"status": "error", "error": "boom"}},
+                         {"decode": (key, 1000, 50)})
+
+
+def _serve_rec(mesh, peak, temp) -> dict:
+    return {"mesh": list(mesh), "prefill_plain": {"peak_bytes": peak,
+                                                  "temp_bytes": temp}}
+
+
+@pytest.mark.parametrize("mesh", [(1, 1), (1, 2), (2, 2)])
+def test_mesh_serve_prefill_is_held_to_its_own_mesh(mesh):
+    """mesh_serve's prefill on more than one card is held to the trace of
+    the mesh it ran on, not to the mesh of one's: rank 0 of ``(2, 2)``
+    holds a quarter of the weights."""
+    cell = ("mamba2-2.7b", "long_500k")
+    key = cs.serve_prefill_key(mesh)
+    assert key[0] == "x".join(map(str, mesh))
+    measured = cs.held_steps(cell, 1000, 50, _serve_rec(mesh, 2000, 200))
+    (name, (got_key, peak, temp)), = [
+        (n, v) for n, v in measured.items() if "prefill" in n]
+    assert got_key == key and (peak, temp) == (2000, 200)
+    decode = ("1x1", cell[0], json.dumps(cell[1]))
+    one = cs.serve_prefill_key((1, 1))
+    traces = {decode: _trace(1000, 50), key: _trace(1800, 200)}
+    if key != one:
+        # the mesh of one's trace (the whole weights) beside: not read
+        traces[one] = _trace(8000, 200)
+    rec = cs.trace_reading(traces, measured)
+    assert rec["held"][name]["trace"] == list(key)
+    assert rec["held"][name]["traced_over_measured"] == 1.0
+    if key != one:
+        with pytest.raises(cs.SmokeFailure, match="traced peak"):
+            cs.trace_reading({**traces, key: traces[one]}, measured)
+
+
+def test_dryrun_phase_reads_the_trace_of_the_mesh_served():
+    """The dry-run phase with traces and a four-card mesh_serve record:
+    the long_500k decode is read from the mesh of one's trace, the
+    prefill from the ``(2, 2)`` one (full width, ``meta`` tensors; no
+    card, so nothing is held)."""
+    from repro_torch.launch import trace
+
+    B, S, _ = cs.MOE_TIMED
+    cells = {"1x1": [list(cs.DRYRUN_CELL)],
+             "2x2": [[cs.MESH_SERVE_ARCH, ["prefill", B, S]]]}
+    procs = {tag: (trace.start(c, sizes=[int(n) for n in tag.split("x")],
+                               names=["data", "model"]), c)
+             for tag, c in cells.items()}
+    served = {"mesh": [2, 2], "prefill_plain": {"peak_bytes": None,
+                                                "temp_bytes": None}}
+    run_cfg = get_config("mamba2-2.7b").smoke()
+    rec = cs.phase_dryrun(torch.device("cpu"), card_bytes=80 * 2**30,
+                          run_cfg=run_cfg, traces=procs, served=served)
+    held = rec["trace"]["held"]
+    assert sorted(h["trace"][0] for h in held.values()) == ["1x1", "2x2"]
+    prefill = [h for n, h in held.items() if "prefill" in n][0]
+    # rank 0 of (2, 2) holds a quarter of the weights or less
+    assert prefill["traced_peak_bytes"] < 12 * 2**30
+    assert prefill["measured_peak_bytes"] is None
+    assert len(rec["trace"]["cells"]) == 2

@@ -215,7 +215,7 @@ def test_cli_traces_both_meshes(tmp_path, capsys):
     DTensor plans its redistributions over three mesh dimensions)."""
     dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k",
                  "--mesh", "both", "--device", "cpu", "--out",
-                 str(tmp_path), "--jobs", "2"])
+                 str(tmp_path)])
     ok = 0
     for path in sorted(tmp_path.iterdir()):
         rec = json.loads(path.read_text())
