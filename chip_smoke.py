@@ -35,7 +35,7 @@ exits non-zero:
    rtol 1e-5 / atol 1e-4, the atol in units of max |W| / 128 beyond
    B = 8, where a one-bit fault's reading is kept beside the sound
    one's) against their plain versions on the card, every kernel variant
-   among them (flash: mma, split, ffma; bitplane: tensor_core, small_m,
+   among them (flash: mma, split, tf32x3; bitplane: tensor_core, small_m,
    ffma); each main shape timed (CUDA events, and device time per kernel
    under the profiler) beside the plain version, the bound and one
    library call (SDPA; ``torch.matmul`` on the dequantized weight);
@@ -165,7 +165,7 @@ exits non-zero:
 24. serve_encdec: ``whisper-small`` at full size with 1,500 frames —
     the float32 and bfloat16 gates, a teacher-forced bfloat16 forward
     gate (kernel vs plain, the encoder on ``mma``), and a timed run (8 x
-    8, 128 new tokens; its serving encoder runs in float32 on ``ffma``,
+    8, 128 new tokens; its serving encoder runs in float32 on ``tf32x3``,
     as the reference's does on float32 frames);
 25. flash_backward_parity: the flash route under autograd
     (``FlashAttentionFn``: the kernel forward, the backward a recompute
@@ -288,9 +288,10 @@ POPCOUNT_SOURCE = "src/repro_torch/kernels/csrc/popcount_matmul.cu"
 #: boost, Hopper architecture white paper)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-#: dense bfloat16 tensor-core and float32 CUDA-core peaks (NVIDIA H100 SXM
-#: data sheet, without sparsity)
+#: dense bfloat16 and tf32 tensor-core and float32 CUDA-core peaks (NVIDIA
+#: H100 SXM data sheet, without sparsity)
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 #: the global layers' window, as the models pass it (``blocks.HUGE_WINDOW``)
@@ -753,14 +754,21 @@ def visible_keys(S: int, T: int, window) -> int:
 
 def flash_bound_ms(B, Hq, Hkv, S, T, D, elem_bytes, causal, window) -> dict:
     """Least time for one attention call: 4 D FLOPs per visible pair
-    (q.k and p.v) over the peak of the input type (bf16 tensor cores,
-    fp32 CUDA cores), against q read and o written once, and k and v read
-    once for every key some query can see, over the HBM rate."""
+    (q.k and p.v) at the bf16 tensor-core peak, or for float32 the
+    3 x 4 D of the three tf32 passes that keep float32 accuracy at the
+    tf32 peak, against q read and o written once, and k and v read once
+    for every key some query can see, over the HBM rate.  For float32 the
+    CUDA-core figure (4 D FLOPs at the fp32 peak) is kept beside it under
+    ``fp32_*``."""
     flops = 4 * B * Hq * visible_pairs(S, T, causal, window) * D
     nbytes = elem_bytes * (2 * B * Hq * S * D +
                            2 * B * Hkv * visible_keys(S, T, window) * D)
-    peak = BF16_FLOPS if elem_bytes == 2 else FP32_FLOPS
-    return _bound(flops, peak, nbytes)
+    if elem_bytes == 2:
+        return _bound(flops, BF16_FLOPS, nbytes)
+    fp32 = _bound(flops, FP32_FLOPS, nbytes)
+    return {**_bound(3 * flops, TF32_FLOPS, nbytes),
+            "fp32_flops": fp32["flops"], "fp32_bound_ms": fp32["bound_ms"],
+            "fp32_bound_by": fp32["bound_by"]}
 
 
 def bitplane_bound_ms(M: int, K: int, N: int, B: int) -> dict:
@@ -809,6 +817,9 @@ FLASH_CASES = [
 FLASH_DIMS = (16, 32, 64, 128, 256)
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
+#: the label of the float32 serving call (whisper-small's encoder on
+#: float32 frames), reported beside the bf16 one in the last JSON lines
+FLASH_F32_MAIN = "whisper-small serving encoder fp32"
 #: the serving path's attention calls: (label, B, Hq, Hkv, S, T, D,
 #: causal, window, softcap, dtype, cache_len).  A call with a cache length
 #: reads k / v in place from a ``[B, cache_len, H, D]`` cache sliced to T,
@@ -846,8 +857,8 @@ FLASH_MAIN = [
     # teacher-forced forward, float32 in serving), and the decoder's decode
     ("whisper-small encoder", 8, 12, 12, 1500, 1500, 64, False, None, None,
      "bfloat16", None),
-    ("whisper-small serving encoder fp32", 8, 12, 12, 1500, 1500, 64, False,
-     None, None, "float32", None),
+    (FLASH_F32_MAIN, 8, 12, 12, 1500, 1500, 64, False, None, None, "float32",
+     None),
     ("whisper-small decode", 8, 12, 12, 1, 136, 64, True, HUGE_WINDOW, None,
      "bfloat16", 136),
     # gemma2-2b's local layers under chunked_local_attn: two blocks of the
@@ -2718,15 +2729,15 @@ def serve_timed(cfg, params, batch: int, prompt_len: int, max_new: int,
 
 def check_flash_variants(rec: dict) -> None:
     """A dense serving phase's flash calls went through every variant its
-    path has: the float32 gate through ``ffma``; the timed bfloat16 run's
+    path has: the float32 gate through ``tf32x3``; the timed bfloat16 run's
     prefill (one call per layer) through ``mma`` and each decode step's
     through ``split``."""
     layers, steps = rec["layers"], rec["timed"]["max_new"] - 1
     gate = rec["gate"]["variants"]["flash_attention"]
     timed = rec["timed"]["variants"]["flash_attention"]
-    check(gate["ffma"] == rec["gate"]["launches"]["flash_attention"] > 0,
+    check(gate["tf32x3"] == rec["gate"]["launches"]["flash_attention"] > 0,
           f"{rec['arch']}: the float32 gate's flash variants were {gate}")
-    check(timed == {"mma": layers, "split": layers * steps, "ffma": 0},
+    check(timed == {"mma": layers, "split": layers * steps, "tf32x3": 0},
           f"{rec['arch']}: the bf16 serving run's flash variants were "
           f"{timed}, expected mma {layers}, split {layers * steps}")
     bf16 = rec["gate_bf16"]["variants"]["flash_attention"]
@@ -3209,7 +3220,7 @@ def cut_depth(cfg, n: int):
 def check_timed_variants(name: str, run: dict, want: dict) -> None:
     """A timed run's flash calls per variant and in all, as expected."""
     got = run["variants"]["flash_attention"]
-    check(got == {**{"mma": 0, "split": 0, "ffma": 0}, **want}
+    check(got == {**{"mma": 0, "split": 0, "tf32x3": 0}, **want}
           and run["launches"]["flash_attention"] == sum(want.values()),
           f"{name}: flash variants {got} "
           f"({run['launches']['flash_attention']} launches), expected "
@@ -3465,7 +3476,7 @@ def phase_serve_encdec(cfg, device, gate: tuple, forward: tuple,
     over all 12 + 12 layers with 1,500 frames, the teacher-forced
     bfloat16 forward gate (:func:`forward_gate_inputs_bf16`), then a timed
     bfloat16 run.  As in the reference, serving does not cast the float32
-    frames, so its encoder runs in float32 (flash ``ffma``); the forward
+    frames, so its encoder runs in float32 (flash ``tf32x3``); the forward
     casts them (``mma``)."""
     import torch
 
@@ -3491,13 +3502,13 @@ def phase_serve_encdec(cfg, device, gate: tuple, forward: tuple,
            "flash_launches_expected": Le + L * timed[2]}
     if device.type == "cuda":
         gate_v = gate_rec["variants"]["flash_attention"]
-        check(gate_v["ffma"] == gate_rec["launches"]["flash_attention"] > 0,
+        check(gate_v["tf32x3"] == gate_rec["launches"]["flash_attention"] > 0,
               f"{cfg.name}: the float32 gate's flash variants were {gate_v}")
         G = cfg.n_heads // cfg.n_kv_heads
-        want = {"mma": 0, "split": L * steps, "ffma": Le}
+        want = {"mma": 0, "split": L * steps, "tf32x3": Le}
         want[flash_variant(torch.bfloat16, timed[1], G)] += L
         check_timed_variants(cfg.name, timed_rec, want)
-        want = {"mma": Le, "split": 0, "ffma": 0}
+        want = {"mma": Le, "split": 0, "tf32x3": 0}
         want[flash_variant(torch.bfloat16, forward[1], G)] += L
         check_timed_variants(f"{cfg.name} forward", fwd_rec, want)
     return rec
@@ -3735,7 +3746,7 @@ def train_gate(cfg, device, layers: int, batch: int, seq: int,
                seed: int = 0) -> dict:
     """The float32 gate of the training path: over the config's first
     ``layers`` layers (seed-0 weights, one ``batch_for_step`` batch), the
-    kernel route's loss and every leaf's gradient (flash ``ffma`` under
+    kernel route's loss and every leaf's gradient (flash ``tf32x3`` under
     autograd) against the plain path's, normwise, within ``max(TRAIN_TOL,
     NOISE_MARGIN x d)``, d the plain path's own normwise disagreement
     with the plain path in float64 on the same weights and batch; then
@@ -3958,7 +3969,7 @@ def phase_train(name: str, cfg, device, workdir, gate=TRAIN_GATE,
     profiler (:func:`phase_profile_train`), then :func:`train_resume` on
     the timed run's checkpoints and final state.  On
     the card every flash call of a step is the kernel's: L forwards and L
-    remat recomputes (the config's ``remat``), ``mma`` in bf16, ``ffma``
+    remat recomputes (the config's ``remat``), ``mma`` in bf16, ``tf32x3``
     in the float32 gate.  Returns the phase record and the profile's."""
     import torch
 
@@ -3991,16 +4002,16 @@ def phase_train(name: str, cfg, device, workdir, gate=TRAIN_GATE,
                 "timed": per * L * timed[0]}
     if device.type == "cuda":
         check(gate_rec["variants"]["flash_attention"]
-              == {"mma": 0, "split": 0, "ffma": expected["gate"]},
+              == {"mma": 0, "split": 0, "tf32x3": expected["gate"]},
               f"{cfg.name} train gate's flash variants were "
               f"{gate_rec['variants']['flash_attention']}, expected "
-              f"{expected['gate']} ffma")
+              f"{expected['gate']} tf32x3")
         bad = [r["flash_launches"] for r in timed_rec["per_step"]
                if r["flash_launches"] != expected["per_step"]]
         check(not bad, f"{cfg.name} training launched flash {bad} times in "
                        f"a step, expected {expected['per_step']}")
         check(timed_rec["variants"]["flash_attention"]
-              == {"mma": expected["timed"], "split": 0, "ffma": 0},
+              == {"mma": expected["timed"], "split": 0, "tf32x3": 0},
               f"{cfg.name} training's flash variants were "
               f"{timed_rec['variants']['flash_attention']}")
     return ({"phase": name, "arch": cfg.name, "layers": L,
@@ -4272,7 +4283,7 @@ def phase_serve_chunked(cfg, device, forward: tuple = CHUNKED_FORWARD,
     del params
     L = cfg.n_layers
     if device.type == "cuda":
-        check(gate["variants"]["flash_attention"]["ffma"] == L,
+        check(gate["variants"]["flash_attention"]["tf32x3"] == L,
               f"the chunked float32 gate's flash variants were "
               f"{gate['variants']['flash_attention']}")
         check_timed_variants("chunked gemma2-2b", timed, {"mma": L})
@@ -4761,7 +4772,7 @@ def phase_mesh_train(device, gate=MESH_GATE, timed=MESH_TIMED) -> dict:
     process per card.  A group that cannot form, or NCCL failing, raises:
     nothing falls back to gloo or the host.  Every flash call of the mesh
     runs must be the kernel's on each rank's local heads: 2 L a step
-    (forward and remat recompute), ``mma`` in bf16, ``ffma`` in the
+    (forward and remat recompute), ``mma`` in bf16, ``tf32x3`` in the
     float32 gate."""
     import torch
 
@@ -4785,13 +4796,13 @@ def phase_mesh_train(device, gate=MESH_GATE, timed=MESH_TIMED) -> dict:
     cfg = get_config("tinyllama-1.1b")
     L, mp = cfg.n_layers, shape[1]
     heads = f"{cfg.n_heads // mp}/{cfg.n_kv_heads // mp}"
-    want = {"gate": {"mma": 0, "split": 0, "ffma": 2 * gate[0]},
-            "timed": {"mma": 2 * L * timed[0], "split": 0, "ffma": 0}}
+    want = {"gate": {"mma": 0, "split": 0, "tf32x3": 2 * gate[0]},
+            "timed": {"mma": 2 * L * timed[0], "split": 0, "tf32x3": 0}}
     for r in recs:
         for what in ("gate", "timed"):
             check(r[what]["variants"]["flash_attention"] == want[what]
                   and r[what]["flash_heads"] == {
-                      heads: want[what]["mma"] + want[what]["ffma"]},
+                      heads: want[what]["mma"] + want[what]["tf32x3"]},
                   f"mesh rank {r['rank']} {what}: flash variants "
                   f"{r[what]['variants']['flash_attention']} on heads "
                   f"{r[what]['flash_heads']}, expected {want[what]} on "
@@ -5036,7 +5047,7 @@ def phase_mesh_serve(device, gate=MOE_GATE, timed=MOE_TIMED,
     the logits within the gate); on more, one spawned process per card
     (each rank's logits held to its unsharded run's over the steps to
     the first differing token: :func:`mesh_serve_rank`).  Every
-    flash call is the kernel's on the rank's local heads: ``ffma`` in
+    flash call is the kernel's on the rank's local heads: ``tf32x3`` in
     the float32 gate, one ``mma`` per layer at the prefill and one
     ``split`` per layer and decode step."""
     import torch
@@ -5060,8 +5071,8 @@ def phase_mesh_serve(device, gate=MOE_GATE, timed=MOE_TIMED,
         recs = _spawn_mesh_ranks(world, "serve")
     cfg = get_config(MESH_SERVE_ARCH)
     L, mp = cfg.n_layers, shape[1]
-    want = {"gate": {"mma": 0, "split": 0, "ffma": gate_layers * gate[2]},
-            "timed": {"mma": L, "split": L * (timed[2] - 1), "ffma": 0}}
+    want = {"gate": {"mma": 0, "split": 0, "tf32x3": gate_layers * gate[2]},
+            "timed": {"mma": L, "split": L * (timed[2] - 1), "tf32x3": 0}}
     heads = f"{cfg.n_heads // mp}/{cfg.n_kv_heads // mp}"
     if device.type == "cuda":
         for r in recs:
@@ -5571,6 +5582,9 @@ def main() -> int:
                 # no model path calls it: its one counted main call
                 "popcount_matmul": pop_main["launches"]}
     flash_main = lmrec["flash_attention"]["main"][0]  # kratos-dd prefill
+    # the float32 (tf32x3) kernel at whisper-small's serving encoder
+    flash_f32 = next(r for r in lmrec["flash_attention"]["main"]
+                     if r["label"] == FLASH_F32_MAIN)
     bit_main = lmrec["bitplane_matmul"]["main"][1]    # [4096, 768] rows
     recs = {**{k: {**krec[k], "library_ms": None}
                for k in ("lut_eval6", "lut_eval")},
@@ -5588,7 +5602,13 @@ def main() -> int:
                         "recompute_backward_ms",
                         "recompute_backward_device_ms",
                         "route_forward_backward_ms", "bound_ms",
-                        "bound_by", "library_ms")}}},
+                        "bound_by", "library_ms")}},
+                "float32": {
+                    "shape": [flash_f32["q"], flash_f32["kv"]],
+                    **{k: flash_f32[k] for k in (
+                        "variant", "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "fp32_bound_ms", "library_ms",
+                        "library_device_ms")}}},
             "bitplane_matmul": {
                 **bit_main, "max_abs_err": max(
                     bit_main["max_abs_err"],
@@ -5660,7 +5680,7 @@ def main() -> int:
                  "bound_by")}} if "op" in r else {}),
          **({"variant_launches": variant_launches[k]}
             if k in variant_launches else {}),
-         **({"train": r["train"]} if "train" in r else {})}
+         **{key: r[key] for key in ("train", "float32") if key in r}}
         for k, r in recs.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

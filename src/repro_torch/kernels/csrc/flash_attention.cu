@@ -14,13 +14,13 @@
 // sum l and accumulator -> acc / max(l, 1e-30) -> cast.  Keys past the
 // end (the ragged last tile, or the end of a key split) are -inf, so they
 // add nothing, as in the reference where they do not exist.  tanhf, and
-// expf (FFMA) or exp2f of the log2(e)-scaled argument (mma, split), not
-// the fast intrinsics.  Tiles wholly outside the causal /
-// window band of a CTA's rows are skipped: every row keeps its own key
-// (causal) or the last key, so its running max is a real logit, and
-// exp(-1e30 - m) is exactly 0 for what a skipped tile would have added.
-// Inputs are read through explicit strides (last dimension contiguous),
-// so a KV cache sliced along time is read in place.
+// exp2f of the log2(e)-scaled argument, not the fast intrinsics.  Tiles
+// wholly outside the causal / window band of a CTA's rows are skipped:
+// every row keeps its own key (causal) or the last key, so its running
+// max is a real logit, and exp(-1e30 - m) is exactly 0 for what a skipped
+// tile would have added.  Inputs are read through explicit strides (last
+// dimension contiguous, rows on 16-byte boundaries), so a KV cache sliced
+// along time is read in place.
 //
 // What bounds it.  kratos-dd prefill ([8, 12, 512, 64] bf16, causal):
 // 3.2 GFLOP of visible (q, k) pairs against 25 MB of q, k, v and o, so
@@ -28,7 +28,9 @@
 // us).  gemma2-2b's local prefill ([2, 8, 4608, 256], window 4096): 172
 // GFLOP, operations (0.174 ms).  Decode (S = 1) reads the whole cache
 // slice for one query row per head: bytes, 4.2 us at kratos-dd's 576
-// keys.
+// keys.  whisper-small's serving encoder ([8, 12, 1500, 64] float32, not
+// causal): 55.3 GFLOP as float32 products, 3 x 55.3 on the tf32 tensor
+// cores (0.335 ms at 495 TFLOP/s) against 44 us of bytes: operations.
 //
 // Design: three variants, chosen by the launcher from the type, S and
 // G = Hq / Hkv.
@@ -59,12 +61,37 @@
 //   where only one fits (D = 256: its 64-key K / V double buffer takes
 //   135 KB); more, shorter splits lose more to each CTA's fixed costs
 //   and to the partials than they gain in parallelism.
-// * FFMA (float32).  One CTA of 256 threads owns 64 query rows of one
-//   (batch, head); threads form 16 row groups x 16 column lanes, each
-//   with 4 rows x BK/16 scores and 4 x D/16 accumulators; Q, K (both
-//   transposed) and V are staged in shared memory as float32 and the
-//   products are FFMA, so float32 inputs keep the reference's precision.
-//   Only the float32 gates take it; it is left as it was on purpose.
+// * tf32x3 (float32): float32 operands on the tensor cores at float32
+//   accuracy, in the mma variant's shape (4 warps, heaviest query tiles
+//   first, tiles outside the band skipped, the same softmax code).  Each
+//   operand x splits into hi = tf32(x) and lo = tf32(x - hi), both
+//   rounded to nearest with ties away from zero (11 + 11 significant
+//   bits, x to about 2^-22), and each product is a_lo b_hi + a_hi b_lo +
+//   a_hi b_hi (small terms first; only a_lo b_lo is dropped) with
+//   mma.sync m16n8k8 tf32.  The split is the bound in practice: K and V
+//   tiles are staged as float32 (double-buffered, 16-byte cp.async) and
+//   each warp splits the fragments it reads in registers (splitting a
+//   tile once in shared memory would double what the warps read from
+//   it).  So up to D = 64 a warp owns two 16-row tiles (128 rows a CTA)
+//   and splits each K and V fragment once for both, which halves the
+//   reads and splits per row (32-key tiles keep the second tile's scores
+//   and P in registers).  The registers that take the second tile
+//   are those Q's fragments would hold, so Q is split once per CTA into
+//   hi / lo rows in shared memory at every D, and read from there.  Rows
+//   are padded by 4 floats, so the fragment reads of Q, K (rows g, column
+//   t) and V (rows 2t and 2t + 1, column g) are free of bank conflicts.
+//   P never leaves registers: the C fragment of Q.K^T gives a thread keys
+//   2t and 2t + 1 of an 8-key block, the A fragment of P.V wants k = t
+//   and t + 4, so key 2t is taken as k = t and key 2t + 1 as k = t + 4,
+//   and V's rows are read in that order for the B fragment.  The tensor
+//   cores' internal sums round toward zero, so over 1,500 keys P.V would
+//   drift: each 8-column block of a tile's P.V is summed in fresh
+//   registers (two blocks at a time, two independent chains of mma) and
+//   added to the running output with one float32 fma (which also applies
+//   the softmax's rescale).  BK = 32 keys per tile up to D = 64, 64 at
+//   D = 128 (one 16-row tile a warp), 16 at D = 256, where Q's hi and lo
+//   rows (133 KB) leave room for no larger K / V double buffer in the
+//   227 KB of shared memory.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -77,9 +104,10 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // FFMA: 16 row groups x 16 column lanes
-constexpr int kBQ = 64;        // FFMA: query rows per CTA
-constexpr int kRows = 4;       // FFMA: query rows per thread
+constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kMmaRows = 64;      // query rows per mma CTA
+constexpr int kSplitBK = 64;      // split variant: 16 keys per warp
+constexpr int kSplitRows = 16;    // split variant: one 16-row tile
 constexpr float kMasked = -1e30f;
 
 struct Params {
@@ -109,211 +137,6 @@ struct Params {
   float* part_acc;
 };
 
-// ---------------------------------------------------------------------------
-// FFMA variant (float32)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-
-template <int D, int BK>
-constexpr size_t smem_floats() {
-  return static_cast<size_t>(D) * (kBQ + 1)    // Qt [D][kBQ + 1]
-         + static_cast<size_t>(D) * (BK + 1)   // Kt [D][BK + 1]
-         + static_cast<size_t>(BK) * D         // Vs [BK][D]
-         + static_cast<size_t>(kBQ) * (BK + 1);  // Ps [kBQ][BK + 1]
-}
-
-template <typename T, int D, int BK>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  constexpr int kCols = BK / 16;  // score columns per thread
-  constexpr int kOut = D / 16;    // output columns per thread
-  constexpr int QS = kBQ + 1;
-  constexpr int KS = BK + 1;
-  constexpr int PS = BK + 1;
-  extern __shared__ float smem[];
-  float* Qt = smem;
-  float* Kt = Qt + D * QS;
-  float* Vs = Kt + D * KS;
-  float* Ps = Vs + BK * D;
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / p.Hq;
-  const int64_t h = bh - b * p.Hq;
-  const int64_t hk = h / (p.Hq / p.Hkv);
-  const int64_t n_qt = (p.S + kBQ - 1) / kBQ;
-  const int64_t q0 = (n_qt - 1 - static_cast<int64_t>(blockIdx.y)) * kBQ;
-  const int64_t t_off = p.T - p.S;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int64_t s = q0 + r;
-    Qt[d * QS + r] = s < p.S ? to_f32(qb[s * p.q_ss + d]) : 0.f;
-  }
-
-  // keys any live row of this tile can see
-  const int64_t q_last = (q0 + kBQ < p.S ? q0 + kBQ : p.S) - 1;
-  int64_t k_begin = 0;
-  int64_t k_end = p.T;
-  if (p.causal && q_last + t_off + 1 < k_end) k_end = q_last + t_off + 1;
-  if (p.has_window) {
-    const int64_t first = q0 + t_off - p.window + 1;
-    if (first > k_begin) k_begin = first;
-  }
-  k_begin = (k_begin / BK) * BK;
-
-  float m[kRows], l[kRows], acc[kRows][kOut];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int64_t k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int c = i / D;
-      const int d = i - c * D;
-      const int64_t t = k0 + c;
-      const bool live = t < p.T;
-      Kt[d * KS + c] = live ? to_f32(kb[t * p.k_ss + d]) : 0.f;
-      Vs[c * D + d] = live ? to_f32(vb[t * p.v_ss + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qt[d * QS + ty * kRows + i];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = Kt[d * KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int64_t qpos = q0 + ty * kRows + i + t_off;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int64_t kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * p.scale;
-        if (p.has_softcap) x = p.softcap * tanhf(x / p.softcap);
-        bool vis = true;
-        if (p.causal) vis = vis && kpos <= qpos;
-        if (p.has_window) vis = vis && kpos > qpos - p.window;
-        x = vis ? x : kMasked;
-        if (kpos >= p.T) x = -INFINITY;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float pv = expf(s[i][j] - m_new);
-        Ps[(ty * kRows + i) * PS + tx + 16 * j] = pv;
-        rs += pv;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[kRows], vv[kOut];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty * kRows + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) vv[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kOut; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int64_t srow = q0 + ty * kRows + i;
-    if (srow < p.S) {
-      const float den = fmaxf(l[i], 1e-30f);
-      T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + srow * p.o_ss;
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] / den);
-    }
-  }
-}
-
-template <typename T, int D, int BK>
-int launch_typed(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_floats<D, BK>() * sizeof(float);
-  auto* kern = flash_fwd_kernel<T, D, BK>;
-  // above 48 KB a CTA's dynamic shared memory must be allowed explicitly
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned int>(p.B * p.Hq),
-                  static_cast<unsigned int>((p.S + kBQ - 1) / kBQ));
-  kern<<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_ffma(int64_t D, const Params& p, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_typed<float, 16, 64>(p, stream);
-    case 32: return launch_typed<float, 32, 64>(p, stream);
-    case 64: return launch_typed<float, 64, 64>(p, stream);
-    case 128: return launch_typed<float, 128, 32>(p, stream);
-    case 256: return launch_typed<float, 256, 32>(p, stream);
-    default: return -1;
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// tensor-core variants (bfloat16)
-// ---------------------------------------------------------------------------
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
-constexpr int kSplitBK = 64;      // split variant: 16 keys per warp
-constexpr int kSplitRows = 16;    // split variant: one 16-row tile
-
 // The (scaled, softcapped) logit x of (query at qpos, key at kpos) after
 // the mask; keys at or past k_stop do not exist (-inf).
 __device__ __forceinline__ float masked(float x, int qpos, int kpos,
@@ -325,39 +148,21 @@ __device__ __forceinline__ float masked(float x, int qpos, int kpos,
   return kpos >= k_stop ? -INFINITY : x;
 }
 
-// One warp: its 16 query rows (Qs) against NK keys (rows of Ks and Vs,
-// the first at position key0), updating the online-softmax state of rows
-// g = lane / 4 and g + 8: running max m, this thread's part of the row
-// sum l (summed over the quad at the end) and acc (the C fragments of the
-// 16 x D output).  The warp's rows sit at positions [q_lo, q_hi]: when
-// every key of the block is visible to all of them (and exists), the mask
-// is skipped.  Shared-memory rows are D + 8 bf16 apart.
-template <int D, int NK>
-__device__ __forceinline__ void warp_attend(
-    const bf16* Qs, const bf16* Ks, const bf16* Vs, int key0, int k_stop,
-    const int (&qpos)[2], int q_lo, int q_hi, const Params& p, int lane,
-    float (&m)[2], float (&l)[2], float (&acc)[D / 8][4]) {
-  constexpr int RS = D + 8;
+// The softmax half of a warp's tile, shared by the variants.  s holds the
+// C fragments of the warp's q . k (rows g = lane / 4 and g + 8; keys 2t
+// and 2t + 1, t = lane % 4, of each 8-key block, the first at position
+// key0): scale -> softcap -> mask, then the online-softmax update of rows
+// g and g + 8, whose running max is m and this thread's part of the row
+// sum l (summed over the quad at the end).  s becomes p = exp(s - m_new)
+// and alpha the factor the output accumulators are to be rescaled by.
+// The warp's rows sit at positions [q_lo, q_hi]: when every key of the
+// block is visible to all of them (and exists), the mask is skipped.
+template <int NK>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[NK / 8][4], int key0, int k_stop, const int (&qpos)[2],
+    int q_lo, int q_hi, const Params& p, int lane, float (&m)[2],
+    float (&l)[2], float (&alpha)[2]) {
   constexpr float kLog2e = 1.4426950408889634f;
-  float s[NK / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < NK / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-  // S = Q K^T: A from Q rows, B from K rows (k = d), both without .trans
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t qa[4];
-    sm90::ldsm_x4(qa, Qs + (lane & 15) * RS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int nb2 = 0; nb2 < NK / 16; ++nb2) {
-      uint32_t kb[4];
-      sm90::ldsm_x4(kb, Ks + (nb2 * 16 + (lane >> 4) * 8 + (lane & 7)) * RS +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-      sm90::mma_bf16(s[2 * nb2], qa, kb[0], kb[1], s[2 * nb2]);
-      sm90::mma_bf16(s[2 * nb2 + 1], qa, kb[2], kb[3], s[2 * nb2 + 1]);
-    }
-  }
   // scale -> softcap -> mask, each a loop of its own behind a uniform
   // branch, so that every step's code exists once
 #pragma unroll
@@ -388,7 +193,6 @@ __device__ __forceinline__ void warp_attend(
   for (int nb = 0; nb < NK / 8; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
-  float alpha[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
@@ -406,6 +210,40 @@ __device__ __forceinline__ void warp_attend(
       l[e >> 1] += pv;
       s[nb][e] = pv;
     }
+}
+
+// One warp of a bf16 variant: its 16 query rows (Qs) against NK keys
+// (rows of Ks and Vs, the first at position key0), updating the
+// online-softmax state m, l (see online_softmax) and acc (the C fragments
+// of the 16 x D output).  Shared-memory rows are D + 8 bf16 apart.
+template <int D, int NK>
+__device__ __forceinline__ void warp_attend(
+    const bf16* Qs, const bf16* Ks, const bf16* Vs, int key0, int k_stop,
+    const int (&qpos)[2], int q_lo, int q_hi, const Params& p, int lane,
+    float (&m)[2], float (&l)[2], float (&acc)[D / 8][4]) {
+  constexpr int RS = D + 8;
+  float s[NK / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < NK / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+  // S = Q K^T: A from Q rows, B from K rows (k = d), both without .trans
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t qa[4];
+    sm90::ldsm_x4(qa, Qs + (lane & 15) * RS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int nb2 = 0; nb2 < NK / 16; ++nb2) {
+      uint32_t kb[4];
+      sm90::ldsm_x4(kb, Ks + (nb2 * 16 + (lane >> 4) * 8 + (lane & 7)) * RS +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+      sm90::mma_bf16(s[2 * nb2], qa, kb[0], kb[1], s[2 * nb2]);
+      sm90::mma_bf16(s[2 * nb2 + 1], qa, kb[2], kb[3], s[2 * nb2 + 1]);
+    }
+  }
+  float alpha[2];
+  online_softmax<NK>(s, key0, k_stop, qpos, q_lo, q_hi, p, lane, m, l,
+                     alpha);
 #pragma unroll
   for (int db = 0; db < D / 8; ++db)
 #pragma unroll
@@ -429,25 +267,152 @@ __device__ __forceinline__ void warp_attend(
   }
 }
 
-// rows [t0, t0 + n) of a [*, D] bf16 tensor (row stride ld) into shared
-// rows D + 8 apart; rows at or past t_stop are zero-filled
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int64_t ld, int t0, int n,
-                                          int t_stop, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
+// One warp of the tf32x3 variant: MT tiles of 16 query rows against NK
+// keys, as warp_attend; each K and V fragment is split once for all MT
+// tiles.  Q's fragments come split, from the hi / lo rows Qh, Ql (tile
+// mt from row 16 mt).  Shared-memory rows are D + 4 floats apart.
+template <int D, int NK, int MT>
+__device__ __forceinline__ void warp_attend_tf32(
+    const float* Qh, const float* Ql, const float* Ks, const float* Vs,
+    int key0, int k_stop, const int (&qpos)[MT][2], const int (&q_lo)[MT],
+    const Params& p, int lane, float (&m)[MT][2], float (&l)[MT][2],
+    float (&acc)[MT][D / 8][4]) {
+  constexpr int RS = D + 4;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float s[MT][NK / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mt][nb][e] = 0.f;
+  // S = Q K^T, three passes per 8-deep step, small terms first; B from K
+  // rows (k = d)
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t a[MT][2][4];  // hi, lo
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int off =
+            (16 * mt + g + 8 * (i & 1)) * RS + kk * 8 + t + 4 * (i >> 1);
+        a[mt][0][i] = __float_as_uint(Qh[off]);
+        a[mt][1][i] = __float_as_uint(Ql[off]);
+      }
+#pragma unroll
+    for (int nb = 0; nb < NK / 8; ++nb) {
+      const float* kr = Ks + (nb * 8 + g) * RS + kk * 8 + t;
+      uint32_t bh[2], bl[2];
+      sm90::split_tf32(kr[0], bh[0], bl[0]);
+      sm90::split_tf32(kr[4], bh[1], bl[1]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        sm90::mma_tf32(s[mt][nb], a[mt][1], bh[0], bh[1], s[mt][nb]);
+        sm90::mma_tf32(s[mt][nb], a[mt][0], bl[0], bl[1], s[mt][nb]);
+        sm90::mma_tf32(s[mt][nb], a[mt][0], bh[0], bh[1], s[mt][nb]);
+      }
+    }
+  }
+  float alpha[MT][2];
+  uint32_t ph[MT][NK / 8][4], pl[MT][NK / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    online_softmax<NK>(s[mt], key0, k_stop, qpos[mt], q_lo[mt],
+                       q_lo[mt] + 15, p, lane, m[mt], l[mt], alpha[mt]);
+    // P's A fragments, split: a[i] is (row g + 8 (i & 1), k t + 4 (i >> 1)),
+    // and key 2t of a block is taken as k = t, key 2t + 1 as k = t + 4, so
+    // a[i] is the C fragment's element 2 (i & 1) + (i >> 1)
+#pragma unroll
+    for (int kb = 0; kb < NK / 8; ++kb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        sm90::split_tf32(s[mt][kb][2 * (i & 1) + (i >> 1)], ph[mt][kb][i],
+                         pl[mt][kb][i]);
+  }
+  // O = alpha O + P V, two 8-column blocks at a time: each block's sum over
+  // the tile in fresh registers, then one float32 fma into the running
+  // output; B from V rows 2t (k = t) and 2t + 1 (k = t + 4), column g
+#pragma unroll
+  for (int db = 0; db < D / 8; db += 2) {
+    float f[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[mt][u][e] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < NK / 8; ++kb) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float* vr = Vs + (kb * 8 + 2 * t) * RS + (db + u) * 8 + g;
+        uint32_t bh[2], bl[2];
+        sm90::split_tf32(vr[0], bh[0], bl[0]);
+        sm90::split_tf32(vr[RS], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          sm90::mma_tf32(f[mt][u], pl[mt][kb], bh[0], bh[1], f[mt][u]);
+          sm90::mma_tf32(f[mt][u], ph[mt][kb], bl[0], bl[1], f[mt][u]);
+          sm90::mma_tf32(f[mt][u], ph[mt][kb], bh[0], bh[1], f[mt][u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mt][db + u][e] =
+              fmaf(acc[mt][db + u][e], alpha[mt][e >> 1], f[mt][u][e]);
+  }
+}
+
+// rows [t0, t0 + n) of a [*, D] tensor (row stride ld) into shared rows
+// padded by 16 bytes (D + 8 bf16, D + 4 floats); rows at or past t_stop
+// are zero-filled
+template <int D, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ld,
+                                          int t0, int n, int t_stop,
+                                          int tid) {
+  constexpr int EL = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CH = D / EL;          // chunks per row
   for (int c = tid; c < n * CH; c += kMmaThreads) {
     const int r = c / CH;
     const int ch = c - r * CH;
     const int t = t0 + r;
     const bool valid = t < t_stop;
-    sm90::cp_async16(dst + r * (D + 8) + ch * 8,
-                     src + (valid ? static_cast<int64_t>(t) * ld : 0) + ch * 8,
+    sm90::cp_async16(dst + r * (D + EL) + ch * EL,
+                     src + (valid ? static_cast<int64_t>(t) * ld : 0) +
+                         ch * EL,
                      valid);
   }
 }
 
-constexpr int kMmaRows = 64;  // query rows per mma CTA: 4 warps x 16
+// The key tiles of BK keys that a tile of BQ query rows from q0 walks:
+// those of the rows' causal / window band, from k_begin (rounded down to
+// a tile) to k_end
+template <int BQ, int BK>
+struct KeyBand {
+  int k_begin, k_end, n_tiles;
+  __device__ __forceinline__ KeyBand(const Params& p, int q0) {
+    const int S = static_cast<int>(p.S);
+    const int T = static_cast<int>(p.T);
+    const int t_off = T - S;
+    const int q_last = (q0 + BQ < S ? q0 + BQ : S) - 1;
+    k_begin = 0;
+    k_end = T;
+    if (p.causal && q_last + t_off + 1 < k_end) k_end = q_last + t_off + 1;
+    if (p.has_window) {
+      const int first = q0 + t_off - static_cast<int>(p.window) + 1;
+      if (first > k_begin) k_begin = first;
+    }
+    k_begin = (k_begin / BK) * BK;
+    n_tiles = (k_end - k_begin + BK - 1) / BK;
+  }
+};
 
 template <int D, int BK>
 constexpr size_t mma_smem_bytes() {
@@ -477,23 +442,12 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(Params p) {
   const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  // keys any live row of this tile can see
-  const int q_last = (q0 + BQ < S ? q0 + BQ : S) - 1;
-  int k_begin = 0;
-  int k_end = T;
-  if (p.causal && q_last + t_off + 1 < k_end) k_end = q_last + t_off + 1;
-  if (p.has_window) {
-    const int first = q0 + t_off - static_cast<int>(p.window) + 1;
-    if (first > k_begin) k_begin = first;
-  }
-  k_begin = (k_begin / BK) * BK;
-  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const KeyBand<BQ, BK> band(p, q0);
 
   load_rows<D>(Qs, qb, p.q_ss, q0, BQ, S, tid);
-  if (n_tiles > 0) {
-    load_rows<D>(Ks, kb, p.k_ss, k_begin, BK, k_end, tid);
-    load_rows<D>(Vs, vb, p.v_ss, k_begin, BK, k_end, tid);
+  if (band.n_tiles > 0) {
+    load_rows<D>(Ks, kb, p.k_ss, band.k_begin, BK, band.k_end, tid);
+    load_rows<D>(Vs, vb, p.v_ss, band.k_begin, BK, band.k_end, tid);
   }
   sm90::cp_async_commit();
 
@@ -508,13 +462,12 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(Params p) {
   const int qpos[2] = {row0 + t_off, row0 + 8 + t_off};
   const int q_lo = q0 + warp * 16 + t_off;  // the warp's 16 positions
 
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {  // prefetch the next tile into the other buffer
+  for (int j = 0; j < band.n_tiles; ++j) {
+    if (j + 1 < band.n_tiles) {  // prefetch the next tile, other buffer
       const int nb = (j + 1) & 1;
-      load_rows<D>(Ks + nb * BK * RS, kb, p.k_ss, k_begin + (j + 1) * BK,
-                   BK, k_end, tid);
-      load_rows<D>(Vs + nb * BK * RS, vb, p.v_ss, k_begin + (j + 1) * BK,
-                   BK, k_end, tid);
+      const int t0 = band.k_begin + (j + 1) * BK;
+      load_rows<D>(Ks + nb * BK * RS, kb, p.k_ss, t0, BK, band.k_end, tid);
+      load_rows<D>(Vs + nb * BK * RS, vb, p.v_ss, t0, BK, band.k_end, tid);
       sm90::cp_async_commit();
       sm90::cp_async_wait<1>();
     } else {
@@ -523,8 +476,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(Params p) {
     __syncthreads();
     const int cb = j & 1;
     warp_attend<D, BK>(Qs + warp * 16 * RS, Ks + cb * BK * RS,
-                       Vs + cb * BK * RS, k_begin + j * BK, T, qpos, q_lo,
-                       q_lo + 15, p, lane, m, l, acc);
+                       Vs + cb * BK * RS, band.k_begin + j * BK, T, qpos,
+                       q_lo, q_lo + 15, p, lane, m, l, acc);
     __syncthreads();  // the buffer is free for the prefetch after next
   }
   sm90::cp_async_wait<0>();
@@ -544,6 +497,141 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(Params p) {
             acc[db][2 * i] / den, acc[db][2 * i + 1] / den);
     }
   }
+}
+
+// tf32x3 tiling by head dimension: 16-row tiles per warp (MT; a CTA's 4
+// warps take 64 MT query rows) and keys per tile.  Up to D = 64 two
+// tiles per warp halve the K / V fragment reads and splits per row, and
+// 32-key tiles keep the second tile's scores and P in registers; D = 256
+// takes 16 keys, where Q's hi and lo rows (133 KB) leave room for no
+// larger K / V double buffer.
+template <int D>
+__host__ __device__ constexpr int tf32_mt() {
+  return D <= 64 ? 2 : 1;
+}
+template <int D>
+__host__ __device__ constexpr int tf32_bk() {
+  return D <= 64 ? 32 : D == 128 ? 64 : 16;
+}
+template <int D>
+__host__ __device__ constexpr int tf32_rows() {
+  return kMmaRows * tf32_mt<D>();
+}
+
+// Q's hi and lo rows, then the K / V double buffers
+template <int D>
+__host__ __device__ constexpr size_t tf32_smem_bytes() {
+  return static_cast<size_t>(2 * tf32_rows<D>() + 4 * tf32_bk<D>()) *
+         (D + 4) * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_tf32x3_kernel(Params p) {
+  constexpr int RS = D + 4;
+  constexpr int MT = tf32_mt<D>();
+  constexpr int BQ = tf32_rows<D>();
+  constexpr int BK = tf32_bk<D>();
+  static_assert(tf32_smem_bytes<D>() <= 232448, "shared memory per CTA");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qh = reinterpret_cast<float*>(smem_raw);  // [BQ][RS]
+  float* Ql = Qh + BQ * RS;                        // [BQ][RS]
+  float* Ks = Ql + BQ * RS;                        // [2][BK][RS]
+  float* Vs = Ks + 2 * BK * RS;                    // [2][BK][RS]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / p.Hq;
+  const int64_t h = bh - b * p.Hq;
+  const int64_t hk = h / (p.Hq / p.Hkv);
+  const int S = static_cast<int>(p.S);
+  const int T = static_cast<int>(p.T);
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * BQ;
+  const int t_off = T - S;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const KeyBand<BQ, BK> band(p, q0);
+
+  load_rows<D>(Qh, qb, p.q_ss, q0, BQ, S, tid);
+  if (band.n_tiles > 0) {
+    load_rows<D>(Ks, kb, p.k_ss, band.k_begin, BK, band.k_end, tid);
+    load_rows<D>(Vs, vb, p.v_ss, band.k_begin, BK, band.k_end, tid);
+  }
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  // split q once, in place, into its hi and lo rows
+  for (int i = tid; i < BQ * D; i += kMmaThreads) {
+    const int off = (i / D) * RS + i % D;
+    uint32_t hi, lo;
+    sm90::split_tf32(Qh[off], hi, lo);
+    Qh[off] = __uint_as_float(hi);
+    Ql[off] = __uint_as_float(lo);
+  }
+  __syncthreads();
+
+  // the warp's tiles: rows q0 + 16 (warp MT + mt) ..., at positions q_lo
+  float m[MT][2], l[MT][2], acc[MT][D / 8][4];
+  int qpos[MT][2], q_lo[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    q_lo[mt] = q0 + (warp * MT + mt) * 16 + t_off;
+    qpos[mt][0] = q_lo[mt] + g;
+    qpos[mt][1] = q_lo[mt] + g + 8;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[mt][i] = kMasked;
+      l[mt][i] = 0.f;
+    }
+#pragma unroll
+    for (int db = 0; db < D / 8; ++db)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][db][e] = 0.f;
+  }
+
+  for (int j = 0; j < band.n_tiles; ++j) {
+    if (j + 1 < band.n_tiles) {  // prefetch the next tile, other buffer
+      const int nb = (j + 1) & 1;
+      const int t0 = band.k_begin + (j + 1) * BK;
+      load_rows<D>(Ks + nb * BK * RS, kb, p.k_ss, t0, BK, band.k_end, tid);
+      load_rows<D>(Vs + nb * BK * RS, vb, p.v_ss, t0, BK, band.k_end, tid);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int cb = j & 1;
+    warp_attend_tf32<D, BK, MT>(
+        Qh + warp * MT * 16 * RS, Ql + warp * MT * 16 * RS,
+        Ks + cb * BK * RS, Vs + cb * BK * RS, band.k_begin + j * BK, T, qpos,
+        q_lo, p, lane, m, l, acc);
+    __syncthreads();  // the buffer is free for the prefetch after next
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[mt][i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const int srow = qpos[mt][i] - t_off;
+      if (srow < S) {
+        const float den = fmaxf(li, 1e-30f);
+        float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh +
+                   static_cast<int64_t>(srow) * p.o_ss + 2 * t;
+#pragma unroll
+        for (int db = 0; db < D / 8; ++db)
+          *reinterpret_cast<float2*>(o + db * 8) = make_float2(
+              acc[mt][db][2 * i] / den, acc[mt][db][2 * i + 1] / den);
+      }
+    }
 }
 
 template <int D>
@@ -712,18 +800,31 @@ __global__ void flash_combine_kernel(Params p) {
   o[d] = __float2bfloat16(aa / fmaxf(ll, 1e-30f));
 }
 
-template <int D, int BK>
-int launch_mma(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D, BK>();
-  auto* kern = flash_mma_kernel<D, BK>;
+// One CTA of kMmaThreads per (batch x head, tile of `rows` queries): the
+// mma and tf32x3 variants' grid
+template <typename Kernel>
+int launch_query_tiles(Kernel* kern, size_t smem, int rows, const Params& p,
+                       cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned int>(p.B * p.Hq),
-                  static_cast<unsigned int>((p.S + kMmaRows - 1) / kMmaRows));
+                  static_cast<unsigned int>((p.S + rows - 1) / rows));
   kern<<<grid, kMmaThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int BK>
+int launch_mma(const Params& p, cudaStream_t stream) {
+  return launch_query_tiles(flash_mma_kernel<D, BK>, mma_smem_bytes<D, BK>(),
+                            kMmaRows, p, stream);
+}
+
+template <int D>
+int launch_tf32x3(const Params& p, cudaStream_t stream) {
+  return launch_query_tiles(flash_tf32x3_kernel<D>, tf32_smem_bytes<D>(),
+                            tf32_rows<D>(), p, stream);
 }
 
 template <int D>
@@ -761,8 +862,18 @@ int split_blocks_per_sm() {
   return n;
 }
 
-int launch_bf16(int variant, int64_t D, const Params& p,
-                cudaStream_t stream) {
+int launch_variant(int variant, int64_t D, const Params& p,
+                   cudaStream_t stream) {
+  if (variant == 0) {
+    switch (D) {
+      case 16: return launch_tf32x3<16>(p, stream);
+      case 32: return launch_tf32x3<32>(p, stream);
+      case 64: return launch_tf32x3<64>(p, stream);
+      case 128: return launch_tf32x3<128>(p, stream);
+      case 256: return launch_tf32x3<256>(p, stream);
+      default: return -1;
+    }
+  }
   if (variant == 1) {
     switch (D) {
       case 16: return launch_mma<16, 64>(p, stream);
@@ -804,13 +915,13 @@ extern "C" int flash_split_blocks_per_sm(int64_t D) {
 // C entry point.  Launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (0 on success; -1 for a head dimension,
 // variant or type that is not instantiated) so that a refused launch
-// surfaces in the Python wrapper.  variant: 0 = FFMA (float32), 1 = mma
+// surfaces in the Python wrapper.  variant: 0 = tf32x3 (float32), 1 = mma
 // (bfloat16), 2 = split (bfloat16; k_first, kps, n_splits and the float32
 // partials part_m / part_l [B * Hkv * n_splits * G * S] and part_acc
 // [... * D] are used only here).  ``strides`` holds the 12 element strides
 // (q_sb, q_sh, q_ss, k_*, v_*, o_*).  The caller guarantees the shapes
 // (Hq % Hkv == 0, T >= S >= 1, T < 2^31, window <= T + 1, G * S <= 16 for
-// the split), 16-byte aligned rows for the bf16 variants, and the grid
+// the split), rows of q, k and v on 16-byte boundaries, and the grid
 // limits.
 extern "C" int flash_attention_launch(
     int variant, const void* q, const void* k, const void* v, void* o,
@@ -828,6 +939,5 @@ extern "C" int flash_attention_launch(
            k_first, kps, n_splits, static_cast<float*>(part_m),
            static_cast<float*>(part_l), static_cast<float*>(part_acc)};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (variant == 0) return launch_ffma(D, p, s);
-  return launch_bf16(variant, D, p, s);
+  return launch_variant(variant, D, p, s);
 }

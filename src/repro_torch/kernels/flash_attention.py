@@ -4,16 +4,21 @@ which replace the Pallas ``_flash_fwd`` in
 
 ``flash_attention_cuda`` checks what the kernels take — CUDA tensors on one
 device, float32 or bfloat16, ``q[B, Hq, S, D]`` and ``k/v[B, Hkv, T, D]``
-with ``Hq % Hkv == 0``, ``T >= S``, an instantiated head dimension and a
-contiguous last axis; for bfloat16 also rows that start on 16-byte
-boundaries (the kernels copy them with 16-byte ``cp.async``) — and raises
-on anything else.  The other axes may have any strides, so a KV cache
+with ``Hq % Hkv == 0``, ``T >= S``, an instantiated head dimension, a
+contiguous last axis and rows that start on 16-byte boundaries (every
+variant copies them with 16-byte ``cp.async``) — and raises on anything
+else.  The other axes may have any strides, so a KV cache
 sliced along time (and viewed as ``[B, H, T, D]``) is read in place.  It
 allocates the output (and the split variant's partials), launches on
 PyTorch's current stream and raises if a launch is refused.
 :func:`variant` picks the kernel:
 
-* ``"ffma"`` (float32): FFMA on the CUDA cores, 64 query rows per CTA;
+* ``"tf32x3"`` (float32): tensor cores at float32 accuracy, 128 query
+  rows per CTA up to D = 64 (two 16-row tiles a warp), 64 above
+  (:func:`block_q`): each operand split into two tf32 parts
+  (:func:`repro_torch.kernels.ref.split_tf32`), each product three tf32
+  passes that drop only lo x lo, each tile's P.V summed apart before it
+  joins the running output;
 * ``"mma"`` (bfloat16, ``G * S > 16``): tensor cores, 64 query rows per
   CTA;
 * ``"split"`` (bfloat16, ``G * S <= 16``, i.e. decode): the keys split
@@ -36,8 +41,8 @@ from . import build
 
 #: head dimensions the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: query rows per CTA of the ffma and mma variants (the grid's second
-#: axis counts query tiles)
+#: query rows per CTA of the mma variant and of tf32x3 from D = 128 (the
+#: grid's second axis counts query tiles; see :func:`block_q`)
 BLOCK_Q = 64
 #: query rows one split CTA holds (G * S of them: one 16-row mma tile)
 SPLIT_ROWS = 16
@@ -46,7 +51,7 @@ SPLIT_KEY_QUANTUM = 16
 #: split CTAs wanted per SM, where that many fit at once
 SPLIT_CTAS_PER_SM = 2
 
-_VARIANTS = {"ffma": 0, "mma": 1, "split": 2}
+_VARIANTS = {"tf32x3": 0, "mma": 1, "split": 2}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
@@ -54,12 +59,19 @@ _F32 = ctypes.c_float
 
 
 def variant(dtype: torch.dtype, S: int, G: int) -> str:
-    """The kernel a call launches: ``"ffma"`` for float32, else
+    """The kernel a call launches: ``"tf32x3"`` for float32, else
     ``"split"`` when the ``G * S`` query rows of a kv group fit one
     16-row tile (decode), else ``"mma"``."""
     if dtype == torch.float32:
-        return "ffma"
+        return "tf32x3"
     return "split" if G * S <= SPLIT_ROWS else "mma"
+
+
+def block_q(kind: str, D: int) -> int:
+    """Query rows per CTA of the ``mma`` and ``tf32x3`` variants: tf32x3
+    up to D = 64 gives each of its 4 warps two 16-row tiles, so that each
+    K and V fragment is split once for both; the rest one."""
+    return 2 * BLOCK_Q if kind == "tf32x3" and D <= 64 else BLOCK_Q
 
 
 def split_plan(B: int, Hkv: int, S: int, T: int, window: int | None,
@@ -118,7 +130,7 @@ def check_row_alignment(*named: tuple[str, torch.Tensor]) -> None:
                if shape[ax] > 1 and (stride[ax] * nbytes) % 16]
         if t.data_ptr() % 16 or bad:
             raise ValueError(
-                f"{name}: the bfloat16 kernels copy rows with 16-byte loads; "
+                f"{name}: the kernels copy rows with 16-byte loads; "
                 f"its data pointer is {t.data_ptr() % 16} bytes past a "
                 f"16-byte boundary and the strides {t.stride()[:3]} of its "
                 f"axes {bad} are not multiples of 16 bytes")
@@ -173,8 +185,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last axis must be contiguous")
     kind = variant(q.dtype, S, Hq // Hkv)
-    if kind != "ffma":
-        check_row_alignment(("q", q), ("k", k), ("v", v))
+    check_row_alignment(("q", q), ("k", k), ("v", v))
     if T >= 2**31 - 1:
         raise ValueError(f"T = {T} keys exceed the kernels' int positions")
     if window is not None:
@@ -195,7 +206,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             base = buf.data_ptr()
             parts = (base, base + 4 * n_slots, base + 8 * n_slots)
     else:
-        grid = (B * Hq, -(-S // BLOCK_Q))
+        grid = (B * Hq, -(-S // block_q(kind, D)))
     if grid[0] >= 2**31 or grid[1] > 65535:
         raise ValueError(f"grid too large for the {kind} variant: {grid}")
     if scale is None:

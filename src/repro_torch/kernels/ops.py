@@ -247,7 +247,7 @@ _COUNTED = (lut_eval6, lut_eval, flash_attention, bitplane_matmul, ssd_scan,
             popcount_matmul)
 #: the kernels of the ops that name theirs (each call counted per kernel)
 _VARIANTS = {lut_eval6: ("op", "level"),
-             flash_attention: ("mma", "split", "ffma"),
+             flash_attention: ("mma", "split", "tf32x3"),
              bitplane_matmul: ("tensor_core", "small_m", "ffma"),
              ssd_scan: ("mma", "ffma"),
              popcount_matmul: ("tensor_core",)}

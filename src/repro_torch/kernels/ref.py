@@ -9,7 +9,9 @@ uint32 lacks ``~``, ``>>`` and ``index_copy_``.  ``bitplane_matmul_ref``,
 arithmetic and order of operations; ``flash_attention_split_ref``,
 ``popcount_matmul_bits_ref`` and ``ssd_scan_mma_ref`` are the same
 functions summed and rounded as the split attention, the tensor-core
-binary product and the tensor-core SSD scan compute them.  These
+binary product and the tensor-core SSD scan compute them;
+``split_bf16x3`` and ``split_tf32`` are the operand splits of the exact
+bit-plane product and of the float32 attention.  These
 functions are the CPU path of :mod:`repro_torch.kernels.ops` and the
 yardstick the CUDA kernels are held to on the card; they are never
 ``torch.compile``d.
@@ -169,6 +171,26 @@ def split_bf16x3(x: torch.Tensor
     mid = r.to(torch.bfloat16)
     lo = (r - mid.float()).to(torch.bfloat16)
     return hi, mid, lo
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """Finite float32 ``x`` rounded to tf32 (10 stored significand bits)
+    to nearest, ties away from zero, as ``cvt.rna.tf32.f32`` and the
+    kernels' ``sm90::tf32_rna`` round: on the int32 bit pattern, half a
+    tf32 ulp added and the 13 low bits cleared.  Float32 out."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tf32x3 attention's split of float32 ``x`` (``sm90::split_tf32``
+    does the same arithmetic): ``hi = tf32(x)``, ``lo = tf32(x - hi)``,
+    both float32 with their 13 low significand bits zero.  ``x - hi`` is
+    exact, so ``hi + lo`` is x to within half a tf32 ulp of ``lo``
+    (about 2^-22 |x|)."""
+    x = x.float()
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
 
 
 def _attention_logits(q, k, causal, window, softcap, scale):

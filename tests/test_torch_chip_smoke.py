@@ -644,10 +644,10 @@ def test_vlm_and_encdec_phases_rehearsed_on_cpu():
 
 def test_check_timed_variants():
     run = {"variants": {"flash_attention": {"mma": 0, "split": 5,
-                                            "ffma": 2}},
+                                            "tf32x3": 2}},
            "launches": {"flash_attention": 7}}
-    cs.check_timed_variants("x", run, {"split": 5, "ffma": 2})
-    for want in ({"split": 7}, {"split": 5, "ffma": 2, "mma": 1}):
+    cs.check_timed_variants("x", run, {"split": 5, "tf32x3": 2})
+    for want in ({"split": 7}, {"split": 5, "tf32x3": 2, "mma": 1}):
         with pytest.raises(cs.SmokeFailure):
             cs.check_timed_variants("x", run, want)
 

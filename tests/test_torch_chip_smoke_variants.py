@@ -180,25 +180,25 @@ def _serve_rec(gate, timed, bf16, launches=None):
             "gate": {"variants": {"flash_attention": gate},
                      "launches": {"flash_attention":
                                   launches if launches is not None
-                                  else gate["ffma"]}},
+                                  else gate["tf32x3"]}},
             "timed": {"max_new": 4, "variants": {"flash_attention": timed}},
             "gate_bf16": {"variants": {"flash_attention": bf16}}}
 
 
 def test_check_flash_variants():
-    ok = _serve_rec({"mma": 0, "split": 0, "ffma": 8},
-                    {"mma": 2, "split": 6, "ffma": 0},
-                    {"mma": 2, "split": 4, "ffma": 0})
+    ok = _serve_rec({"mma": 0, "split": 0, "tf32x3": 8},
+                    {"mma": 2, "split": 6, "tf32x3": 0},
+                    {"mma": 2, "split": 4, "tf32x3": 0})
     cs.check_flash_variants(ok)
-    for bad in (_serve_rec({"mma": 0, "split": 0, "ffma": 0},
-                           {"mma": 2, "split": 6, "ffma": 0},
-                           {"mma": 2, "split": 4, "ffma": 0}),
-                _serve_rec({"mma": 0, "split": 0, "ffma": 8},
-                           {"mma": 0, "split": 8, "ffma": 0},
-                           {"mma": 2, "split": 4, "ffma": 0}),
-                _serve_rec({"mma": 0, "split": 0, "ffma": 8},
-                           {"mma": 2, "split": 6, "ffma": 0},
-                           {"mma": 2, "split": 0, "ffma": 0})):
+    for bad in (_serve_rec({"mma": 0, "split": 0, "tf32x3": 0},
+                           {"mma": 2, "split": 6, "tf32x3": 0},
+                           {"mma": 2, "split": 4, "tf32x3": 0}),
+                _serve_rec({"mma": 0, "split": 0, "tf32x3": 8},
+                           {"mma": 0, "split": 8, "tf32x3": 0},
+                           {"mma": 2, "split": 4, "tf32x3": 0}),
+                _serve_rec({"mma": 0, "split": 0, "tf32x3": 8},
+                           {"mma": 2, "split": 6, "tf32x3": 0},
+                           {"mma": 2, "split": 0, "tf32x3": 0})):
         with pytest.raises(cs.SmokeFailure):
             cs.check_flash_variants(bad)
 

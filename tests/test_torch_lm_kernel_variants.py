@@ -1,7 +1,10 @@
 """The Hopper variants of the port's attention and bit-plane kernels,
 checked where the CPU can check them: the split (decode) attention's
 plain version against the JAX package's Pallas kernel in interpret mode
-and against ``flash_attention_ref``; the exactness the tensor-core
+and against ``flash_attention_ref``; the float32 attention's arithmetic
+(the two-way tf32 split of every operand, attention through three-pass
+tf32 products with each tile's sums added in float32) against the JAX
+package's reference and Pallas kernel; the exactness the tensor-core
 bit-plane product rests on (the three-way bf16 split of x, W in bf16);
 and the launchers' variant choice, split counts and alignment checks as
 pure functions.  The CUDA kernels themselves run only on the card, where
@@ -13,6 +16,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import bitplane_matmul as bp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
@@ -132,7 +136,7 @@ def test_split_ref_equals_plain_with_the_plan():
 
 
 @pytest.mark.parametrize("dtype,S,G,want", [
-    (torch.float32, 1, 1, "ffma"), (torch.float32, 512, 2, "ffma"),
+    (torch.float32, 1, 1, "tf32x3"), (torch.float32, 512, 2, "tf32x3"),
     (torch.bfloat16, 1, 1, "split"), (torch.bfloat16, 1, 5, "split"),
     (torch.bfloat16, 16, 1, "split"), (torch.bfloat16, 3, 5, "split"),
     (torch.bfloat16, 8, 2, "split"), (torch.bfloat16, 17, 1, "mma"),
@@ -140,6 +144,13 @@ def test_split_ref_equals_plain_with_the_plan():
 ])
 def test_flash_variant_choice(dtype, S, G, want):
     assert fa.variant(dtype, S, G) == want
+
+
+@pytest.mark.parametrize("kind,D,rows", [
+    ("tf32x3", 16, 128), ("tf32x3", 64, 128), ("tf32x3", 128, 64),
+    ("tf32x3", 256, 64), ("mma", 64, 64), ("mma", 256, 64)])
+def test_query_rows_per_cta(kind, D, rows):
+    assert fa.block_q(kind, D) == rows
 
 
 def test_row_alignment_check():
@@ -153,6 +164,136 @@ def test_row_alignment_check():
     wide = torch.zeros((1, 2, 4, 20), dtype=torch.bfloat16)[..., :16]
     with pytest.raises(ValueError, match="16-byte"):
         fa.check_row_alignment(("v", wide))
+
+
+def test_row_alignment_check_float32():
+    """The float32 kernel copies rows with 16-byte cp.async too: four
+    floats make a chunk, so a one-float offset or a stride of an odd
+    number of floats is refused."""
+    base = torch.zeros((2, 3, 8, 16))
+    fa.check_row_alignment(("q", base), ("k", base.transpose(1, 2)))
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.check_row_alignment(("q", torch.zeros(base.numel() + 1)[1:]
+                                .view(base.shape)))
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.check_row_alignment(("k", torch.zeros((1, 2, 4, 18))[..., :16]))
+    fa.check_row_alignment(("v", torch.zeros((1, 2, 4, 20))[..., :16]))
+
+
+# ---------------------------------------------------------------------------
+# tf32x3 (float32) attention
+# ---------------------------------------------------------------------------
+
+
+def _tf32_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One tf32 ulp (10 stored significand bits) of each nonzero x."""
+    _, e = torch.frexp(x.double())  # x = m 2^e, 0.5 <= |m| < 1
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 11)
+
+
+@pytest.mark.parametrize("seed,scale", [(0, 1.0), (1, 1e-3), (2, 1e4),
+                                        (3, 1e-20), (4, 1e30)])
+def test_tf32_split(seed, scale):
+    x = t((rng(seed).standard_normal(20000) * scale).astype(np.float32))
+    hi, lo = ref.split_tf32(x)
+    assert hi.dtype == lo.dtype == torch.float32
+    # both parts are tf32 values: the 13 low significand bits are zero
+    for part in (hi, lo):
+        assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
+    # hi + lo is x to 2^-21 (exact sum in float64)
+    xd = x.double()
+    assert bool(((hi.double() + lo.double() - xd).abs()
+                 <= xd.abs() * 2.0 ** -21).all())
+    # hi is x rounded to nearest: lo is at most half an ulp of hi
+    nz = hi != 0
+    assert bool((lo.double().abs()[nz] <= _tf32_ulp(hi[nz]) / 2).all())
+
+
+def test_tf32_rounds_ties_away_from_zero():
+    """Halfway between two tf32 values (bit 12 set, the 12 below clear)
+    rounds away from zero in both signs, as cvt.rna does; just below
+    halfway rounds down (lo then rounds too); a carry runs into the
+    exponent."""
+    one = 1.0 + 2.0 ** -11
+    x = torch.tensor([one, -one, 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      2.0 - 2.0 ** -12], dtype=torch.float32)
+    hi, lo = ref.split_tf32(x)
+    assert hi.tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 2.0]
+    assert lo.tolist() == [-2.0 ** -11, 2.0 ** -11, 2.0 ** -11, -2.0 ** -12]
+
+
+def _three_pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernel forms it on the tensor cores: both operands
+    split, a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo dropped), the sum
+    over one tile exact here (float64) and rounded once to float32."""
+    (ah, al), (bh, bl) = ref.split_tf32(a), ref.split_tf32(b)
+    ah, al, bh, bl = (x.double() for x in (ah, al, bh, bl))
+    return (al @ bh + ah @ bl + ah @ bh).float()
+
+
+def tf32x3_attention(q, k, v, causal=True, window=None, softcap=None,
+                     bk=32):
+    """Attention over key tiles of ``bk`` as the tf32x3 kernel computes
+    it (Hq == Hkv): per tile s = three-pass q k^T -> scale -> softcap ->
+    mask to -1e30, the online softmax in float32 (exp of the
+    log2(e)-scaled argument, as exp2f), P V in three passes and added to
+    the running output with alpha in float32."""
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    scale = D ** -0.5
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    qpos = torch.arange(S)[:, None] + (T - S)
+    for k0 in range(0, T, bk):
+        kt, vt = k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk]
+        s = _three_pass(q, kt.transpose(-1, -2)) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        vis = torch.ones((S, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            vis = vis & (kpos <= qpos)
+        if window is not None:
+            vis = vis & (kpos > qpos - window)
+        s = torch.where(vis, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2((s - m_new) * log2e)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _three_pass(p, vt)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
+@pytest.mark.parametrize("case", [
+    # B, H, S, T, D, causal, window, softcap, bk, pallas (bk: the kernel's
+    # keys per tile at D)
+    # whisper-small's 1,500 keys, not causal: the plain reference only
+    # (interpret mode reads padding past a ragged 128-key block)
+    (1, 2, 1500, 1500, 64, False, None, None, 32, False),
+    # D 256 (16-key tiles), causal with a window and softcap
+    (1, 2, 128, 128, 256, True, 48, 30.0, 16, True),
+], ids=str)
+def test_tf32x3_attention_matches_reference(case):
+    B, H, S, T, D, causal, window, softcap, bk, pallas = case
+    r = rng(sum(case[:5]))
+    q, k, v = (r.standard_normal(shape).astype(np.float32)
+               for shape in ((B, H, S, D), (B, H, T, D), (B, H, T, D)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = tf32x3_attention(t(q), t(k), t(v), bk=bk, **kw).numpy()
+    want = np.asarray(jref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    if pallas:
+        kern = np.asarray(jops.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), use_pallas=True,
+            **kw))
+        np.testing.assert_allclose(got, kern, rtol=2e-4, atol=2e-4)
+    # the port's plain version, which the kernel is held to on the card
+    plain = ref.flash_attention_ref(t(q), t(k), t(v), **kw).numpy()
+    np.testing.assert_allclose(got, plain, rtol=2e-4, atol=2e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +386,7 @@ def test_cpu_calls_count_no_variant():
     ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert ops.variant_counts() == {
         "lut_eval6": {"op": 0, "level": 0},
-        "flash_attention": {"mma": 0, "split": 0, "ffma": 0},
+        "flash_attention": {"mma": 0, "split": 0, "tf32x3": 0},
         "bitplane_matmul": {"tensor_core": 0, "small_m": 0, "ffma": 0},
         "ssd_scan": {"mma": 0, "ffma": 0},
         "popcount_matmul": {"tensor_core": 0}}
