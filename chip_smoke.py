@@ -72,16 +72,18 @@ exits non-zero:
    and idle share; every record equal to the numpy sweep and the Python
    oracle, the ``b0`` / ``b2_f10`` / ``b2_f10_l6`` rows equal to the flow
    phase's baseline / DD5 / DD6 records; the frontier rows;
-10. sweep_placed: the 14-point grid (two wire-tier profiles) on the
-    Kratos suite, placed and anneal-refined, equal to the placed Python
-    oracle, its zero-wire rows equal to the unplaced sweep's; the place /
-    anneal / timing walls;
+10. sweep_placed: the canonical baseline / DD5 / DD6 points under two
+    wire-tier profiles (6 points, cut for time from the 7-point grid's
+    14) on the Kratos suite, placed and anneal-refined, equal to the
+    placed Python oracle, its zero-wire rows equal to the unplaced
+    sweep's; the place / anneal / timing walls;
 11. search: ``flow.search_design_space`` over the full 1,920-point grid
-    (budget 12,000, eta 4, at least 8 survivors) with the torch backend
+    (budget 12,000, eta 8, at least 8 survivors) with the torch backend
     and ``verify=True``, equal rung by rung to a numpy-backend rerun; the
     winners verified, and the winner's packs of the two smallest circuits
     proven equivalent by lane simulation through ``lut_eval6``;
-12. placement_ensembles: the Kratos suite under baseline and DD5 placed
+12. placement_ensembles: the Kratos suite under baseline (DD5 cut for
+    time) placed
     by the ensemble placer and refined by the multi-chain annealer on the
     card (``place_ir(backend="torch", refine=mode)``, 4 members and 4
     chains, for both refine modes): every relaxed member
@@ -230,16 +232,20 @@ exits non-zero:
     every (arch x shape) cell
     with ``fits_one_card`` against the card's memory, and mamba2-2.7b's
     long_500k cell run (one decode step at position 524,287 from a zeroed
-    cache), its peak memory beside the record's argument bytes; and the
+    cache), its peak memory beside the record's argument bytes, then the
+    plain-route prefill of 8 x 1,024 tokens from an empty cache on the
+    same weights (the recurrence a step per token and layer); and the
     traces (``launch.trace``, in processes of their own, each over a fake
     group of its mesh's size, every one of which must run) of
     deepseek-moe-16b train_4k and that cell on both production meshes,
-    mesh_train's step on ``(2, 2)``, that cell's decode on a mesh of one
-    and mesh_serve's plain prefill on the mesh it ran on, each of the
-    last two within 10 % of the peak the card measured (rank 0's), and
-    their temporaries within 10 % of the card's (the peak of the bytes
-    the tensors requested, less the step's arguments; the traces start
-    after the build, at the host's lowest priority);
+    mesh_train's step on ``(2, 2)``, that cell's decode and that prefill
+    on a mesh of one (the prefill's scans in closed form) and mesh_serve's
+    plain prefill on the mesh it ran on, each of the last three within
+    10 % of the peak the card measured (rank 0's), and their temporaries
+    within 10 % of the card's (the peak of the bytes the tensors
+    requested, less the step's arguments; the traces start after the
+    per-level baseline, at the host's lowest priority, so that they do
+    not share the host with the CAD phases);
 28. summary: the ``kernels`` line (all six kernels; for those with
     variants, each variant's calls on the main paths; ``lut_eval6``'s
     times and bound are its level variant's, the one the main paths
@@ -247,8 +253,9 @@ exits non-zero:
     and serve_flow phases'; ``flash_attention``'s include the new
     families' timed serving runs, the training run's and every mesh
     rank's, training and serving, with its training calls per step and
-    times beside), the card
-    line, and as the last line ``{"ok": true, "device": {...}}``.
+    times beside), the ``walls`` line (every phase line's ``wall_s``, the
+    seconds since the line before, and the total), the card line, and as
+    the last line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each phase that drives the main
 path and read just after; the parity phases' launches are not counted.
@@ -312,6 +319,31 @@ def check(cond: bool, msg: str) -> None:
 
 def emit(rec: dict) -> None:
     print(json.dumps(rec), flush=True)
+
+
+class PhaseWalls:
+    """The wall of every phase line :meth:`emit` prints: the seconds
+    since the line before (the script's start for the first), as its
+    ``wall_s`` (a phase's own timing of its work, where it kept one,
+    moves to ``inner_wall_s``); :meth:`line` lists them all and the
+    total."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.walls = []
+
+    def emit(self, rec: dict) -> None:
+        now = time.perf_counter()
+        if "wall_s" in rec:
+            rec["inner_wall_s"] = rec.pop("wall_s")
+        rec["wall_s"] = now - self.last
+        self.last = now
+        self.walls.append([rec["phase"], rec["wall_s"]])
+        emit(rec)
+
+    def line(self) -> dict:
+        return {"phase": "walls", "walls_s": self.walls,
+                "total_s": time.perf_counter() - self.start}
 
 
 def card_line() -> str:
@@ -1009,12 +1041,36 @@ def sdpa_backend(sdpa) -> list[str]:
     return sorted(k["name"] for k in by_name)
 
 
+def sdpa_call(q, k, v, causal: bool, window, softcap):
+    """The one ``scaled_dot_product_attention`` call that computes what the
+    flash kernel does on these inputs (grouped heads through its
+    ``enable_gqa``; the queries at the tail of the keys), or None: it has
+    no softcap.  Its ``is_causal`` aligns the mask top-left, which is the
+    tail alignment only when S == T, and a single tail query sees every
+    key; any other causal mask, and a window narrower than the keys, go
+    in as a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    if softcap is not None:
+        return None
+    S, T = q.shape[2], k.shape[2]
+    kw = {"enable_gqa": q.shape[1] != k.shape[1]}
+    if (window is None or window >= T) and (not causal or S in (1, T)):
+        kw["is_causal"] = causal and S == T
+    else:
+        qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+        kpos = torch.arange(T, device=q.device)[None, :]
+        mask = kpos > qpos - (T if window is None else window)
+        kw["attn_mask"] = mask & (kpos <= qpos) if causal else mask
+    return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+
+
 def lm_kernel_parity(device) -> dict:
     """Both LM kernels against their plain versions on the card (every
     case within tolerance, else it raises), then each main-path shape
     timed: kernel, plain version, bound and library call."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.bitplane_matmul import \
@@ -1048,20 +1104,14 @@ def lm_kernel_parity(device) -> dict:
                    reps=3 if heavy else 10, inner=2 if heavy else 10),
                **flash_bound_ms(B, Hq, Hkv, S, T, D, q.element_size(),
                                 causal, window)}
-        # SDPA computes the same function only without softcap and with
-        # the window wider than the keys (grouped heads through its
-        # enable_gqa); its is_causal aligns the mask top-left, which is the
-        # tail alignment only when S == T (and a single tail query sees
-        # every key)
         rec["device_ms"], rec["kernels"] = device_ms(
             lambda: ops.flash_attention(q, k, v, **kw))
-        if softcap is None and (window is None or window >= T):
-            is_causal = causal and S == T
-
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=is_causal, enable_gqa=Hq != Hkv)
-
+        sdpa = sdpa_call(q, k, v, causal, window, softcap)
+        if sdpa is not None:
+            ok, rec["library_max_abs_err"] = _within(
+                sdpa(), want, FLASH_TOL[dt], FLASH_TOL[dt])
+            check(ok, f"SDPA on {label} does not compute the kernel's "
+                      f"function (max abs err {rec['library_max_abs_err']})")
             rec["library_ms"] = time_ms(sdpa)
             rec["library_device_ms"] = device_ms(sdpa)[0]
             rec["library_kernels"] = sdpa_backend(sdpa)
@@ -1792,10 +1842,12 @@ SWEEP_WIRE_PROFILES = ((0.0, 0.0, 0.0), (25.0, 40.0, 120.0))
 CANONICAL_ROWS = {"baseline": "b0", "dd5": "b2_f10", "dd6": "b2_f10_l6"}
 #: the placed sweep runs on the Kratos suite alone, which keeps the whole
 #: script near half its time limit (its oracle gate packs each circuit
-#: afresh at every point: 98 packs here, 238 on all three suites)
+#: afresh at every point: 42 packs here at 6 points, 98 at 14)
 PLACED_SUITES = ("kratos",)
-#: the design-space search's parameters (``benchmarks/search_frontier.py``)
-SEARCH_PARAMS = {"budget": 12000, "eta": 4, "min_survivors": 8}
+#: the design-space search's parameters (``benchmarks/search_frontier.py``'s
+#: but eta 8 for its 4, cut for time: 4 rungs in place of 5, 7,438 of
+#: the budget spent in place of 9,626, the same winner)
+SEARCH_PARAMS = {"budget": 12000, "eta": 8, "min_survivors": 8}
 
 
 def stable_payload(payload: dict) -> dict:
@@ -1869,18 +1921,29 @@ def phase_sweep(suites: dict, device, flow_rec: dict, archs=None
     return rec, {"result": cold, "packs": packs}
 
 
-def phase_sweep_placed(suites: dict, device, unplaced, packs: dict,
-                       archs=None) -> dict:
-    """The placed sweep over the 14-point grid (the 7 points x two
-    wire-tier profiles), anneal-refined placements, through the torch
-    program: every record equal to the placed Python oracle, the
-    zero-wire rows equal to the unplaced sweep's (``unplaced`` may cover
-    more circuits than ``suites``)."""
-    from repro_torch.core import flow, sweep
+def placed_grid() -> list:
+    """The placed sweep's points: the ``CANONICAL_ROWS`` (no bypass; full
+    bypass at fan-in 10, without and with 6-LUT concurrency) under each
+    of ``SWEEP_WIRE_PROFILES``, 6 points (cut from the 7-point grid's 14
+    for time: its placed oracle took 82-93 s)."""
     from repro_torch.core.alm import arch_grid
 
-    archs = arch_grid(wire_delays=SWEEP_WIRE_PROFILES) if archs is None \
-        else archs
+    grid = arch_grid(addmux_fanin=(10,), wire_delays=SWEEP_WIRE_PROFILES)
+    check(sorted({a.name.split("_w")[0] for a in grid})
+          == sorted(CANONICAL_ROWS.values()) and len(grid) == 6,
+          f"the placed grid is {[a.name for a in grid]}")
+    return grid
+
+
+def phase_sweep_placed(suites: dict, device, unplaced, packs: dict,
+                       archs=None) -> dict:
+    """The placed sweep over :func:`placed_grid`, anneal-refined
+    placements, through the torch program: every record equal to the
+    placed Python oracle, the zero-wire rows equal to the unplaced
+    sweep's (``unplaced`` may cover more circuits than ``suites``)."""
+    from repro_torch.core import flow, sweep
+
+    archs = placed_grid() if archs is None else archs
     t0 = time.perf_counter()
     res = flow.sweep_architectures(suites, archs=archs, backend="torch",
                                    packs=packs, place=True, refine="anneal",
@@ -2086,8 +2149,7 @@ def _time_case(ir, arch, rec: dict, device) -> dict:
     return rec
 
 
-def phase_placement_ensembles(suites: dict, device, archs=("baseline",
-                                                              "dd5"),
+def phase_placement_ensembles(suites: dict, device, archs=("baseline",),
                               workers: int | None = None) -> dict:
     """The ensemble placer and the multi-chain annealer on the card
     (``place_ir(backend="torch", refine=mode)``: ``place.ENSEMBLES``
@@ -5109,6 +5171,13 @@ def phase_mesh_serve(device, gate=MOE_GATE, timed=MOE_TIMED,
 DRYRUN_CELL = ("mamba2-2.7b", "long_500k")
 
 
+#: the SSM prefill the dry-run phase runs on the card after that decode
+#: step, on the same weights from an empty cache: (batch, prompt).  Its
+#: plain route runs the recurrence a step per token and layer (~5
+#: launches each, 65,536 steps at full depth), its trace in closed form
+DRYRUN_PREFILL = (8, 1024)
+
+
 #: the cells the dry-run phase traces (``launch.trace``: the real step on
 #: ``meta`` tensors over a fake group of the mesh's size, plain route) on
 #: both production meshes
@@ -5134,11 +5203,18 @@ def serve_prefill_key(shape) -> tuple:
     return (mesh_tag(shape), MESH_SERVE_ARCH, json.dumps(["prefill", B, S]))
 
 
+def dryrun_prefill_key(prefill=DRYRUN_PREFILL) -> tuple:
+    """The trace key (:func:`collect_traces`) of the dry-run phase's SSM
+    prefill on a mesh of one."""
+    return ("1x1", DRYRUN_CELL[0], json.dumps(["prefill", *prefill]))
+
+
 def start_traces(serve_mesh=(1, 1)) -> dict:
     """Start the dry-run phase's traces, one process per mesh: the
     ``TRACE_CELLS`` on the ``single`` and ``multi`` production meshes;
     the steps the card runs on the meshes it runs them on:
-    ``DRYRUN_CELL``'s decode on a mesh of one, mesh_serve's plain-route
+    ``DRYRUN_CELL``'s decode and its model's ``DRYRUN_PREFILL`` on a mesh
+    of one, mesh_serve's plain-route
     prefill on ``serve_mesh`` (:func:`mesh_shape` of the visible cards),
     and mesh_train's step (``MESH_TIMED``'s batch and sequence) on
     ``(2, 2)``, whose collectives the four-card run sends.  They run at
@@ -5150,7 +5226,8 @@ def start_traces(serve_mesh=(1, 1)) -> dict:
 
     cells = {"single": [list(c) for c in TRACE_CELLS],
              "multi": [list(c) for c in TRACE_CELLS],
-             "1x1": [list(DRYRUN_CELL)],
+             "1x1": [list(DRYRUN_CELL),
+                     [DRYRUN_CELL[0], ["prefill", *DRYRUN_PREFILL]]],
              "2x2": [["tinyllama-1.1b", ["train", MESH_TIMED[1],
                                          MESH_TIMED[2]]]]}
     tag, arch, shape = serve_prefill_key(serve_mesh)
@@ -5237,13 +5314,22 @@ def trace_reading(traces: dict, measured: dict) -> dict:
     return {"cells": cells, "held": held, "tol": TRACE_PEAK_TOL}
 
 
-def held_steps(cell, peak, temp, served: dict | None) -> dict:
+def held_steps(cell, peak, temp, served: dict | None,
+               prefill: dict | None = None) -> dict:
     """The steps the card ran that :func:`trace_reading` holds to their
     traces: ``cell``'s decode on a mesh of one (its measured ``peak`` and
-    ``temp``), and mesh_serve's plain-route prefill (``served``: that
-    phase's record) on the mesh it ran on, as rank 0 measured it."""
+    ``temp``), the SSM prefill there (``prefill``: the dry-run phase's
+    ``prefill`` reading), and mesh_serve's plain-route prefill
+    (``served``: that phase's record) on the mesh it ran on, as rank 0
+    measured it."""
     out = {f"{cell[0]} {cell[1]} decode": (
         ("1x1", cell[0], json.dumps(cell[1])), peak, temp)}
+    if prefill is not None:
+        out[f"{cell[0]} plain prefill {prefill['batch']} x "
+            f"{prefill['prompt']} (stepwise scans; traced in closed "
+            f"form)"] = (dryrun_prefill_key(
+                (prefill["batch"], prefill["prompt"])),
+                prefill["peak_bytes"], prefill["temp_bytes"])
     if served is not None:
         pre = served["prefill_plain"]
         out[f"mesh_serve {MESH_SERVE_ARCH} plain prefill on "
@@ -5253,9 +5339,47 @@ def held_steps(cell, peak, temp, served: dict | None) -> dict:
     return out
 
 
+def dryrun_prefill(cfg, params, batch: int, prompt: int, device,
+                   base: int | None, base_req: int | None) -> dict:
+    """The plain-route prefill of ``batch`` prompts of ``prompt`` tokens
+    from an empty cache on ``params`` (already allocated): the peak memory
+    over it above ``base`` (what was allocated before ``params``), so
+    weights included, and its temporaries (the requested peak less the
+    arguments: weights, cache and tokens), as :func:`trace_reading` holds
+    them.  On an SSM model the recurrence runs a step per token and
+    layer; its trace counts that in closed form."""
+    import torch
+
+    from repro_torch.serve.decode import prefill
+    from repro_torch.serve.kvcache import init_cache
+
+    t0 = time.perf_counter()
+    cache = init_cache(cfg, batch, prompt, device=device)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                           dtype=torch.int32).to(device)
+    args = peak = temp = None
+    if device.type == "cuda":
+        args = _requested(device) - base_req
+        torch.cuda.reset_peak_memory_stats(device)
+    ((logits, _), ms), counts = _counted(lambda: _timed(
+        lambda: prefill(cfg, params, cache, tokens, use_kernel=False),
+        device))
+    check(tuple(logits.shape) == (batch, 1, cfg.vocab) and _finite(logits),
+          f"the dry-run prefill gave {tuple(logits.shape)} or non-finite "
+          f"logits")
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) - base
+        temp = _requested(device, "peak") - base_req - args
+    return {"batch": batch, "prompt": prompt, "argument_bytes": args,
+            "peak_bytes": peak, "temp_bytes": temp, "prefill_ms": ms,
+            "launches": counts, "wall_s": time.perf_counter() - t0}
+
+
 def phase_dryrun(device, card_bytes: int | None = None,
                  run_cfg=None, traces: dict | None = None,
-                 served: dict | None = None) -> dict:
+                 served: dict | None = None,
+                 prefill=DRYRUN_PREFILL) -> dict:
     """The dry-run records of every (arch x shape) cell
     (``launch.dryrun.cell_record``, nothing allocated) with
     ``fits_one_card`` against the card's memory, then ``DRYRUN_CELL``
@@ -5263,11 +5387,13 @@ def phase_dryrun(device, card_bytes: int | None = None,
     from a zeroed cache, the peak memory over the step (above what was
     allocated before the phase) beside the record's argument bytes, and
     the set-up's peak (the draws' float32 temporaries) beside
-    (``run_cfg`` stands in for the cell's config in a rehearsal).  With
+    (``run_cfg`` stands in for the cell's config in a rehearsal), then
+    the plain-route prefill of ``prefill`` (batch, prompt) on the same
+    weights (:func:`dryrun_prefill`).  With
     ``traces`` (:func:`start_traces`' processes), their records, the
-    cell's traced peak on a mesh of one and mesh_serve's plain-route
-    prefill's on the mesh it ran on (``served``: mesh_serve's record,
-    rank 0's peak and temporaries) each held to the card's
+    cell's and the prefill's traced peaks on a mesh of one and mesh_serve's
+    plain-route prefill's on the mesh it ran on (``served``: mesh_serve's
+    record, rank 0's peak and temporaries) each held to the card's
     (:func:`trace_reading`)."""
     import torch
 
@@ -5333,13 +5459,17 @@ def phase_dryrun(device, card_bytes: int | None = None,
         peak = torch.cuda.max_memory_allocated(device) - base
         temp = _requested(device, "peak") - base_req - args
     else:
-        peak = None
-    del params, cache, logits
+        peak = base = base_req = None
+    run_s = time.perf_counter() - t1
+    del cache, logits, _   # the step returns the cache as well
+    pre = dryrun_prefill(cfg, params, *prefill, device, base, base_req)
+    del params
     traced = None
     if traces is not None:
         t2 = time.perf_counter()
         got = collect_traces(traces)
-        traced = {**trace_reading(got, held_steps(cell, peak, temp, served)),
+        traced = {**trace_reading(got, held_steps(cell, peak, temp, served,
+                                                  pre)),
                   "collect_s": time.perf_counter() - t2}
     return {"phase": "dryrun", "card_bytes": card_bytes,
             "columns": ["arch", "shape", "kind", "n_params",
@@ -5356,13 +5486,14 @@ def phase_dryrun(device, card_bytes: int | None = None,
                     "allocated_bytes": held, "argument_bytes": args,
                     "peak_bytes": peak, "temp_bytes": temp,
                     "setup_peak_bytes": init_peak,
-                    "base_bytes": base if device.type == "cuda" else None,
-                    "step_ms": step_ms, "launches": counts,
-                    "wall_s": time.perf_counter() - t1},
-            "trace": traced, "wall_s": time.perf_counter() - t0}
+                    "base_bytes": base, "step_ms": step_ms,
+                    "launches": counts, "wall_s": run_s},
+            "prefill": pre, "trace": traced,
+            "wall_s": time.perf_counter() - t0}
 
 
 def main() -> int:
+    walls = PhaseWalls()
     import torch
 
     if not torch.cuda.is_available():
@@ -5373,77 +5504,81 @@ def main() -> int:
 
     device = resolve_device(None)
     name = torch.cuda.get_device_name(0)
-    card = card_line()
-    emit({"phase": "device", "device": name, "count": torch.cuda.device_count(),
-          "nvidia_smi": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-
     t0 = time.perf_counter()
+    card = card_line()
+    walls.emit({"phase": "device", "device": name,
+                "count": torch.cuda.device_count(), "nvidia_smi": card,
+                "nvidia_smi_s": time.perf_counter() - t0,
+                "torch": torch.__version__, "cuda": torch.version.cuda})
+
     secs = build.build_all()
     ptxas = {s: [ln.strip() for ln in build.build_log(s).splitlines()
                  if "entry function" in ln or "registers" in ln
                  or "spill" in ln] for s in build.sources()}
-    emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "per_source_s": secs, "ptxas": ptxas})
-    # host work at the lowest priority while the card works through the
-    # phases; read by the dryrun phase at the end
-    traces = start_traces(mesh_shape(torch.cuda.device_count()))
+    walls.emit({"phase": "build", "per_source_s": secs, "ptxas": ptxas})
 
     suites = full_suites()
     nets = [n for v in suites.values() for n in v]
     levels_net = fig9_workload()
     shapes = main_path_shapes(nets, levels_net)
     krec = kernel_parity(device, shapes, widest_grouped_level(nets, device))
-    emit({"phase": "kernel_parity", **krec})
+    walls.emit({"phase": "kernel_parity", **krec})
     lmrec = lm_kernel_parity(device)
-    emit(lmrec)
+    walls.emit(lmrec)
     ssmrec = ssm_kernel_parity(device)
-    emit(ssmrec)
+    walls.emit(ssmrec)
 
     frec = phase_flow(suites, device)
-    emit(frec)
+    walls.emit(frec)
     lanes = suite_lanes(nets, N_LANE_WORDS)
     rec = phase_suite_eval(nets, lanes, N_LANE_WORDS, device)
-    emit(rec)
+    walls.emit(rec)
     launches6 = rec["launches"]["grouped"]["lut_eval6"] \
         + rec["launches"]["per_circuit"]["lut_eval6"]
     check(rec["launches"]["grouped"]["lut_eval6"] > 0
           and rec["launches"]["per_circuit"]["lut_eval6"] > 0,
           "suite evaluation did not launch lut_eval6")
 
-    emit(phase_profile(nets, lanes, N_LANE_WORDS, device))
+    walls.emit(phase_profile(nets, lanes, N_LANE_WORDS, device))
 
     by_name = {n.name: n for n in nets}
     erec = phase_equiv([by_name["conv2d-fu"], by_name["conv1d-fu"]], device,
                        n_vectors=32 * N_LANE_WORDS)
-    emit(erec)
+    walls.emit(erec)
     check(all(c["launches"]["lut_eval6"] > 0 for c in erec["circuits"]),
           "equivalence did not go through lut_eval6")
 
     swrec, unplaced = phase_sweep(suites, device, frec)
-    emit(swrec)
-    emit(phase_sweep_placed({k: suites[k] for k in PLACED_SUITES}, device,
-                            unplaced["result"], unplaced["packs"]))
+    walls.emit(swrec)
+    walls.emit(phase_sweep_placed({k: suites[k] for k in PLACED_SUITES},
+                                  device, unplaced["result"],
+                                  unplaced["packs"]))
     del unplaced
     serec = phase_search(suites, device)
-    emit(serec)
+    walls.emit(serec)
     launches6 += serec["launches"]["lut_eval6"]
-    emit(phase_placement_ensembles({"kratos": suites["kratos"]}, device))
+    walls.emit(phase_placement_ensembles({"kratos": suites["kratos"]},
+                                         device))
     sfrec = phase_serve_flow(device, eval_nets=nets)
-    emit(sfrec)
+    walls.emit(sfrec)
     launches6 += sfrec["launches"]["lut_eval6"]
 
     lrec = phase_levels(levels_net, N_LANE_WORDS, device)
-    emit(lrec)
+    walls.emit(lrec)
     check(lrec["launches"]["lut_eval"] > 0,
           "the per-level baseline did not launch lut_eval")
+
+    # host work at the lowest priority while the card works through the
+    # model phases (not beside the CAD phases, whose host-bound work would
+    # share the cores); read by the dryrun phase at the end
+    traces = start_traces(mesh_shape(torch.cuda.device_count()))
 
     from repro_torch.configs.base import get_config
 
     srec, kratos_params = phase_serve(
         "serve", get_config("kratos-dd"), device, gate=(2, 128, 16),
         timed=(8, 512, 64))
-    emit(srec)
+    walls.emit(srec)
     flash_launches = srec["timed"]["launches"]["flash_attention"]
     check(flash_launches == srec["flash_launches_expected"],
           f"kratos-dd serving launched flash_attention {flash_launches} "
@@ -5451,30 +5586,30 @@ def main() -> int:
     check(srec["gate"]["launches"]["flash_attention"] > 0,
           "the kratos-dd gate run did not launch flash_attention")
     check_flash_variants(srec)
-    emit(phase_profile_serve(get_config("kratos-dd"), kratos_params, 8, 512,
-                             device))
+    walls.emit(phase_profile_serve(get_config("kratos-dd"), kratos_params, 8,
+                                   512, device))
     del kratos_params
     torch.cuda.empty_cache()
 
     grec, gemma_params = phase_serve(
         "serve_gemma2", get_config("gemma2-2b"), device, gate=(1, 4608, 4),
         timed=(2, 4608, 16))
-    emit(grec)
+    walls.emit(grec)
     check(grec["timed"]["launches"]["flash_attention"]
           == grec["flash_launches_expected"],
           "gemma2-2b serving did not launch flash_attention once per layer "
           "and step")
     check_flash_variants(grec)
-    emit(phase_profile_serve(get_config("gemma2-2b"), gemma_params, 2, 4608,
-                             device))
+    walls.emit(phase_profile_serve(get_config("gemma2-2b"), gemma_params, 2,
+                                   4608, device))
     del gemma_params
     torch.cuda.empty_cache()
     chrec = phase_serve_chunked(get_config("gemma2-2b"), device)
-    emit(chrec)
+    walls.emit(chrec)
     torch.cuda.empty_cache()
 
     qrec = phase_quantized(as_float32(get_config("kratos-dd")), device)
-    emit(qrec)
+    walls.emit(qrec)
     bit_launches = qrec["launches"]["bitplane_matmul"]
     check(bit_launches > 0, "the quantized flow did not launch "
                             "bitplane_matmul")
@@ -5488,19 +5623,19 @@ def main() -> int:
     mrec, mamba_params = phase_ssm(
         "ssm_mamba2", get_config("mamba2-2.7b"), device,
         gate=(1, 512, 497, 16), forward=(2, 4096), timed=(8, 512, 32))
-    emit(mrec)
+    walls.emit(mrec)
     check_ssd_variants(mrec)
-    emit(phase_profile_ssm(get_config("mamba2-2.7b"), mamba_params, 2, 4096,
-                           device))
+    walls.emit(phase_profile_ssm(get_config("mamba2-2.7b"), mamba_params, 2,
+                                 4096, device))
     del mamba_params
     torch.cuda.empty_cache()
     hrec, hymba_params = phase_ssm(
         "ssm_hymba", get_config("hymba-1.5b"), device,
         gate=(1, 512, 497, 16), forward=(2, 2048), timed=(8, 2048, 32))
-    emit(hrec)
+    walls.emit(hrec)
     check_ssd_variants(hrec)
-    emit(phase_profile_ssm(get_config("hymba-1.5b"), hymba_params, 2, 2048,
-                           device))
+    walls.emit(phase_profile_ssm(get_config("hymba-1.5b"), hymba_params, 2,
+                                 2048, device))
     del hymba_params
     torch.cuda.empty_cache()
 
@@ -5509,29 +5644,29 @@ def main() -> int:
     ds = get_config("deepseek-moe-16b")
     moerec, moe_state = phase_serve_moe(ds, device, gate=MOE_GATE,
                                         timed=MOE_TIMED)
-    emit(moerec)
-    emit({**phase_profile_serve(
+    walls.emit(moerec)
+    walls.emit({**phase_profile_serve(
         ds, moe_state["params"], MOE_TIMED[0], MOE_TIMED[1], device,
         ranges=(blocks.EXPERTS_RANGE,)),
         "phase": "profile_moe"})
     i8rec = phase_serve_moe_int8(ds, moe_state, device, gate=MOE_GATE,
                                  timed=MOE_TIMED)
-    emit(i8rec)
+    walls.emit(i8rec)
     del moe_state
     torch.cuda.empty_cache()
-    emit(phase_moe_topk(ds, device))
+    walls.emit(phase_moe_topk(ds, device))
     vlmrec = phase_serve_vlm(get_config("llava-next-34b"), device,
                              gate=VLM_GATE, timed=VLM_TIMED)
-    emit(vlmrec)
+    walls.emit(vlmrec)
     torch.cuda.empty_cache()
     encrec = phase_serve_encdec(get_config("whisper-small"), device,
                                 gate=ENCDEC_GATE, forward=ENCDEC_FORWARD,
                                 timed=ENCDEC_TIMED)
-    emit(encrec)
+    walls.emit(encrec)
     torch.cuda.empty_cache()
 
     fbrec = phase_flash_backward(device)
-    emit(fbrec)
+    walls.emit(fbrec)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
         trec, prec = phase_train("train_tinyllama",
@@ -5539,19 +5674,19 @@ def main() -> int:
                                  workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    emit(trec)
-    emit(prec)
+    walls.emit(trec)
+    walls.emit(prec)
     torch.cuda.empty_cache()
     plrec = phase_pipeline(get_config("tinyllama-1.1b"), device)
-    emit(plrec)
+    walls.emit(plrec)
     torch.cuda.empty_cache()
     mtrec = phase_mesh_train(device)
-    emit(mtrec)
+    walls.emit(mtrec)
     torch.cuda.empty_cache()
     msrec = phase_mesh_serve(device)
-    emit(msrec)
+    walls.emit(msrec)
     torch.cuda.empty_cache()
-    emit(phase_dryrun(device, traces=traces, served=msrec))
+    walls.emit(phase_dryrun(device, traces=traces, served=msrec))
 
     replaces = {"lut_eval6": "src/repro/kernels/lut_eval.py:90",
                 "lut_eval": "src/repro/kernels/lut_eval.py:47",
@@ -5682,6 +5817,7 @@ def main() -> int:
             if k in variant_launches else {}),
          **{key: r[key] for key in ("train", "float32") if key in r}}
         for k, r in recs.items()]})
+    emit(walls.line())
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

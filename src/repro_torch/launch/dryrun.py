@@ -32,7 +32,10 @@ gains the reference's ``memory`` (``argument_size_in_bytes``, equal to
 bytes by kind, ``total_bytes``), with ``trace_s``, the trace's
 ``status`` (``"error"`` and its message where it failed) and
 ``fits_card_traced``: whether arguments and the step's peak together fit
-the card (None with ``--device cpu``).
+the card (None with ``--device cpu``).  A step with sequential SSD scans
+also gains ``scan`` (steps per layer, layers, how the trace counted
+them: long scans in closed form) and ``flops_are`` (every step counted;
+the reference's XLA counts a scan's body once).
 """
 from __future__ import annotations
 

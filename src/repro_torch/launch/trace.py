@@ -45,6 +45,14 @@ a rank runs on its own shards, so every count is per device:
 
 The ops DTensor runs on global shapes to learn an output's shape
 (sharding propagation) are not the step's and are not counted.
+
+A sequential SSD scan (``kernels.ref.ssd_recurrence``, a Python step per
+token: the plain route's prefill, and its training without
+``ssd_chunk``) past ``STEPWISE_MAX`` steps is traced in closed form
+(:func:`_closed_recurrence`): five steps run, the middle one's ops and
+the storages it leaves alive counted for the steps it stands for, in the
+forward and in the backward.  Every count equals the stepwise trace's,
+FLOPs per step x steps; such a record says so (``scan``, ``flops_are``).
 """
 from __future__ import annotations
 
@@ -158,8 +166,16 @@ class Counter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.largest_real = 0
+        #: each op counted this many times (a closed-form scan's step
+        #: standing for many)
+        self.scale = 1
+        #: the sequential scans met: ``[steps, "stepwise" | "closed form"]``
+        self.scans: list = []
         self._known = {_storage_key(t) for t in held}
+        #: storage -> [bytes counted, serial of its allocation]
         self._mine: dict = {}
+        #: the storages tracked so far (each one's serial)
+        self.serial = 0
         self._quiet = 0
 
     @contextlib.contextmanager
@@ -171,9 +187,11 @@ class Counter(TorchDispatchMode):
         finally:
             self._quiet -= 1
 
-    def _free(self, key, n: int) -> None:
-        if self._mine.pop(key, None) is not None:
-            self.live -= n
+    def _free(self, key, serial: int) -> None:
+        rec = self._mine.get(key)
+        if rec is not None and rec[1] == serial:
+            del self._mine[key]
+            self.live -= rec[0]
 
     def _track(self, t: torch.Tensor) -> None:
         key = _storage_key(t)
@@ -181,9 +199,26 @@ class Counter(TorchDispatchMode):
             return
         st = t.untyped_storage()
         n = st.nbytes()
-        self._mine[key] = n
-        weakref.finalize(st, self._free, key, n)
+        self.serial += 1
+        self._mine[key] = [n, self.serial]
+        weakref.finalize(st, self._free, key, self.serial)
         self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def alive_since(self, serial: int) -> list:
+        """The storages allocated after ``serial`` (a past
+        :attr:`serial`) that are alive now."""
+        return [(k, s) for k, (_, s) in self._mine.items() if s > serial]
+
+    def reweight(self, born: list, times: int) -> None:
+        """Count each of ``born`` (:meth:`alive_since`) still alive
+        ``times`` over: the storage of one step of a closed-form scan
+        standing for that many steps' storages."""
+        for key, serial in born:
+            rec = self._mine.get(key)
+            if rec is not None and rec[1] == serial:
+                self.live += rec[0] * (times - 1)
+                rec[0] *= times
         self.peak = max(self.peak, self.live)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -203,24 +238,26 @@ class Counter(TorchDispatchMode):
             if t.device.type != "meta":
                 self.largest_real = max(self.largest_real, _nbytes(t))
         ns, name = func.namespace, func._schema.name.split("::")[-1]
+        k = self.scale
         if ns in _COMM_NAMESPACES:
             kind = _COLLECTIVE.get(name)
             if kind is not None and _group_size(args) != 1:
                 rec = self.collectives.setdefault(kind, {"count": 0,
                                                          "bytes": 0})
-                rec["count"] += 1
-                rec["bytes"] += sum(_nbytes(t) for t in outs)
+                rec["count"] += k
+                rec["bytes"] += k * sum(_nbytes(t) for t in outs)
             for t in outs:
                 self._track(t)
             return out
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += k * flop_registry[packet](*args, **kwargs,
+                                                    out_val=out)
         if name in _TRANSCENDENTAL:
-            self.transcendentals += sum(t.numel() for t in outs)
+            self.transcendentals += k * sum(t.numel() for t in outs)
         if _is_view(func) or name in _NO_ACCESS:
             return out
-        self.bytes_accessed += sum(_nbytes(t) for t in ins + outs)
+        self.bytes_accessed += k * sum(_nbytes(t) for t in ins + outs)
         for t in outs:
             self._track(t)
         return out
@@ -249,16 +286,171 @@ def _patched(patches):
                 setattr(owner, name, old)
 
 
+#: a sequential SSD scan (``kernels.ref.ssd_recurrence``) of at most this
+#: many steps is traced step by step, a longer one in closed form
+STEPWISE_MAX = 8
+
+
+def _repeat(items, times) -> list:
+    return [t for t, n in zip(items, times) for _ in range(n)]
+
+
+class _Unbind(torch.autograd.Function):
+    """``t.unbind(1)``'s views at ``picks``, the steps a closed-form scan
+    runs.  Its backward is the stepwise scan's ``UnbindBackward``: one
+    stack of every step's gradient, each pick's standing for ``times``
+    steps."""
+
+    @staticmethod
+    def forward(ctx, t, picks, times):
+        ctx.times = times
+        views = t.unbind(1)
+        return tuple(views[i] for i in picks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return torch.stack(_repeat(grads, ctx.times), 1), None, None
+
+
+class _Stack(torch.autograd.Function):
+    """The stepwise scan's ``torch.stack(ys, 1)`` of every step's output,
+    each of ``ys`` standing for ``times`` steps; its backward gives each
+    the first of its steps' gradient rows (views, as ``StackBackward``)."""
+
+    @staticmethod
+    def forward(ctx, times, *ys):
+        ctx.starts = [sum(times[:j]) for j in range(len(times))]
+        return torch.stack(_repeat(ys, times), 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(g.select(1, i) for i in ctx.starts))
+
+
+def _step_nodes(outs, known: set) -> list:
+    """The autograd nodes behind ``outs`` that are not in ``known`` (nor
+    behind one of them); added to ``known``."""
+    todo = [t.grad_fn for t in outs if t.grad_fn is not None]
+    found = []
+    while todo:
+        node = todo.pop()
+        if node is None or node in known:
+            continue
+        known.add(node)
+        found.append(node)
+        todo.extend(n for n, _ in node.next_functions)
+    return found
+
+
+class _Window:
+    """The backward of a closed-form scan's middle step, standing for
+    ``times`` steps: its nodes' ops counted ``times`` over, from its first
+    node to the first node of the step before it; the storages it leaves
+    alive past that step (its steps' input gradients, held for the
+    stack) counted ``times`` over from the step before that."""
+
+    def __init__(self, counter: Counter, times: int):
+        self.counter, self.times = counter, times
+        self.state = "idle"
+        self.scale = self.mark = self.born = None
+
+    def open(self, *_):
+        if self.state == "idle":
+            self.state = "open"
+            self.scale = self.counter.scale
+            self.counter.scale = self.times
+            self.mark = self.counter.serial
+
+    def close(self, *_):
+        if self.state == "open":
+            self.state = "closed"
+            self.counter.scale = self.scale
+            self.born = self.counter.alive_since(self.mark)
+
+    def settle(self, *_):
+        self.close()
+        if self.state == "closed":
+            self.state = "settled"
+            self.counter.reweight(self.born, self.times)
+
+
+def _closed_recurrence(counter: Counter, stepwise):
+    """``kernels.ref.ssd_recurrence`` as the trace counts it: on ``meta``
+    tensors past ``STEPWISE_MAX`` steps, five of its steps, the middle one
+    standing for the other L - 4 (its ops counted L - 4 times over, the
+    storages it leaves alive, such as its output row and the states
+    autograd saves, counted L - 4 times over once the next step has shown
+    which outlive it; likewise in the backward).  The first two and last
+    two run as they are, since the first and last steps differ (no
+    gradient to the initial state; none from the final state's next
+    step) and a step's neighbours set what it frees.  The prologue (the
+    per-step factors, formed for all steps at once) and the stack of the
+    outputs run at full size; what the steps unbind and stack goes
+    through :class:`_Unbind` and :class:`_Stack`, whose ops and backward
+    are the stepwise scan's.  So every count equals the stepwise trace's
+    (``tests/test_torch_dryrun_trace.py``)."""
+
+    def run(x, dt, A, B, C, h=None):
+        L = x.shape[1]
+        if x.device.type != "meta" or L <= STEPWISE_MAX:
+            counter.scans.append([L, "stepwise"])
+            return stepwise(x, dt, A, B, C, h)
+        counter.scans.append([L, "closed form"])
+        # ref.ssd_recurrence's own ops from here to the stack
+        Bb, _, H, P = x.shape
+        N = B.shape[-1]
+        if h is None:
+            h = torch.zeros((Bb, H, P, N), dtype=torch.float32,
+                            device=x.device)
+        dtf = dt.float()
+        decay = torch.exp(A.float()[None, None, :] * dtf)
+        dtx = dtf[..., None] * x.float()
+        Bf, Cf = B.float(), C.float()
+        mid = L - 4
+        picks, times = (0, 1, 2, L - 2, L - 1), (1, 1, mid, 1, 1)
+        unbound = [_Unbind.apply(t, picks, times)
+                   for t in (dtx, decay, Bf, Cf)]
+        window = _Window(counter, mid)
+        # the steps' nodes end at the unbinds' and the initial state's
+        known = {t.grad_fn for t in (h, *(u[0] for u in unbound))
+                 if t.grad_fn is not None}
+        for node in known:
+            node.register_prehook(window.settle)
+        steps = zip(*unbound)
+        ys = []
+        for j, (dtx_t, dec_t, B_t, C_t) in enumerate(steps):
+            if j == 2:
+                scale, counter.scale = counter.scale, mid
+                mark = counter.serial
+            upd = dtx_t[..., None] * B_t[:, None, None, :]
+            h = h * dec_t[..., None, None] + upd
+            ys.append(torch.einsum("bhpn,bn->bhp", h, C_t))
+            if j == 2:
+                counter.scale = scale
+                born = counter.alive_since(mark)
+            elif j == 3:
+                counter.reweight(born, mid)
+            hook = {0: window.settle, 1: window.close, 2: window.open}.get(j)
+            for node in _step_nodes((h, ys[-1]), known):
+                if hook is not None:
+                    node.register_prehook(hook)
+        return _Stack.apply(times, *ys), h
+
+    return run
+
+
 @contextlib.contextmanager
 def counting(counter: Counter):
     """``counter`` on, with DTensor's sharding propagation and shard
-    bookkeeping kept out of it, and a shard-to-shard redistribution run
-    as the all-to-all it is on the card (``_dtensor::shard_dim_alltoall``,
+    bookkeeping kept out of it, a shard-to-shard redistribution run as
+    the all-to-all it is on the card (``_dtensor::shard_dim_alltoall``,
     whose meta kernel gives the shape) where a CPU group would gather and
-    chunk."""
+    chunk, and a long sequential SSD scan traced in closed form."""
     from torch.distributed._functional_collectives import \
         _resolve_group_name
     from torch.distributed.tensor import DTensor, placement_types
+
+    from ..kernels import ref
 
     def quiet(fn):
         def run(*args, **kwargs):
@@ -281,7 +473,9 @@ def counting(counter: Counter):
                    # vectors of one dimension's length)
                    (placement_types._StridedShard,
                     "local_shard_size_and_offset", quiet),
-                   (placement_types, "shard_dim_alltoall", card_alltoall)]):
+                   (placement_types, "shard_dim_alltoall", card_alltoall),
+                   (ref, "ssd_recurrence",
+                    lambda fn: _closed_recurrence(counter, fn))]):
         with counter:
             yield counter
 
@@ -357,23 +551,18 @@ def _run_step(cfg, shape, mesh, placed: dict):
                            S - 1, use_kernel=False)
 
 
-#: the most Python steps of sequential SSD scans a traced step may take
-#: (layers x steps; each costs some milliseconds on the host)
-MAX_SCAN_STEPS = 10_000
-
-
 def scan_steps(cfg, shape) -> int:
-    """The Python steps of the sequential SSD scans in the cell's step on
-    the plain route: each SSD layer's recurrence over the prompt at
-    prefill (one step at decode), or its sequential scan over the
-    sequence at train unless the chunked form applies (``ssd_chunk``)."""
+    """The steps of each SSD layer's sequential scan in the cell's step on
+    the plain route: its recurrence over the prompt at prefill (one step
+    at decode), or its sequential scan over the sequence at train unless
+    the chunked form applies (``ssd_chunk``); 0 without one."""
     if cfg.family not in ("ssm", "hybrid"):
         return 0
     S = 1 if shape.kind == "decode" else shape.seq_len
     if shape.kind == "train" and (
             cfg.ssd_chunk and S % cfg.ssd_chunk == 0 and S > cfg.ssd_chunk):
         return 0
-    return cfg.n_layers * S
+    return S
 
 
 def trace_cell(cfg, shape, mesh) -> dict:
@@ -401,15 +590,24 @@ def trace_cell(cfg, shape, mesh) -> dict:
         "alias_size_in_bytes": sum(_nbytes(t) for t in outs
                                    if _storage_key(t) in arg_keys),
         "temp_size_in_bytes": counter.peak}
-    return {"route": "plain", "memory": memory,
-            "cost": {"flops": float(counter.flops),
-                     "transcendentals": float(counter.transcendentals),
-                     "bytes accessed": float(counter.bytes_accessed)},
-            "bytes_accessed_is": "unfused: an upper bound on a fused "
-                                 "compile's",
-            "collectives": collective_stats(counter),
-            "largest_real_bytes": counter.largest_real,
-            "trace_s": trace_s}
+    rec = {"route": "plain", "memory": memory,
+           "cost": {"flops": float(counter.flops),
+                    "transcendentals": float(counter.transcendentals),
+                    "bytes accessed": float(counter.bytes_accessed)},
+           "bytes_accessed_is": "unfused: an upper bound on a fused "
+                                "compile's",
+           "collectives": collective_stats(counter),
+           "largest_real_bytes": counter.largest_real,
+           "trace_s": trace_s}
+    if counter.scans:
+        rec["scan"] = {
+            "steps_per_layer": scan_steps(cfg, shape),
+            "layers": cfg.n_layers, "traced_calls": len(counter.scans),
+            "counted": sorted({how for _, how in counter.scans})}
+        rec["flops_are"] = ("per step x steps: every step of the "
+                            "sequential scans counted (XLA's cost "
+                            "analysis counts a scan's body once)")
+    return rec
 
 
 def shape_of(spec):
@@ -436,14 +634,7 @@ def trace_jobs(jobs: list):
         try:
             cfg = get_config(arch)
             cfg = cfg.smoke() if smoke else cfg
-            shape = shape_of(shape_name)
-            n = scan_steps(cfg, shape)
-            if n > MAX_SCAN_STEPS:
-                raise RuntimeError(
-                    f"not traced: the plain route's sequential SSD scans "
-                    f"take {n} Python steps ({cfg.n_layers} layers), past "
-                    f"the trace's budget of {MAX_SCAN_STEPS}")
-            rec = trace_cell(cfg, shape,
+            rec = trace_cell(cfg, shape_of(shape_name),
                              fake_mesh(sizes, names))
             rec["status"] = "ok"
         except Exception as e:  # noqa: BLE001 - recorded, as in the reference

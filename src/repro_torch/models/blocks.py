@@ -489,20 +489,24 @@ def ssd_block(cfg: ModelConfig, p, x, cache=None, use_kernel: bool = True):
         # at prefill)
         y, hst = _scan(ref.ssd_recurrence, xh, dt, A, Bm, Cm,
                        cache["ssm"].float())
-        y = y.reshape(B, S, H * P)
         write_into(cache["conv"], new_conv)
         write_into(cache["ssm"], hst)
     elif use_kernel:
-        y = _scan(ops.ssd_scan, xh, dt, A, Bm, Cm).reshape(B, S, H * P)
+        y = _scan(ops.ssd_scan, xh, dt, A, Bm, Cm)
     elif cfg.ssd_chunk and S % cfg.ssd_chunk == 0 and S > cfg.ssd_chunk:
         y = _scan(lambda *a: ref.ssd_scan_chunked_ref(*a,
                                                       chunk=cfg.ssd_chunk),
-                  xh, dt, A, Bm, Cm).reshape(B, S, H * P)
+                  xh, dt, A, Bm, Cm)
     else:
-        y = _scan(ref.ssd_scan_ref, xh, dt, A, Bm, Cm).reshape(B, S, H * P)
+        y = _scan(ref.ssd_scan_ref, xh, dt, A, Bm, Cm)
+    # on a mesh whose model axis does not divide H the heads are whole on
+    # every rank (split_heads), and merge_heads keeps their gradients so
+    y = merge_heads(y, B, S, H * P)
     # jnp.repeat: each head's skip weight repeated over its P channels
-    d_skip = p["d_skip"].to(x.dtype).repeat_interleave(P)
-    y = y + xh.reshape(B, S, H * P) * d_skip
+    # (its gradient, too, held whole for the repeat's backward)
+    d_skip = merge_heads(p["d_skip"].to(x.dtype).repeat_interleave(P),
+                         H * P)
+    y = y + merge_heads(xh, B, S, H * P) * d_skip
     y = y.to(x.dtype) * F.silu(zx.float()).to(x.dtype)
     out = reduce_model(rms_norm(y, p["out_ln"], cfg.rms_eps)
                        @ p["out_proj"])

@@ -179,8 +179,10 @@ def test_sweep_and_search_phases_rehearsed_on_cpu():
     assert {r["arch"] for r in rec["frontier"]} == set(rec["archs"]) - {"b0"}
     placed = cs.phase_sweep_placed({"vtr": suites["vtr"][1:]}, CPU,
                                    unplaced["result"], unplaced["packs"])
-    assert len(placed["archs"]) == 14 and placed["circuits"] == 1
-    assert placed["zero_wire_rows_equal_unplaced"] == rec["archs"]
+    # the canonical rows under both wire profiles
+    assert len(placed["archs"]) == 6 and placed["circuits"] == 1
+    assert placed["zero_wire_rows_equal_unplaced"] == \
+        list(cs.CANONICAL_ROWS.values())
     assert placed["wall_split"]["place_s"] >= \
         placed["wall_split"]["anneal_s"] > 0
     srec = cs.phase_search(suites, CPU, archs=subgrid(full_arch_grid(), 12),
@@ -329,6 +331,30 @@ def test_lm_kernel_parity_rehearsed_on_cpu():
                                         64, 32, 6, CPU)
     assert planes.shape == (6, 64, 32) and scale.shape == (32,)
     assert all(len(c) == 12 for c in cs.FLASH_MAIN)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,causal,window", [
+    (2, 10, 2, 40, 40, True, 16),      # hymba's local prefill, G 5
+    (3, 10, 2, 1, 70, True, 16),       # its local decode
+    (3, 10, 2, 1, 70, True, 1 << 30),  # its global decode
+    (2, 4, 4, 24, 24, True, None),     # a causal prefill: is_causal
+    (1, 4, 2, 5, 30, True, None),      # tail queries, S < T
+    (2, 4, 1, 30, 30, False, 8)])      # a window, not causal
+def test_sdpa_call_computes_the_kernels_function(B, Hq, Hkv, S, T, causal,
+                                                 window):
+    """The library yardstick of ``lm_kernel_parity``: SDPA with the window
+    as a boolean mask and ``enable_gqa`` gives the plain attention's
+    output (the queries at the tail of the keys); none with softcap."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((B, h, n, 16), generator=gen)
+               for h, n in ((Hq, S), (Hkv, T), (Hkv, T)))
+    want = ops.flash_attention(q, k, v, causal=causal, window=window,
+                               use_kernel=False)
+    got = cs.sdpa_call(q, k, v, causal, window, None)()
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert cs.sdpa_call(q, k, v, causal, window, 50.0) is None
 
 
 def test_serve_phases_rehearsed_on_cpu():

@@ -158,13 +158,16 @@ def test_mesh_serve_prefill_is_held_to_its_own_mesh(mesh):
 
 def test_dryrun_phase_reads_the_trace_of_the_mesh_served():
     """The dry-run phase with traces and a four-card mesh_serve record:
-    the long_500k decode is read from the mesh of one's trace, the
-    prefill from the ``(2, 2)`` one (full width, ``meta`` tensors; no
-    card, so nothing is held)."""
+    the long_500k decode and the SSM prefill are read from the mesh of
+    one's traces (the prefill's in closed form), mesh_serve's prefill
+    from the ``(2, 2)`` one (full width, ``meta`` tensors; no card, so
+    nothing is held)."""
     from repro_torch.launch import trace
 
     B, S, _ = cs.MOE_TIMED
-    cells = {"1x1": [list(cs.DRYRUN_CELL)],
+    prefill = (2, 64)
+    cells = {"1x1": [list(cs.DRYRUN_CELL),
+                     [cs.DRYRUN_CELL[0], ["prefill", *prefill]]],
              "2x2": [[cs.MESH_SERVE_ARCH, ["prefill", B, S]]]}
     procs = {tag: (trace.start(c, sizes=[int(n) for n in tag.split("x")],
                                names=["data", "model"]), c)
@@ -173,11 +176,23 @@ def test_dryrun_phase_reads_the_trace_of_the_mesh_served():
                                                 "temp_bytes": None}}
     run_cfg = get_config("mamba2-2.7b").smoke()
     rec = cs.phase_dryrun(torch.device("cpu"), card_bytes=80 * 2**30,
-                          run_cfg=run_cfg, traces=procs, served=served)
+                          run_cfg=run_cfg, traces=procs, served=served,
+                          prefill=prefill)
     held = rec["trace"]["held"]
-    assert sorted(h["trace"][0] for h in held.values()) == ["1x1", "2x2"]
-    prefill = [h for n, h in held.items() if "prefill" in n][0]
+    assert sorted(h["trace"][0] for h in held.values()) == [
+        "1x1", "1x1", "2x2"]
+    served_prefill = held[f"mesh_serve {cs.MESH_SERVE_ARCH} plain prefill "
+                          f"on 2x2 (rank 0)"]
     # rank 0 of (2, 2) holds a quarter of the weights or less
-    assert prefill["traced_peak_bytes"] < 12 * 2**30
-    assert prefill["measured_peak_bytes"] is None
-    assert len(rec["trace"]["cells"]) == 2
+    assert served_prefill["traced_peak_bytes"] < 12 * 2**30
+    assert served_prefill["measured_peak_bytes"] is None
+    ssm = [h for h in held.values()
+           if h["trace"] == list(cs.dryrun_prefill_key(prefill))]
+    assert len(ssm) == 1 and ssm[0]["measured_temp_bytes"] is None
+    # mamba2-2.7b's bf16 weights, 2.7e9 of them, and more
+    assert ssm[0]["traced_peak_bytes"] > 5 * 10**9
+    key = " ".join(cs.dryrun_prefill_key(prefill))
+    assert rec["trace"]["cells"][key]["peak_bytes"] == \
+        ssm[0]["traced_peak_bytes"]
+    assert rec["prefill"]["batch"] == 2 and rec["prefill"]["prompt"] == 64
+    assert len(rec["trace"]["cells"]) == 3

@@ -91,6 +91,10 @@ def test_dryrun_phase_rehearsed_on_cpu():
     run = rec["run"]
     assert run["pos"] == 524287 and run["peak_bytes"] is None
     assert 0 < run["allocated_bytes"]
+    # then the SSM prefill on the same weights, stepwise on the plain route
+    pre = rec["prefill"]
+    assert (pre["batch"], pre["prompt"]) == cs.DRYRUN_PREFILL
+    assert pre["peak_bytes"] is None and pre["prefill_ms"] > 0
     ok = [r for r in rec["records"] if r[2] != "skipped"]
     assert len(ok) == 10 * 3 + 2     # long_500k: mamba2 and hymba
     assert all(len(r) == len(rec["columns"]) for r in ok)

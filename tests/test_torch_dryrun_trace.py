@@ -17,7 +17,11 @@ the mesh of one's); one ``Shard(0)`` -> ``Shard(1)`` redistribution is
 recorded as one all-to-all (DTensor's CPU groups would gather); a mesh of
 one records no collective; no real tensor over 1 MB is made during a
 trace; the CLI writes traced records for qwen1.5-0.5b on both production
-meshes.
+meshes.  A sequential SSD scan's closed-form trace equals its stepwise
+trace in every count, the temporaries' peak included, for prefill and
+train (with remat, as the production configs train), for mamba2 and
+hymba, on a mesh of one and on ``(4, 2)``; its record says how its scan
+was counted.
 """
 import dataclasses
 import json
@@ -37,7 +41,8 @@ pytestmark = pytest.mark.slow   # subprocesses: an 8-device host, fake groups
 CELLS = [("qwen1.5-0.5b", "train_4k"), ("qwen1.5-0.5b", "decode_32k"),
          ("deepseek-moe-16b", "prefill_32k"), ("mamba2-2.7b", "train_4k"),
          ("whisper-small", "prefill_32k"), ("llava-next-34b", "decode_32k"),
-         ("hymba-1.5b", "long_500k")]
+         ("hymba-1.5b", "long_500k"), ("mamba2-2.7b", "prefill_32k"),
+         ("hymba-1.5b", "train_4k")]
 MESH = ([4, 2], ["data", "model"])
 #: each subprocess's time limit, seconds
 TIMEOUT = 300
@@ -86,6 +91,33 @@ if sizes == [4, 2]:
 """
 
 
+#: the closed-form vs stepwise cases: (arch, [kind, batch, seq_len]) at
+#: smoke width, long enough that the scans' storages set the train
+#: step's peak (a scan's step count past ``trace.STEPWISE_MAX``)
+SCAN_CASES = [(arch, [kind, 8, seq]) for arch in ("mamba2-2.7b", "hymba-1.5b")
+              for kind, seq in (("prefill", 96), ("train", 160))]
+SCAN_MESHES = {"1x1": [1, 1], "4x2": MESH[0]}
+
+SCAN_SCRIPT = r"""
+import dataclasses, json, sys
+from repro_torch.configs.base import get_config
+from repro_torch.launch import trace
+
+cases, sizes, names = (json.loads(a) for a in sys.argv[1:4])
+trace.form_fake_group(max(2, sizes[0] * sizes[1]))
+mesh = trace.fake_mesh(sizes, names)
+stepwise_max = trace.STEPWISE_MAX
+for arch, spec in cases:
+    cfg = dataclasses.replace(get_config(arch).smoke(),
+                              remat=spec[0] == "train")
+    for how, most in (("stepwise", 1 << 30), ("closed form", stepwise_max)):
+        trace.STEPWISE_MAX = most
+        rec = trace.trace_cell(cfg, trace.shape_of(spec), mesh)
+        print(json.dumps({"cell": arch + "/" + spec[0], "how": how, **rec}),
+              flush=True)
+"""
+
+
 def _run(script: str, *args) -> subprocess.Popen:
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
@@ -94,33 +126,45 @@ def _run(script: str, *args) -> subprocess.Popen:
                             text=True, env=env)
 
 
-def _lines(proc) -> dict:
+def _records(proc) -> list:
     out, err = proc.communicate(timeout=TIMEOUT)
     assert proc.returncode == 0, err[-3000:]
-    recs = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
-    return {r.pop("cell"): r for r in recs}
+    return [json.loads(x) for x in out.splitlines() if x.startswith("{")]
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """``(reference records, (4, 2) traces, mesh-of-one traces)``; the
-    slowest cell (the sequential SSD scan) in a process of its own."""
-    cells = json.dumps(CELLS)
-    slow = [c for c in CELLS if c[0] == "mamba2-2.7b"]
-    fast = [c for c in CELLS if c not in slow]
-    procs = [_run(REF_SCRIPT, cells),
-             _run(PORT_SCRIPT, json.dumps(fast), *map(json.dumps, MESH)),
-             _run(PORT_SCRIPT, json.dumps(slow), *map(json.dumps, MESH)),
-             _run(PORT_SCRIPT, json.dumps([("qwen1.5-0.5b", "train_4k")]),
-                  json.dumps([1, 1]), json.dumps(MESH[1]))]
+def _gather(procs: list) -> list:
+    """Each process's records (:func:`_records`); every process is
+    stopped before this returns."""
     try:
-        ref, fast_t, slow_t, one = (_lines(p) for p in procs)
+        return [_records(p) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return ref, {**fast_t, **slow_t}, one
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """``(reference records, (4, 2) traces, mesh-of-one traces)``."""
+    return tuple({r.pop("cell"): r for r in recs} for recs in _gather([
+        _run(REF_SCRIPT, json.dumps(CELLS)),
+        _run(PORT_SCRIPT, json.dumps(CELLS), *map(json.dumps, MESH)),
+        _run(PORT_SCRIPT, json.dumps([("qwen1.5-0.5b", "train_4k")]),
+             json.dumps([1, 1]), json.dumps(MESH[1]))]))
+
+
+@pytest.fixture(scope="module")
+def scans():
+    """``{mesh tag: {cell: {"stepwise": record, "closed form": record}}}``
+    of ``SCAN_CASES``, one process per mesh."""
+    out = {tag: {} for tag in SCAN_MESHES}
+    for tag, recs in zip(SCAN_MESHES, _gather([
+            _run(SCAN_SCRIPT, json.dumps(SCAN_CASES), json.dumps(sizes),
+                 json.dumps(MESH[1])) for sizes in SCAN_MESHES.values()])):
+        for rec in recs:
+            out[tag].setdefault(rec.pop("cell"), {})[rec.pop("how")] = rec
+    return out
 
 
 @pytest.mark.parametrize("arch,shape", CELLS)
@@ -195,18 +239,54 @@ def test_trace_allocates_nothing(runs):
             assert rec["largest_real_bytes"] < MB, cell
 
 
-def test_scan_budget():
-    """The sequential SSD scans' Python steps: layers x sequence (1 at
-    decode; none where the chunked form serves training)."""
+def test_scan_budget(runs):
+    """No cell is refused for its scans' length any more: the sequential
+    SSD scan's steps per layer (the sequence, 1 at decode, none where the
+    chunked form serves training), which each record of a step with such
+    a scan states beside how it was counted."""
     m = get_config("mamba2-2.7b")
-    assert trace.scan_steps(m, SHAPES["train_4k"]) == 64 * 4096
+    assert trace.scan_steps(m, SHAPES["train_4k"]) == 4096
     assert trace.scan_steps(dataclasses.replace(m, ssd_chunk=256),
                             SHAPES["train_4k"]) == 0
-    assert trace.scan_steps(m, SHAPES["long_500k"]) == 64
+    assert trace.scan_steps(m, SHAPES["long_500k"]) == 1
+    assert trace.scan_steps(m, SHAPES["prefill_32k"]) == 32768
     assert trace.scan_steps(get_config("qwen1.5-0.5b"),
                             SHAPES["prefill_32k"]) == 0
-    assert trace.scan_steps(m.smoke(), SHAPES["train_4k"]) <= \
-        trace.MAX_SCAN_STEPS < trace.scan_steps(m, SHAPES["train_4k"])
+    _, port, one = runs
+    for cell, steps, how in (("mamba2-2.7b/train_4k", 4096, "closed form"),
+                             ("mamba2-2.7b/prefill_32k", 32768,
+                              "closed form"),
+                             ("hymba-1.5b/train_4k", 4096, "closed form"),
+                             ("hymba-1.5b/long_500k", 1, "stepwise")):
+        rec = port[cell]
+        assert rec["status"] == "ok", rec.get("error")
+        # smoke width: 2 layers, no remat, so one scan a layer
+        assert rec["scan"] == {"steps_per_layer": steps, "layers": 2,
+                               "traced_calls": 2, "counted": [how]}, cell
+        assert rec["flops_are"].startswith("per step x steps")
+    assert "scan" not in port["qwen1.5-0.5b/train_4k"]
+    assert "flops_are" not in one["qwen1.5-0.5b/train_4k"]
+
+
+@pytest.mark.parametrize("mesh", list(SCAN_MESHES))
+@pytest.mark.parametrize("arch,spec", SCAN_CASES)
+def test_closed_form_scan_equals_stepwise(scans, mesh, arch, spec):
+    """The closed-form trace of a step with sequential SSD scans equals
+    the same step traced step by step: FLOPs, transcendentals, bytes
+    accessed, collectives, the argument, output and alias bytes and the
+    temporaries' peak, each exactly."""
+    got = scans[mesh][f"{arch}/{spec[0]}"]
+    step, closed = got["stepwise"], got["closed form"]
+    train = spec[0] == "train"
+    assert step["scan"]["counted"] == ["stepwise"]
+    assert closed["scan"] == {"steps_per_layer": spec[2], "layers": 2,
+                              # remat: the forward and its recompute
+                              "traced_calls": 4 if train else 2,
+                              "counted": ["closed form"]}
+    assert closed["memory"] == step["memory"]
+    assert closed["cost"] == step["cost"]
+    assert closed["collectives"] == step["collectives"]
+    assert closed["memory"]["temp_size_in_bytes"] > 0
 
 
 def test_cli_traces_both_meshes(tmp_path, capsys):
