@@ -5,8 +5,8 @@
 Drives the port's main paths — the paper's CAD flow and its bit-parallel
 functional evaluator, serving of the dense LMs, the forward and serving
 of the Mamba-2 and Hymba families, serving of the MoE (and its int8 KV
-cache), vision-language and encoder-decoder families, and training of a
-dense LM — at full size on the card, and
+cache), vision-language and encoder-decoder families, and training of
+every family — at full size on the card, and
 holds every CUDA kernel against its plain-torch version.  Phases, each
 printing one JSON line, in this order; any failure raises, so the script
 exits non-zero:
@@ -123,7 +123,13 @@ exits non-zero:
     the window), the float32 kernel route (flash with the window on the
     13 local layers) against the plain route (``local_chunked_attention``
     there) in the logits of the first, boundary and last positions within
-    5e-3, and a timed bfloat16 forward (26 ``mma`` flash calls);
+    5e-3, and a timed bfloat16 forward (26 ``mma`` flash calls); then
+    serve_qwen and serve_gemma: ``qwen1.5-0.5b`` (QKV bias, a 151,936
+    vocabulary) and ``gemma-2b`` (one kv head at D 256: flash at G 8)
+    at full width and depth through the same gates, sized as
+    serve_gemma2 (the flash variants checked as serve's), gemma-2b's
+    flash prefill and decode calls timed in the LM kernel parity beside
+    SDPA (``enable_gqa``);
 17. quantized: the quantized-serving flow on ``kratos-dd`` — every
     layer's FFN ``wi`` as 6 bit-planes through ``bitplane_matmul`` at 8
     rows (the small_m variant) and 4096 rows (tensor_core);
@@ -181,20 +187,38 @@ exits non-zero:
     both together
     timed beside the plain forward, SDPA's forward and forward + backward
     (``enable_gqa`` and K / V repeated) and the forward's and a fused
-    backward's bounds;
+    backward's bounds; then the training of every other family
+    (``FAMILY_TRAIN``), train_deepseek, train_llava, train_whisper,
+    train_mamba2 and train_hymba, each at full width: a float32 gate
+    over the first 1-2 layers (the kernel route's loss, gradients and
+    stepped parameters against the plain route's, its tolerance from the
+    plain route's distance to float64; for mamba2-2.7b and hymba-1.5b,
+    which train on the plain route alone, the card's plain step against
+    the same step in float64 on the host), for the kernel-route families
+    a bf16 gate over the same layers (gradients against the plain
+    route's, the noise from float32), 3 bf16 steps over 2-3 layers
+    (whisper-small's at full depth through ``launch.train``, the SSMs'
+    through ``fit``), each loss within 2e-2 of a float32 run's and, at
+    every step of the plain bf16 run, the kernel route's loss at that
+    step's weights within ``max(1e-4, 4 x d'_s)`` of the plain route's
+    (d'_s its distance there from float32); deepseek also one step with
+    ``fp8_expert_gather``; peak memory, step walls, flash calls per
+    step and variant, and one flash call at the run's shapes timed
+    (forward and recompute backward) beside SDPA;
 26. train_tinyllama: ``tinyllama-1.1b`` at full width — a float32 gate
     over its first 4 layers (2 x 512 tokens, seed-0 weights: the kernel
-    route's loss and every leaf's gradient against the plain path's
-    within ``max(1e-4, 4 x d)`` normwise, d the plain path's own distance
-    from a float64 plain run; the parameters after one AdamW step
-    beside), a timed bf16 ``fit`` of 12 steps at full depth with remat (B
-    4 x S 2048, AdamW at the train launcher's defaults; per step the wall,
-    tokens / s, peak memory, model-FLOPs share of the bf16 peak, and 22 +
-    22 ``mma`` flash launches; the losses finite and falling), and a
-    checkpoint check on its saves (at steps 6 and 12: the last restored
-    bit for bit against the run's final state, then a fresh ``fit``
-    resumed from step 6 to 12, its losses beside the uninterrupted
-    run's);
+    route's loss, every leaf's gradient and every parameter after one
+    AdamW step against the plain path's within ``max(1e-4, 4 x d)``
+    normwise, d the same quantity's distance between the plain path and
+    a float64 plain run), a timed bf16 ``fit`` of 12 steps at full depth
+    with remat (B 4 x S 2048, AdamW at the train launcher's defaults; per
+    step the wall, tokens / s, peak memory, model-FLOPs share of the
+    bf16 peak, and 22 + 22 ``mma`` flash launches; the losses finite and
+    falling; one checkpoint, at the end), and a checkpoint check on a
+    copy cut to 2 layers at the same width, batch and sequence (12
+    steps saved at 6 and 12: the last restored bit for bit against the
+    run's final state, then a fresh ``fit`` resumed from step 6 to 12,
+    its losses beside the uninterrupted run's);
 27. profile_train: one warm bf16 train step under ``torch.profiler``
     (device busy and idle share, top kernels, the flash forwards' and the
     recompute backward's shares) and one eager AdamW update alone; then
@@ -251,7 +275,7 @@ exits non-zero:
     times and bound are its level variant's, the one the main paths
     launch, with the op's beside, and its launches include the search
     and serve_flow phases'; ``flash_attention``'s include the new
-    families' timed serving runs, the training run's and every mesh
+    families' timed serving runs, the training runs' and every mesh
     rank's, training and serving, with its training calls per step and
     times beside), the ``walls`` line (every phase line's ``wall_s``, the
     seconds since the line before, and the total), the card line, and as
@@ -893,6 +917,11 @@ FLASH_MAIN = [
      None),
     ("whisper-small decode", 8, 12, 12, 1, 136, 64, True, HUGE_WINDOW, None,
      "bfloat16", 136),
+    # gemma-2b: one kv head at D 256 (G 8), serve_gemma's prompt
+    ("gemma-2b prefill", 2, 8, 1, 4608, 4608, 256, True, HUGE_WINDOW, None,
+     "bfloat16", None),
+    ("gemma-2b decode", 2, 8, 1, 1, 4616, 256, True, HUGE_WINDOW, None,
+     "bfloat16", 4624),
     # gemma2-2b's local layers under chunked_local_attn: two blocks of the
     # window (serve_chunked)
     ("gemma2-2b chunked local prefill", 1, 8, 4, 8192, 8192, 256, True,
@@ -2833,6 +2862,13 @@ def phase_serve(name: str, cfg, device, gate: tuple, timed: tuple,
              "flash_launches_expected": n_layers * timed[2]}, params)
 
 
+#: the serving phases of the dense configs that run nowhere else on the
+#: card, sized as serve_gemma2: (phase, arch), the gate's and the timed
+#: run's (batch, prompt, new tokens)
+SERVE_MORE = (("serve_qwen", "qwen1.5-0.5b"), ("serve_gemma", "gemma-2b"))
+SERVE_MORE_GATE, SERVE_MORE_TIMED = (1, 4608, 4), (2, 4608, 16)
+
+
 #: the margin over the reference's own float32 disagreement that the SSM
 #: gates allow (see :func:`forward_gate`)
 NOISE_MARGIN = 4.0
@@ -3596,9 +3632,15 @@ TRAIN_ATTN = (4, 32, 4, 2048, 2048, 64)
 TRAIN_GATE = (4, 2, 512)
 TRAIN_TIMED = (12, 4, 2048)
 TRAIN_SAVE_AT = 6
+#: the depth of the copy the checkpoint check trains and resumes (at the
+#: timed run's width, batch and sequence): the full depth's 13.2 GB of
+#: AdamW state took most of the phase's time to write and read
+TRAIN_RESUME_LAYERS = 2
 TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 5}
 #: the float32 gate's floor, the North star's grads tolerance
 TRAIN_TOL = 1e-4
+#: :func:`time_ms`'s repetitions for a call of a second or more
+HEAVY_REPS = dict(reps=3, inner=2, warmup=1)
 
 
 def flash_grad_parity(device, cases=FLASH_GRAD_CASES,
@@ -3640,12 +3682,13 @@ def flash_grad_parity(device, cases=FLASH_GRAD_CASES,
     return {"max_abs_err": worst, "cases": len(cases) * len(dtypes)}
 
 
-def flash_backward_bound_ms(B, Hq, Hkv, S, T, D, elem_bytes) -> dict:
-    """Least time for a fused causal attention backward: 10 D FLOPs per
-    visible pair (the scores recomputed, dV, dP, dQ and dK: five products)
-    at the bf16 peak, against q, o, dO and the logsumexp read, k and v
-    read, and dq, dk, dv written once."""
-    pairs = visible_pairs(S, T, True, None)
+def flash_backward_bound_ms(B, Hq, Hkv, S, T, D, elem_bytes,
+                            causal: bool = True) -> dict:
+    """Least time for a fused attention backward: 10 D FLOPs per visible
+    pair (the scores recomputed, dV, dP, dQ and dK: five products) at the
+    bf16 peak, against q, o, dO and the logsumexp read, k and v read, and
+    dq, dk, dv written once."""
+    pairs = visible_pairs(S, T, causal, None)
     nbytes = elem_bytes * (3 * B * Hq * S * D + 2 * B * Hkv * T * D
                            + B * Hq * S * D + 2 * B * Hkv * T * D) \
         + 4 * B * Hq * S
@@ -3698,12 +3741,12 @@ def train_forward_parity(q, k, v) -> float:
 def phase_flash_backward(device, shape=TRAIN_ATTN) -> dict:
     """``flash_backward_parity``: :func:`flash_grad_parity`, then at the
     training run's attention shape (bf16) the forward held to the plain
-    version (:func:`train_forward_parity`), and timed: the kernel forward,
-    the plain forward, the recomputing backward (what
-    ``FlashAttentionFn.backward`` runs) and forward + backward through the
-    autograd route, beside SDPA's forward and forward + backward (with
-    ``enable_gqa``, and with K / V repeated to the query heads) and the
-    bounds.  The training shape's error joins the bf16 ``max_abs_err``."""
+    version by both routes (:func:`train_forward_parity`) and timed:
+    :func:`train_attention_timing` (the kernel forward, the recomputing
+    backward, SDPA with ``enable_gqa``, the bounds), and beside it the
+    plain forward, forward + backward through the autograd route, and
+    SDPA on K / V repeated to the query heads.  The training shape's
+    error joins the bf16 ``max_abs_err``."""
     import torch
     import torch.nn.functional as F
 
@@ -3713,74 +3756,44 @@ def phase_flash_backward(device, shape=TRAIN_ATTN) -> dict:
     parity = flash_grad_parity(device)
     parity_s = time.perf_counter() - t0
     B, Hq, Hkv, S, T, D = shape
+    rec = train_attention_timing(B, Hq, Hkv, S, D, True, device)
     q, k, v, g = train_shape_inputs(device, shape)
-    train_err = train_forward_parity(q, k, v)
+    train_err = max(rec["max_abs_err"], train_forward_parity(q, k, v))
     parity["max_abs_err"]["bfloat16"] = max(parity["max_abs_err"]["bfloat16"],
                                             train_err)
     qd, kd, vd = [t.detach().requires_grad_() for t in (q, k, v)]
     kw = dict(causal=True, window=HUGE_WINDOW, softcap=None)
-
-    def kernel_fwd():
-        with torch.no_grad():
-            return ops.flash_attention(q, k, v, **kw)
+    G = Hq // Hkv
+    kr, vr = (t.repeat_interleave(G, dim=1) for t in (kd, vd))
 
     def plain_fwd():
         with torch.no_grad():
             return ref.flash_attention_ref(q, k, v, **kw)
 
-    def recompute_bwd():
-        with torch.enable_grad():
-            out = ref.flash_attention_ref(qd, kd, vd, **kw)
-            return torch.autograd.grad(out, (qd, kd, vd), g)
-
     def route_fwd_bwd():
         return torch.autograd.grad(ops.flash_attention(qd, kd, vd, **kw),
                                    (qd, kd, vd), g)
 
-    heavy = dict(reps=3, inner=2, warmup=1)
-    rec = {"shape": {"q": [B, Hq, S, D], "kv": [B, Hkv, T, D]},
-           "dtype": "bfloat16", "variant": "mma", "max_abs_err": train_err,
-           "tol": FLASH_TOL["bfloat16"],
-           "ms": time_ms(kernel_fwd), "device_ms": device_ms(kernel_fwd)[0],
-           "plain_ms": time_ms(plain_fwd, **heavy),
-           "recompute_backward_ms": time_ms(recompute_bwd, **heavy),
-           "recompute_backward_device_ms": device_ms(recompute_bwd,
-                                                     calls=2)[0],
-           "route_forward_backward_ms": time_ms(route_fwd_bwd, **heavy),
-           **flash_bound_ms(B, Hq, Hkv, S, T, D, 2, True, None),
-           "backward_bound": flash_backward_bound_ms(B, Hq, Hkv, S, T, D,
-                                                     2)}
-    G = Hq // Hkv
-    library = {}
-    for how, kv in (("enable_gqa", (kd, vd)),
-                    ("repeat_kv", (kd.repeat_interleave(G, dim=1),
-                                   vd.repeat_interleave(G, dim=1)))):
-        extra = {"enable_gqa": True} if how == "enable_gqa" else {}
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
 
-        def sdpa_fwd():
-            with torch.no_grad():
-                return F.scaled_dot_product_attention(q, *kv, is_causal=True,
-                                                      **extra)
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qd, kr, vr, is_causal=True)
+        return torch.autograd.grad(out, (qd, kr, vr), g)
 
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qd, *kv, is_causal=True,
-                                                 **extra)
-            return torch.autograd.grad(out, (qd, *kv), g)
-
-        try:
-            sdpa_fwd()
-        except (TypeError, RuntimeError) as e:  # no enable_gqa here
-            library[how] = {"error": str(e)[:200]}
-            continue
-        library[how] = {"forward_ms": time_ms(sdpa_fwd),
-                        "forward_backward_ms": time_ms(sdpa_fwd_bwd,
-                                                       **heavy),
-                        "kernels": sorted(
-                            k["name"] for k in device_ms(sdpa_fwd_bwd,
-                                                         calls=1)[1])}
-    rec["library"] = library
-    times = [r["forward_ms"] for r in library.values() if "forward_ms" in r]
-    rec["library_ms"] = min(times) if times else None
+    rec.update(shape={"q": [B, Hq, S, D], "kv": [B, Hkv, T, D]},
+               variant="mma", max_abs_err=train_err,
+               tol=FLASH_TOL["bfloat16"])
+    if device.type == "cuda":
+        rec.update(plain_ms=time_ms(plain_fwd, **HEAVY_REPS),
+                   route_forward_backward_ms=time_ms(route_fwd_bwd,
+                                                     **HEAVY_REPS),
+                   repeat_kv={"library_forward_ms": time_ms(sdpa_fwd),
+                              "library_forward_backward_ms": time_ms(
+                                  sdpa_fwd_bwd, **HEAVY_REPS)})
+        rec["library_ms"] = min(rec["library_forward_ms"],
+                                rec["repeat_kv"]["library_forward_ms"])
     return {"phase": "flash_backward_parity", **parity,
             "parity_wall_s": parity_s, "train_shape": rec}
 
@@ -3799,83 +3812,258 @@ def train_model_flops(cfg, batch: int, seq: int) -> int:
 
 
 def _rel(a, b) -> float:
-    """``||a - b|| / ||b||`` (float64 norms)."""
-    a, b = a.double(), b.double()
+    """``||a - b|| / ||b||`` (float64 norms), ``a`` moved to ``b``'s
+    device."""
+    a, b = a.to(b.device).double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
-def train_gate(cfg, device, layers: int, batch: int, seq: int,
-               seed: int = 0) -> dict:
-    """The float32 gate of the training path: over the config's first
-    ``layers`` layers (seed-0 weights, one ``batch_for_step`` batch), the
-    kernel route's loss and every leaf's gradient (flash ``tf32x3`` under
-    autograd) against the plain path's, normwise, within ``max(TRAIN_TOL,
-    NOISE_MARGIN x d)``, d the plain path's own normwise disagreement
-    with the plain path in float64 on the same weights and batch; then
-    the parameters after one AdamW step of each, compared the same way.
-    Raises on a miss."""
-    import torch
+def _float64(cfg):
+    return dataclasses.replace(cfg, param_dtype="float64",
+                               compute_dtype="float64")
 
-    from repro_torch import tree
-    from repro_torch.data.pipeline import batch_for_step, to_device
+
+def _gate_setup(cfg, device, layers: int, batch: int, seq: int,
+                seed: int = 0, float32: bool = True):
+    """``(cut config, weights, host batch, TrainConfig)`` of a train-step
+    gate: the config cut to its first ``layers`` decoder layers
+    (:func:`cut_depth`: a MoE model keeps its dense layers, an encdec
+    model every encoder layer) in float32 (``float32``, else in its own
+    types), seed-0 weights drawn at that depth on ``device``, one
+    ``batch_for_step`` batch, AdamW at the train launcher's defaults."""
+    from repro_torch.data.pipeline import batch_for_step
     from repro_torch.launch import serve
     from repro_torch.train import optimizer
     from repro_torch.train import step as tstep
 
-    import dataclasses
-
-    cfg32 = as_float32(cfg)
-    cut_cfg, cut = first_layers(cfg32, serve.make_params(cfg32, device,
-                                                         seed=seed), layers)
-    params = tree.map(lambda t: t.clone(), cut)
-    del cut
-    cfg64 = dataclasses.replace(cut_cfg, param_dtype="float64",
-                                compute_dtype="float64")
-    params64 = cast_params(params, torch.float64)
-    data = to_device(batch_for_step(cut_cfg, seq, batch, 0, seed=seed),
-                     device)
+    cut = cut_depth(cfg, layers)
+    cut = as_float32(cut) if float32 else cut
+    params = serve.make_params(cut, device, seed=seed)
+    host = batch_for_step(cut, seq, batch, 0, seed=seed)
     tcfg = tstep.TrainConfig(opt=optimizer.OptConfig(
         decay_steps=TRAIN_TIMED[0], **TRAIN_OPT))
+    return cut, params, host, tcfg
 
-    def run(c, p, use_kernel):
-        (_, (loss, _)), grads = tstep.value_and_grad(
-            tstep.make_loss_fn(c, tcfg, use_kernel), p, data)
-        new, _, _ = optimizer.adamw_update(tcfg.opt, grads,
-                                           optimizer.adamw_init(p), p)
-        return loss, grads, new
 
-    (kern, counts) = _counted(lambda: run(cut_cfg, params, True))
-    variants = _variants()
-    plain = run(cut_cfg, params, False)
-    wide = run(cfg64, params64, False)
-    rows, worst = {}, 0.0
-    for (path, g_k), g_p, g_w in zip(tree.flatten_with_path(kern[1]),
-                                     tree.leaves(plain[1]),
-                                     tree.leaves(wide[1])):
-        d = _rel(g_p, g_w)
-        tol = max(TRAIN_TOL, NOISE_MARGIN * d)
-        e = _rel(g_k, g_p)
-        rows["/".join(path)] = {"kernel_vs_plain": e, "plain_vs_float64": d,
-                                "tol": tol}
-        worst = max(worst, e / tol)
-    d_loss = abs(float(plain[0]) - float(wide[0])) / abs(float(wide[0]))
-    e_loss = abs(float(kern[0]) - float(plain[0])) / abs(float(plain[0]))
+def _fresh_adamw(params) -> dict:
+    """A fresh AdamW state for ``params``: ``optimizer.adamw_init``'s
+    zeros; for plain tensors as zero scalars broadcast to each leaf's
+    shape (the same numbers, none of the memory: a full-width gate holds
+    several runs' results on the card at once)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.parallel.api import is_distributed
+    from repro_torch.train import optimizer
+
+    leaves = tree.leaves(params)
+    if any(is_distributed(p) for p in leaves):
+        return optimizer.adamw_init(params)
+
+    def zeros(p):
+        return torch.zeros((), dtype=torch.float32,
+                           device=p.device).expand(p.shape)
+
+    return {"mu": tree.map(zeros, params), "nu": tree.map(zeros, params),
+            "count": torch.zeros((), dtype=torch.int32,
+                                 device=leaves[0].device)}
+
+
+def gate_step(cfg, tcfg, params, data, use_kernel: bool):
+    """One train step of a gate at ``params``: ``(loss, gradients,
+    parameters after one AdamW update from a fresh state)``."""
+    from repro_torch.train import optimizer
+    from repro_torch.train import step as tstep
+
+    (_, (loss, _)), grads = tstep.value_and_grad(
+        tstep.make_loss_fn(cfg, tcfg, use_kernel), params, data)
+    new, _, _ = optimizer.adamw_update(tcfg.opt, grads,
+                                       _fresh_adamw(params), params)
+    return loss, grads, new
+
+
+def _sign_flips(a, b) -> float:
+    """The share of entries whose sign differs between ``a`` and ``b``."""
+    import torch
+
+    return float((torch.sign(a.to(b.device).float())
+                  != torch.sign(b.float())).float().mean())
+
+
+def _step_distances(a, b) -> dict:
+    """Two gate runs' results (loss, flattened gradients, stepped
+    parameter leaves) compared: the loss's relative distance, each
+    leaf's normwise one (:func:`_rel`, ``b`` the reference) and each
+    gradient leaf's share of entries of the other sign."""
+    (la, ga, pa), (lb, gb, pb) = a, b
+    return {"loss": abs(la - lb) / abs(lb),
+            "grads": {"/".join(path): _rel(x, y)
+                      for (path, x), (_, y) in zip(ga, gb)},
+            "post": {"/".join(path): _rel(x, y)
+                     for (path, _), x, y in zip(ga, pa, pb)},
+            "sign_flips": {"/".join(path): _sign_flips(x, y)
+                           for (path, x), (_, y) in zip(ga, gb)}}
+
+
+def step_gate(name: str, runs, subject: str, baseline: str,
+              noise: tuple, hold_post: bool = True) -> dict:
+    """The rule of every train-step gate.  ``runs``: ``(label, fn)``
+    pairs run in order, each ``fn()`` giving one step's ``(loss,
+    gradients, stepped parameters)`` (:func:`gate_step`); the
+    ``subject`` run's launches, kernel variants and flash heads are
+    counted.  The subject's loss, every gradient leaf and (with
+    ``hold_post``) every stepped parameter leaf must lie within
+    ``max(TRAIN_TOL, NOISE_MARGIN x d)`` of the ``baseline`` run's,
+    normwise, d the same quantity's distance between the two ``noise``
+    runs (a step and the same step in a wider type); without
+    ``hold_post`` the stepped parameters are reported only.  Beside each
+    stepped parameter, the share of its gradient's entries whose sign
+    the subject and the noise runs flip (AdamW's first step moves each
+    weight by about the learning rate times that sign).  A run's
+    results are reduced to these distances, and dropped, as soon as no
+    comparison still needs them.  Raises on a miss."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+
+    pairs = {"subject": (subject, baseline), "noise": tuple(noise)}
+    held, dist, losses, counted = {}, {}, {}, {}
+    for label, fn in runs:
+        if label == subject:
+            (loss, grads, new), launches = _counted(fn)
+            counted = {"launches": launches, "variants": _variants(),
+                       "flash_heads": ops.flash_head_counts()}
+        else:
+            loss, grads, new = fn()
+        losses[label] = float(loss)
+        held[label] = (losses[label], tree.flatten_with_path(grads),
+                       tree.leaves(new))
+        del grads, new
+        for key, (a, b) in pairs.items():
+            if key not in dist and a in held and b in held:
+                dist[key] = _step_distances(held[a], held[b])
+        needed = {x for k, p in pairs.items() if k not in dist for x in p}
+        for done in [k for k in held if k not in needed]:
+            del held[done]
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    s_key = f"{subject}_vs_{baseline}"
+    n_key = f"{noise[0]}_vs_{noise[1]}"
+
+    def rows(what: str) -> dict:
+        return {path: {s_key: e, n_key: dist["noise"][what][path],
+                       "tol": max(TRAIN_TOL,
+                                  NOISE_MARGIN * dist["noise"][what][path])}
+                for path, e in dist["subject"][what].items()}
+
+    grads, post = rows("grads"), rows("post")
+    for path, r in post.items():
+        r["grad_sign_flips"] = {key: dist[k]["sign_flips"][path]
+                                for k, key in (("subject", s_key),
+                                               ("noise", n_key))}
+    worst = max(r[s_key] / r["tol"] for r in grads.values())
+    worst_post = max(r[s_key] / r["tol"] for r in post.values())
+    d_loss, e_loss = dist["noise"]["loss"], dist["subject"]["loss"]
     tol_loss = max(TRAIN_TOL, NOISE_MARGIN * d_loss)
-    check(e_loss <= tol_loss and worst <= 1.0,
-          f"{cfg.name} train gate: loss {e_loss} (tol {tol_loss}), worst "
-          f"gradient at {worst} of its tolerance: {rows}")
-    post = {"/".join(path): {"kernel_vs_plain": _rel(a, b),
-                             "plain_vs_float64": _rel(b, c)}
-            for (path, a), b, c in zip(tree.flatten_with_path(kern[2]),
-                                       tree.leaves(plain[2]),
-                                       tree.leaves(wide[2]))}
+    over = {f"{what} {p}": r for what, t in (("grad", grads), ("post", post))
+            for p, r in t.items() if r[s_key] > r["tol"]}
+    check(e_loss <= tol_loss and worst <= 1.0
+          and (worst_post <= 1.0 or not hold_post),
+          f"{name}: loss {e_loss} (tol {tol_loss}), worst gradient at "
+          f"{worst} and worst stepped parameter at {worst_post} of its "
+          f"tolerance: {over}")
+    return {"loss": {**losses, s_key: e_loss, n_key: d_loss,
+                     "tol": tol_loss},
+            "grads": grads, "worst_grad_share_of_tol": worst,
+            "post_step_params": post,
+            "worst_post_step_share_of_tol": worst_post,
+            "post_step_held": hold_post, **counted}
+
+
+def train_gate(cfg, device, layers: int, batch: int, seq: int,
+               seed: int = 0) -> dict:
+    """The float32 gate of the training path over the config's first
+    ``layers`` layers (:func:`_gate_setup`): :func:`step_gate` with the
+    kernel route (flash ``tf32x3`` under autograd) as the subject, the
+    plain route as its baseline, and the plain route in float64 on the
+    same weights and batch for the noise: the loss, every gradient and
+    every parameter after one AdamW step.  Raises on a miss."""
+    import torch
+
+    from repro_torch.data.pipeline import to_device
+
+    cut, params, host, tcfg = _gate_setup(cfg, device, layers, batch, seq,
+                                          seed)
+    data = to_device(host, device)
+    rec = step_gate(f"{cfg.name} train gate", [
+        ("float64", lambda: gate_step(_float64(cut), tcfg, cast_params(
+            params, torch.float64), data, False)),
+        ("plain", lambda: gate_step(cut, tcfg, params, data, False)),
+        ("kernel", lambda: gate_step(cut, tcfg, params, data, True))],
+        "kernel", "plain", ("plain", "float64"))
+    return {"layers": layers, "batch": batch, "seq_len": seq, **rec}
+
+
+def train_gate_bf16(cfg, device, layers: int, batch: int, seq: int,
+                    seed: int = 0) -> dict:
+    """The bf16 gate of the training path over the config's first
+    ``layers`` layers, in its own types (:func:`_gate_setup`):
+    :func:`step_gate` with the kernel route (flash ``mma`` under
+    autograd) as the subject, the plain route as its baseline, and for
+    the noise the plain route against the same step in float32 on the
+    same bf16 weights (the rounding of activations and gradients alone):
+    the loss and every gradient.  The parameters after one AdamW step
+    are reported, not held: that step moves each weight by about the
+    learning rate times its gradient's sign, so where a gradient entry
+    is within the bf16 noise of 0 its sign is noise too, and in a
+    zero-initialised norm of 1,536 entries one such flip moves the leaf
+    by 2 / sqrt(1536), about 5 %.  Raises on a miss."""
+    import torch
+
+    from repro_torch.data.pipeline import to_device
+
+    cut, params, host, tcfg = _gate_setup(cfg, device, layers, batch, seq,
+                                          seed, float32=False)
+    data = to_device(host, device)
+    rec = step_gate(f"{cfg.name} bf16 train gate", [
+        ("float32", lambda: gate_step(as_float32(cut), tcfg, cast_params(
+            params, torch.float32), data, False)),
+        ("plain_bf16", lambda: gate_step(cut, tcfg, params, data, False)),
+        ("kernel_bf16", lambda: gate_step(cut, tcfg, params, data, True))],
+        "kernel_bf16", "plain_bf16", ("plain_bf16", "float32"),
+        hold_post=False)
     return {"layers": layers, "batch": batch, "seq_len": seq,
-            "loss": {"kernel": float(kern[0]), "plain": float(plain[0]),
-                     "float64": float(wide[0]), "kernel_vs_plain": e_loss,
-                     "plain_vs_float64": d_loss, "tol": tol_loss},
-            "grads": rows, "worst_grad_share_of_tol": worst,
-            "post_step_params": post, "launches": counts,
-            "variants": variants}
+            "dtype": cut.compute_dtype, **rec}
+
+
+def host_gate(cfg, device, layers: int, batch: int, seq: int,
+              seed: int = 0) -> dict:
+    """The float32 gate of a family that trains on the plain route alone
+    (ssm, hybrid: the SSD kernel has no backward, so the kernel and plain
+    routes are one): :func:`step_gate` with the card's float32 plain step
+    as the subject and the same step in float64 on the host CPU (the same
+    weights and batch) as its baseline, the noise the host's own float32
+    step against its float64 one.  Raises on a miss."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import to_device
+
+    cut, params, host, tcfg = _gate_setup(cfg, device, layers, batch, seq,
+                                          seed)
+    cpu = torch.device("cpu")
+    on_host = tree.map(lambda t: t.to(cpu), params)
+    rec = step_gate(f"{cfg.name} host gate", [
+        ("host_float64", lambda: gate_step(
+            _float64(cut), tcfg, cast_params(on_host, torch.float64),
+            to_device(host, cpu), False)),
+        ("host_float32", lambda: gate_step(cut, tcfg, on_host,
+                                           to_device(host, cpu), False)),
+        ("card", lambda: gate_step(cut, tcfg, params,
+                                   to_device(host, device), False))],
+        "card", "host_float64", ("host_float32", "host_float64"))
+    return {"layers": layers, "batch": batch, "seq_len": seq, **rec}
 
 
 def _state_leaves(res: dict) -> list:
@@ -3885,17 +4073,18 @@ def _state_leaves(res: dict) -> list:
 
 
 def _train_setup(cfg, device, steps: int, batch: int, seq: int,
-                 seed: int = 0):
+                 seed: int = 0, **train_kw):
     """``(tcfg, fresh params, FitConfig maker)`` of the training phase:
-    AdamW at the train launcher's defaults, seed-0 weights in the
-    config's own types, the synthetic stream."""
+    AdamW at the train launcher's defaults (``train_kw``: more
+    ``TrainConfig`` fields), seed-0 weights in the config's own types,
+    the synthetic stream."""
     from repro_torch.launch import serve
     from repro_torch.train import optimizer
     from repro_torch.train import step as tstep
     from repro_torch.train.loop import FitConfig
 
     tcfg = tstep.TrainConfig(opt=optimizer.OptConfig(
-        decay_steps=max(steps, 10), **TRAIN_OPT))
+        decay_steps=max(steps, 10), **TRAIN_OPT), **train_kw)
 
     def fresh():
         return serve.make_params(cfg, device, seed=seed)
@@ -4023,13 +4212,31 @@ def train_resume(cfg, device, steps: int, batch: int, seq: int, workdir,
                 resumed["losses"] == uninterrupted[save_at:]}
 
 
+def resume_check(cfg, device, steps: int, batch: int, seq: int, workdir,
+                 save_at: int, layers: int = None) -> dict:
+    """:func:`train_resume` on a copy of the config cut to its first
+    ``layers`` layers (``TRAIN_RESUME_LAYERS``): a ``fit`` of its own
+    from seed-0 weights, ``steps`` steps at the timed run's batch and
+    sequence, saving every ``save_at`` steps; then the bitwise restore
+    and the resumed ``fit``."""
+    from repro_torch.train.loop import fit
+
+    cut = cut_depth(cfg, layers or TRAIN_RESUME_LAYERS)
+    tcfg, fresh, fitc = _train_setup(cut, device, steps, batch, seq)
+    whole = fit(cut, fresh(), fitc(steps, workdir, save_at), tcfg)
+    return {"layers": cut.n_layers,
+            **train_resume(cut, device, steps, batch, seq, workdir,
+                           save_at, whole)}
+
+
 def phase_train(name: str, cfg, device, workdir, gate=TRAIN_GATE,
                 timed=TRAIN_TIMED, save_at: int = TRAIN_SAVE_AT
                 ) -> tuple[dict, dict]:
     """The training path at full width: :func:`train_gate`, the timed run
-    (:func:`train_timed`) at full depth, its last state's step under the
-    profiler (:func:`phase_profile_train`), then :func:`train_resume` on
-    the timed run's checkpoints and final state.  On
+    (:func:`train_timed`, its one checkpoint at the end) at full depth,
+    its last state's step under the profiler
+    (:func:`phase_profile_train`), then the checkpoint check on a copy
+    cut in depth (:func:`resume_check`).  On
     the card every flash call of a step is the kernel's: L forwards and L
     remat recomputes (the config's ``remat``), ``mma`` in bf16, ``tf32x3``
     in the float32 gate.  Returns the phase record and the profile's."""
@@ -4046,18 +4253,18 @@ def phase_train(name: str, cfg, device, workdir, gate=TRAIN_GATE,
     workdir = _Path(workdir)
     t0 = time.perf_counter()
     timed_rec, whole = train_timed(cfg, device, *timed,
-                                   workdir=workdir / "run", save_at=save_at)
+                                   workdir=workdir / "run", save_at=timed[0])
     walls["timed_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     prof = phase_profile_train(cfg, whole, timed[1], timed[2], device)
+    del whole
+    shutil.rmtree(workdir / "run", ignore_errors=True)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     walls["profile_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    timed_rec["checkpoint"] = train_resume(
-        cfg, device, *timed, workdir=workdir / "run", save_at=save_at,
-        whole=whole)
-    del whole
+    timed_rec["checkpoint"] = resume_check(
+        cfg, device, *timed, workdir=workdir / "resume", save_at=save_at)
     walls["resume_s"] = time.perf_counter() - t0
     L, per = cfg.n_layers, (2 if cfg.remat else 1)
     expected = {"gate": per * gate[0], "per_step": per * L,
@@ -4158,6 +4365,334 @@ def phase_profile_train(cfg, state: dict, batch: int, seq: int, device,
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# training of the MoE, vlm, encdec, ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+#: each family's training phase: (phase, the gates' (layers, batch,
+#: seq), the bf16 run's (layers, steps, batch, seq)); a vlm sequence is
+#: the config's 576 patches and then these tokens, an encdec one these
+#: tokens over its 1,500 frames.  deepseek-moe-16b's run keeps its dense
+#: layer and 2 MoE layers: with 3 MoE layers its float32 run's AdamW
+#: update (old and new state side by side) did not fit on the card
+FAMILY_TRAIN = {
+    "deepseek-moe-16b": ("train_deepseek", (2, 2, 256), (3, 3, 2, 1024)),
+    "llava-next-34b": ("train_llava", (1, 1, 512), (2, 3, 2, 1024)),
+    "whisper-small": ("train_whisper", (2, 2, 128), (12, 3, 8, 128)),
+    "mamba2-2.7b": ("train_mamba2", (2, 1, 128), (2, 3, 2, 256)),
+    "hymba-1.5b": ("train_hymba", (2, 1, 128), (2, 3, 2, 256)),
+}
+#: a plain-route family's bf16 losses against its float32 ones, relative:
+#: the bf16 tolerance of the reference's own kernel tests
+PLAIN_BF16_TOL = 2e-2
+
+
+def _median_ms(walls) -> float:
+    return float(np.median(walls[1:] or walls)) * 1e3
+
+
+def family_timed(cfg, device, steps: int, batch: int, seq: int, workdir,
+                 arch: str | None = None, smoke: bool = False,
+                 **train_kw) -> dict:
+    """``steps`` bf16 train steps at the config's own types from seed-0
+    weights, on the route the train launcher picks (``launch.train``'s
+    ``PLAIN_PATH_FAMILIES`` on the plain route, the rest on the kernel
+    route): through the launcher itself when ``arch`` is given (its group
+    of one and ``(1, 1)`` mesh, ``fit`` and its checkpoint under
+    ``workdir``), through ``fit`` on the plain route, else step by step
+    through ``train.step`` (what ``fit`` runs, without the checkpoint it
+    writes at the end: 20-odd GB of AdamW state at these MoE and vlm
+    depths).  ``train_kw``: more ``TrainConfig`` fields.  Then the same
+    steps on the plain route in bf16 (for a kernel-route run) and in
+    float32, on the same weights.
+
+    Every loss must be finite and within ``PLAIN_BF16_TOL`` of the
+    float32 run's, relative.  A kernel-route family is also held at every
+    step of the plain bf16 run, at the weights and batch that step's loss
+    was taken at: the kernel route's loss there (``at_plain_weights``)
+    within ``max(TRAIN_TOL, NOISE_MARGIN x d'_s)`` of the plain route's,
+    d'_s the plain route's distance there from the same loss in float32.
+    The two runs' losses step by step are reported against that rule
+    (``share_of_noise_bound``), not held to it: after the first AdamW
+    step, which moves each weight by about the learning rate times its
+    gradient's sign, the two bf16 runs stand at different weights.  Peak
+    memory and the median step wall after the first of each run; the
+    first run's launches, variants and flash calls per step."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import fit
+
+    kernel = cfg.family not in train_launch.PLAIN_PATH_FAMILIES
+    tcfg, fresh, fitc = _train_setup(cfg, device, steps, batch, seq,
+                                     **train_kw)
+    cumulative, per_step = [], []
+    _reset_peak(device)
+    ops.reset_launch_counts()
+    if arch is not None:
+        via = "launch.train"
+        res = train_launch.main(
+            ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+             "--seq-len", str(seq), "--ckpt-dir", str(workdir),
+             "--device", str(device)] + (["--smoke"] if smoke else []))
+        losses, walls = res["losses"], res["step_s"]
+        del res
+    elif not kernel:
+        via = "fit"
+        res = fit(cfg, fresh(), fitc(steps, workdir, steps), tcfg,
+                  hooks=[lambda s, m: cumulative.append(
+                      ops.launch_counts()["flash_attention"])],
+                  use_kernel=False)
+        losses, walls = res["losses"], res["step_s"]
+        del res
+        per_step = [b - a for a, b in zip([0] + cumulative, cumulative)]
+    else:
+        via = "train.step"
+        losses, walls = _unsharded_steps(cfg, tcfg, fresh(), device, steps,
+                                         batch, seq, flash_calls=per_step)
+    shutil.rmtree(workdir, ignore_errors=True)
+    counts, variants = ops.launch_counts(), _variants()
+    heads, peak = ops.flash_head_counts(), _peak(device)
+    _reset_peak(device)
+    plain = plain_walls = plain_peak = None
+    same = {"kernel_bf16": [], "float32": []}
+    if kernel:
+        kernel_loss = tstep.make_loss_fn(cfg, tcfg, True)
+        loss32 = tstep.make_loss_fn(as_float32(cfg), tcfg, False)
+
+        def at_plain_weights(params, data):
+            with torch.no_grad():
+                same["kernel_bf16"].append(
+                    float(kernel_loss(params, data)[1][0]))
+                same["float32"].append(float(loss32(
+                    cast_params(params, torch.float32), data)[1][0]))
+
+        plain, plain_walls = _unsharded_steps(cfg, tcfg, fresh(), device,
+                                              steps, batch, seq, False,
+                                              probe=at_plain_weights)
+        plain_peak = _peak(device)
+        _reset_peak(device)
+    losses32, walls32 = _unsharded_steps(
+        as_float32(cfg), tcfg, cast_params(fresh(), torch.float32), device,
+        steps, batch, seq, False)
+    peak32 = _peak(device)
+    _reset_peak(device)
+    rec = {"steps": steps, "batch": batch, "seq_len": seq,
+           "layers": cfg.n_layers, "dtype": cfg.compute_dtype,
+           "remat": cfg.remat, "route": "kernel" if kernel else "plain",
+           "via": via, **train_kw, "losses": losses,
+           "float32_losses": losses32}
+    rel32 = [abs(a - b) / abs(b) for a, b in zip(losses, losses32)]
+    ok = len(losses) == steps and all(math.isfinite(x) for x in losses) \
+        and all(r <= PLAIN_BF16_TOL for r in rel32)
+    rec.update(rel_vs_float32=rel32, tol=PLAIN_BF16_TOL)
+    if kernel:
+        noise = [abs(a - b) / abs(b) for a, b in zip(plain, losses32)]
+        bound = [max(TRAIN_TOL, NOISE_MARGIN * d) for d in noise]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+        d_same = [abs(a - b) / abs(b) for a, b in zip(plain,
+                                                       same["float32"])]
+        at = {**same, "rel_kernel_vs_plain_bf16": [
+                  abs(a - b) / abs(b)
+                  for a, b in zip(same["kernel_bf16"], plain)],
+              "plain_bf16_vs_float32": d_same,
+              "tol": [max(TRAIN_TOL, NOISE_MARGIN * d) for d in d_same]}
+        at["over"] = [s_ for s_, (e, t) in enumerate(zip(
+            at["rel_kernel_vs_plain_bf16"], at["tol"])) if e > t]
+        ok = ok and len(at["tol"]) == steps and not at["over"]
+        rec.update(plain_bf16_losses=plain, plain_bf16_vs_float32=noise,
+                   rel_vs_plain_bf16=rel, at_plain_weights=at,
+                   share_of_noise_bound=[r / b for r, b in zip(rel, bound)])
+    at = rec.get("at_plain_weights", {})
+    check(ok, f"{cfg.name} bf16 training ({rec['route']} route): losses "
+              f"{losses}, float32 {losses32}, relative {rel32} (tol "
+              f"{PLAIN_BF16_TOL}); the kernel route at the plain run's "
+              f"weights {at.get('rel_kernel_vs_plain_bf16')} of the plain "
+              f"route's loss (tol {at.get('tol')}, over at steps "
+              f"{at.get('over')})")
+    rec.update(
+        step_ms=[w * 1e3 for w in walls],
+        median_step_ms_after_first=_median_ms(walls),
+        plain_bf16_median_step_ms_after_first=(
+            _median_ms(plain_walls) if kernel else None),
+        float32_median_step_ms_after_first=_median_ms(walls32),
+        peak_bytes=peak, plain_bf16_peak_bytes=plain_peak,
+        float32_peak_bytes=peak32, launches=counts, variants=variants,
+        flash_heads=heads, flash_launches_per_step=per_step or None)
+    return rec
+
+
+def train_attention_timing(B: int, Hq: int, Hkv: int, S: int, D: int,
+                           causal: bool, device, seed: int = 2) -> dict:
+    """One flash call of a bf16 training step, the queries over keys of
+    their own length (``[B, Hq, S, D]`` over ``Hkv`` kv heads): the
+    kernel forward, held within ``FLASH_TOL`` of the plain version, and
+    the recomputing backward that ``FlashAttentionFn.backward`` runs, in
+    ms (CUDA events) and device ms (the profiler; None where its
+    sessions record no device work), beside their bounds and SDPA's
+    forward and forward + backward on the same inputs (``enable_gqa`` for
+    grouped heads).  Off the card only the parity."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    q, k, v, g = train_shape_inputs(device, (B, Hq, Hkv, S, S, D), seed)
+    kw = dict(causal=causal, window=HUGE_WINDOW if causal else None,
+              softcap=None)
+    with torch.no_grad():
+        ok, err = _within(ops.flash_attention(q, k, v, **kw),
+                          ref.flash_attention_ref(q, k, v, **kw),
+                          FLASH_TOL["bfloat16"], FLASH_TOL["bfloat16"])
+    check(ok, f"flash at the training shape {[B, Hq, S, D]} over {Hkv} kv "
+              f"heads (causal {causal}) differs from the plain version "
+              f"({err})")
+    rec = {"q": [B, Hq, S, D], "kv": [B, Hkv, S, D], "causal": causal,
+           "dtype": "bfloat16", "max_abs_err": err,
+           **flash_bound_ms(B, Hq, Hkv, S, S, D, 2, causal, kw["window"]),
+           "backward_bound": flash_backward_bound_ms(B, Hq, Hkv, S, S, D, 2,
+                                                     causal)}
+    if device.type != "cuda":
+        return rec
+    qd, kd, vd = [t.detach().requires_grad_() for t in (q, k, v)]
+    gqa = {"enable_gqa": True} if Hq != Hkv else {}
+
+    def kernel_fwd():
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, **kw)
+
+    def recompute_bwd():
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(qd, kd, vd, **kw)
+            return torch.autograd.grad(out, (qd, kd, vd), g)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  **gqa)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal,
+                                             **gqa)
+        return torch.autograd.grad(out, (qd, kd, vd), g)
+
+    for key, fn, kw_ in (("forward", kernel_fwd, {}),
+                         ("recompute_backward", recompute_bwd, HEAVY_REPS),
+                         ("library_forward", sdpa_fwd, {}),
+                         ("library_forward_backward", sdpa_fwd_bwd,
+                          HEAVY_REPS)):
+        rec[f"{key}_ms"] = time_ms(fn, **kw_)
+        rec[f"{key}_device_ms"], kernels = device_ms(
+            fn, calls=2 if kw_ else 5)
+    rec["library_kernels"] = sorted(k_["name"] for k_ in kernels)
+    return rec
+
+
+def phase_train_family(arch: str, device, gate: tuple, run: tuple,
+                       workdir, smoke: bool = False) -> dict:
+    """A family's training path at full width (``smoke``: the config's
+    smoke width): its gates over the first ``gate[0]`` layers
+    (:func:`train_gate` and :func:`train_gate_bf16` on a kernel-route
+    family, :func:`host_gate` on ssm and hybrid), the bf16 run over the
+    first ``run[0]`` layers
+    (:func:`family_timed`; an encdec model's through the train launcher
+    at full depth; a MoE model's also one step with
+    ``fp8_expert_gather``), and the flash call at the run's attention
+    shapes timed (:func:`train_attention_timing`).  On the card every
+    flash call of a kernel-route step is the kernel's, ``mma`` in bf16
+    and ``tf32x3`` in float32: two a layer with remat (the forward and
+    the recompute), an encdec model's encoder layers included; a
+    plain-route family launches no kernel."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import PLAIN_PATH_FAMILIES
+
+    cfg = get_config(arch)
+    cfg = cfg.smoke() if smoke else cfg
+    kernel = cfg.family not in PLAIN_PATH_FAMILIES
+    workdir = Path(workdir)
+    walls = {}
+    t0 = time.perf_counter()
+    gate_rec = (train_gate if kernel else host_gate)(cfg, device, *gate)
+    gate_bf16 = train_gate_bf16(cfg, device, *gate) if kernel else None
+    walls["gate_s"] = time.perf_counter() - t0
+    layers, steps, batch, seq = run
+    rcfg = cut_depth(cfg, layers)
+    launcher = cfg.family == "encdec"
+    check(not launcher or rcfg.n_layers == cfg.n_layers,
+          f"{cfg.name}: the launcher trains at full depth")
+    t0 = time.perf_counter()
+    timed = family_timed(rcfg, device, steps, batch, seq, workdir / "run",
+                         arch=arch if launcher else None, smoke=smoke)
+    walls["timed_s"] = time.perf_counter() - t0
+    fp8 = None
+    if cfg.is_moe:
+        t0 = time.perf_counter()
+        fp8 = family_timed(rcfg, device, 1, batch, seq, workdir / "fp8",
+                           fp8_expert_gather=True)
+        walls["fp8_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    attention = []
+    if kernel:
+        P = cfg.n_patches if cfg.family == "vlm" else 0
+        shapes = [("decoder", cfg.n_heads, P + seq, True)]
+        if launcher:
+            shapes.append(("encoder", cfg.n_heads, cfg.encoder_seq, False))
+        for where, H, S, causal in shapes:
+            attention.append({"where": where, **train_attention_timing(
+                batch, H, cfg.n_kv_heads, S, cfg.hd, causal, device)})
+    walls["attention_s"] = time.perf_counter() - t0
+    per = 2 if cfg.remat else 1
+
+    def attn_layers(c) -> int:
+        return c.n_layers + (c.n_encoder_layers if launcher else 0)
+
+    expected = {"gate": per * attn_layers(cut_depth(cfg, gate[0])),
+                "per_step": per * attn_layers(rcfg)} if kernel else {
+        "gate": 0, "per_step": 0}
+    if device.type == "cuda":
+        none = {"mma": 0, "split": 0, "tf32x3": 0}
+        check(gate_rec["variants"]["flash_attention"]
+              == {**none, "tf32x3": expected["gate"]}
+              and gate_rec["launches"]["ssd_scan"] == 0,
+              f"{cfg.name} gate: flash variants "
+              f"{gate_rec['variants']['flash_attention']}, "
+              f"{gate_rec['launches']['ssd_scan']} ssd_scan launches; "
+              f"expected {expected['gate']} tf32x3 and none")
+        if gate_bf16 is not None:
+            check(gate_bf16["variants"]["flash_attention"]
+                  == {**none, "mma": expected["gate"]},
+                  f"{cfg.name} bf16 gate: flash variants "
+                  f"{gate_bf16['variants']['flash_attention']}, expected "
+                  f"{expected['gate']} mma")
+        for what, r in (("bf16 run", timed), ("fp8 step", fp8)):
+            if r is None:
+                continue
+            n = r["steps"] * expected["per_step"]
+            bad = [c for c in r["flash_launches_per_step"] or []
+                   if c != expected["per_step"]]
+            check(not bad and r["variants"]["flash_attention"]
+                  == {**none, "mma": n} and r["launches"]["ssd_scan"] == 0,
+                  f"{cfg.name} {what}: flash variants "
+                  f"{r['variants']['flash_attention']} (per step "
+                  f"{r['flash_launches_per_step']}), "
+                  f"{r['launches']['ssd_scan']} ssd_scan launches; "
+                  f"expected {expected['per_step']} mma a step and no "
+                  f"ssd_scan")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"phase": FAMILY_TRAIN[arch][0], "arch": cfg.name,
+            "family": cfg.family, "route": "kernel" if kernel else "plain",
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+            "vocab": cfg.vocab, "gate": gate_rec, "gate_bf16": gate_bf16,
+            "timed": timed, "fp8_step": fp8, "attention": attention,
+            "flash_launches_expected": expected, "walls": walls}
 
 
 # ---------------------------------------------------------------------------
@@ -4517,92 +5052,39 @@ def _gathered(tree_):
 
 def mesh_gate(cfg, mesh, device, layers: int, batch: int, seq: int,
               seed: int = 0) -> dict:
-    """The float32 gate of the mesh step: over the config's first
-    ``layers`` layers (seed-0 weights, one ``batch_for_step`` batch), the
-    mesh step's loss and every leaf's gradient (kernel route, parameters
-    placed by ``param_specs``, the batch by ``batch_specs``, under the
-    activation rules; gathered whole) against the unsharded step's,
-    normwise within ``max(TRAIN_TOL, NOISE_MARGIN x d)``, d the plain
-    path's distance from float64 (:func:`train_gate`'s rule); then the
-    parameters after one AdamW step of each.  Raises on a miss."""
+    """The float32 gate of the mesh step over the config's first
+    ``layers`` layers (:func:`_gate_setup`): :func:`step_gate` with the
+    mesh step (kernel route, parameters placed by ``param_specs``, the
+    batch by ``batch_specs``, under the activation rules; gathered whole)
+    as the subject, the unsharded kernel-route step as its baseline, and
+    the plain path against float64 for the noise (:func:`train_gate`'s
+    rule): the loss, every gradient and every parameter after one AdamW
+    step.  Raises on a miss."""
     import torch
 
-    from repro_torch import tree
-    from repro_torch.data.pipeline import batch_for_step, to_device
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
+    from repro_torch.data.pipeline import to_device
     from repro_torch.parallel import sharding
     from repro_torch.parallel.api import sharding_rules
-    from repro_torch.train import optimizer
-    from repro_torch.train import step as tstep
 
-    cfg32 = as_float32(cfg)
-    cut_cfg, cut = first_layers(cfg32, serve.make_params(cfg32, device,
-                                                         seed=seed), layers)
-    params = tree.map(lambda t: t.clone(), cut)
-    del cut
-    cfg64 = dataclasses.replace(cut_cfg, param_dtype="float64",
-                                compute_dtype="float64")
-    host = batch_for_step(cut_cfg, seq, batch, 0, seed=seed)
+    cut, params, host, tcfg = _gate_setup(cfg, device, layers, batch, seq,
+                                          seed)
     data = to_device(host, device)
-    tcfg = tstep.TrainConfig(opt=optimizer.OptConfig(
-        decay_steps=TRAIN_TIMED[0], **TRAIN_OPT))
 
-    def run(c, p, d, use_kernel):
-        (_, (loss, _)), grads = tstep.value_and_grad(
-            tstep.make_loss_fn(c, tcfg, use_kernel), p, d)
-        new, _, _ = optimizer.adamw_update(tcfg.opt, grads,
-                                           optimizer.adamw_init(p), p)
-        return loss, grads, new
+    def on_mesh():
+        dparams = sharding.distribute(
+            params, sharding.param_specs(cut, mesh, params), mesh)
+        with sharding_rules(sharding.activation_rules(cut, mesh)):
+            return _gathered(gate_step(cut, tcfg, dparams,
+                                       to_device(host, device, mesh), True))
 
-    dparams = sharding.distribute(
-        params, sharding.param_specs(cut_cfg, mesh, params), mesh)
-    ddata = to_device(host, device, mesh)
-    with sharding_rules(sharding.activation_rules(cut_cfg, mesh)):
-        (on_mesh, counts) = _counted(
-            lambda: _gathered(run(cut_cfg, dparams, ddata, True)))
-    variants, heads = _variants(), ops.flash_head_counts()
-    del dparams, ddata
-    unsharded = run(cut_cfg, params, data, True)
-    plain = run(cut_cfg, params, data, False)
-    wide = run(cfg64, cast_params(params, torch.float64), data, False)
-    rows, worst = {}, 0.0
-    for (path, g_m), g_u, g_p, g_w in zip(
-            tree.flatten_with_path(on_mesh[1]), tree.leaves(unsharded[1]),
-            tree.leaves(plain[1]), tree.leaves(wide[1])):
-        d = _rel(g_p, g_w)
-        tol = max(TRAIN_TOL, NOISE_MARGIN * d)
-        e = _rel(g_m, g_u)
-        rows["/".join(path)] = {"mesh_vs_unsharded": e,
-                                "plain_vs_float64": d, "tol": tol}
-        worst = max(worst, e / tol)
-    d_loss = abs(float(plain[0]) - float(wide[0])) / abs(float(wide[0]))
-    e_loss = (abs(float(on_mesh[0]) - float(unsharded[0]))
-              / abs(float(unsharded[0])))
-    tol_loss = max(TRAIN_TOL, NOISE_MARGIN * d_loss)
-    post = {}
-    for (path, a), b, c, w in zip(tree.flatten_with_path(on_mesh[2]),
-                                  tree.leaves(unsharded[2]),
-                                  tree.leaves(plain[2]),
-                                  tree.leaves(wide[2])):
-        tol = max(TRAIN_TOL, NOISE_MARGIN * _rel(c, w))
-        post["/".join(path)] = {"mesh_vs_unsharded": _rel(a, b), "tol": tol}
-    worst_post = max(r["mesh_vs_unsharded"] / r["tol"] for r in post.values())
-    check(e_loss <= tol_loss and worst <= 1.0 and worst_post <= 1.0,
-          f"{cfg.name} mesh gate: loss {e_loss} (tol {tol_loss}), worst "
-          f"gradient at {worst} and worst stepped parameter at "
-          f"{worst_post} of its tolerance: {rows}")
-    return {"layers": layers, "batch": batch, "seq_len": seq,
-            "loss": {"mesh": float(on_mesh[0]),
-                     "unsharded": float(unsharded[0]),
-                     "plain": float(plain[0]), "float64": float(wide[0]),
-                     "mesh_vs_unsharded": e_loss,
-                     "plain_vs_float64": d_loss, "tol": tol_loss},
-            "grads": rows, "worst_grad_share_of_tol": worst,
-            "post_step_params": post,
-            "worst_post_step_share_of_tol": worst_post,
-            "launches": counts, "variants": variants,
-            "flash_heads": heads}
+    rec = step_gate(f"{cfg.name} mesh gate", [
+        ("float64", lambda: gate_step(_float64(cut), tcfg, cast_params(
+            params, torch.float64), data, False)),
+        ("plain", lambda: gate_step(cut, tcfg, params, data, False)),
+        ("unsharded", lambda: gate_step(cut, tcfg, params, data, True)),
+        ("mesh", on_mesh)],
+        "mesh", "unsharded", ("plain", "float64"))
+    return {"layers": layers, "batch": batch, "seq_len": seq, **rec}
 
 
 def _peak(device):
@@ -4630,22 +5112,36 @@ def _reset_peak(device) -> None:
 
 
 def _unsharded_steps(cfg, tcfg, params, device, steps: int, batch: int,
-                     seq: int) -> tuple[list, list]:
-    """``steps`` train steps of ``train.step`` on plain tensors from
-    ``params``, each timed as ``fit`` times a step (the batch's upload to
-    the loss on the host), no checkpoint: ``(losses, walls in s)``."""
+                     seq: int, use_kernel: bool = True,
+                     flash_calls: list | None = None,
+                     probe=None) -> tuple[list, list]:
+    """``steps`` train steps of ``train.step`` (what ``fit`` runs a step)
+    on plain tensors from ``params`` on the route ``use_kernel`` picks,
+    each timed as ``fit`` times a step (the batch's upload to the loss on
+    the host), no checkpoint: ``(losses, walls in s)``.  ``flash_calls``
+    gets each step's flash launches; ``probe(params, batch)`` is called
+    after each step (outside its wall) with the weights and batch the
+    step's loss was taken at."""
     from repro_torch.data.pipeline import batch_for_step, to_device
+    from repro_torch.kernels import ops
     from repro_torch.train import step as tstep
 
-    step_fn, opt_init = tstep.make_train_step(cfg, tcfg)
+    step_fn, opt_init = tstep.make_train_step(cfg, tcfg, use_kernel)
     opt = opt_init(params)
     losses, walls = [], []
     for s in range(steps):
+        before = ops.launch_counts()["flash_attention"]
         t1 = time.perf_counter()
         data = to_device(batch_for_step(cfg, seq, batch, s), device)
-        params, opt, m = step_fn(params, opt, data)
+        new, opt, m = step_fn(params, opt, data)
         losses.append(float(m["loss"]))
         walls.append(time.perf_counter() - t1)
+        if flash_calls is not None:
+            flash_calls.append(ops.launch_counts()["flash_attention"]
+                               - before)
+        if probe is not None:
+            probe(params, data)
+        params = new
     return losses, walls
 
 
@@ -5607,6 +6103,24 @@ def main() -> int:
     chrec = phase_serve_chunked(get_config("gemma2-2b"), device)
     walls.emit(chrec)
     torch.cuda.empty_cache()
+    new_serve = []
+    for phase, arch in SERVE_MORE:
+        rec_, params_ = phase_serve(phase, get_config(arch), device,
+                                    gate=SERVE_MORE_GATE,
+                                    timed=SERVE_MORE_TIMED)
+        del params_
+        torch.cuda.empty_cache()
+        check(rec_["timed"]["launches"]["flash_attention"]
+              == rec_["flash_launches_expected"],
+              f"{arch} serving did not launch flash_attention once per "
+              f"layer and step")
+        check_flash_variants(rec_)
+        timed_calls = [r for r in lmrec["flash_attention"]["main"]
+                       if r["label"].startswith(arch + " ")]
+        if timed_calls:   # gemma-2b's G 8, D 256 prefill and decode
+            rec_["flash_main"] = timed_calls
+        walls.emit(rec_)
+        new_serve.append(rec_)
 
     qrec = phase_quantized(as_float32(get_config("kratos-dd")), device)
     walls.emit(qrec)
@@ -5667,6 +6181,16 @@ def main() -> int:
 
     fbrec = phase_flash_backward(device)
     walls.emit(fbrec)
+    families = []
+    for arch, (_, gate, run) in FAMILY_TRAIN.items():
+        workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_family_"))
+        try:
+            families.append(phase_train_family(arch, device, gate, run,
+                                               workdir))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        walls.emit(families[-1])
+        torch.cuda.empty_cache()
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
         trec, prec = phase_train("train_tinyllama",
@@ -5709,7 +6233,14 @@ def main() -> int:
                     for r in (moerec, i8rec, vlmrec, encrec, trec, chrec))
                 + plrec["bf16"]["launches"]["flash_attention"]
                 + sum(mtrec["per_rank_launches"])
-                + sum(msrec["per_rank_launches"]),
+                + sum(msrec["per_rank_launches"])
+                # qwen1.5-0.5b and gemma-2b serving, the other families'
+                # bf16 training runs and deepseek's fp8 step
+                + sum(r["timed"]["launches"]["flash_attention"]
+                      for r in new_serve)
+                + sum(r[k]["launches"]["flash_attention"]
+                      for r in families for k in ("timed", "fp8_step")
+                      if r[k] is not None),
                 "bitplane_matmul": bit_launches,
                 # the two models' timed forwards (64 + 32 SSD layers)
                 "ssd_scan": sum(r["forward"]["launches"]["ssd_scan"]
@@ -5732,9 +6263,10 @@ def main() -> int:
                 "train": {
                     "launches_per_step":
                         trec["flash_launches_expected"]["per_step"],
+                    "ms": fbrec["train_shape"]["forward_ms"],
+                    "device_ms": fbrec["train_shape"]["forward_device_ms"],
                     **{k: fbrec["train_shape"][k] for k in (
-                        "shape", "ms", "device_ms", "plain_ms",
-                        "recompute_backward_ms",
+                        "shape", "plain_ms", "recompute_backward_ms",
                         "recompute_backward_device_ms",
                         "route_forward_backward_ms", "bound_ms",
                         "bound_by", "library_ms")}},
@@ -5775,6 +6307,15 @@ def main() -> int:
             "train bf16": trec["timed"]["variants"]["flash_attention"],
             "train gate float32":
                 trec["gate"]["variants"]["flash_attention"],
+            **{f"serve bf16 {r['arch']}":
+               r["timed"]["variants"]["flash_attention"] for r in new_serve},
+            **{f"{what} {r['arch']}": r[k]["variants"]["flash_attention"]
+               for r in families if r["route"] == "kernel"
+               for what, k in (("train bf16", "timed"),
+                               ("train fp8 step", "fp8_step"),
+                               ("train gate float32", "gate"),
+                               ("train gate bf16", "gate_bf16"))
+               if r[k] is not None},
             "chunked gemma2-2b":
                 chrec["timed"]["variants"]["flash_attention"],
             "chunked gate float32 gemma2-2b":

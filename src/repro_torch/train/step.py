@@ -41,6 +41,26 @@ class TrainConfig:
 F8_MAX = 448.0
 
 
+class _Float8Layers(torch.autograd.Function):
+    """A float8 stack ``[L, ...]`` as the tuple of its L layer slices
+    (views), which the forward indexes as it indexes a stack.  The
+    backward stacks the slices' gradients in float32 (exact: float8
+    values, one layer's in each place), which autograd casts back to the
+    stack's float8.  Indexed one layer at a time, the stack would get L
+    gradients that autograd adds, and torch has no float8 addition (the
+    reference's ``scan`` stacks them)."""
+
+    @staticmethod
+    def forward(ctx, stack):
+        return stack.unbind(0)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        like_ = next(g for g in grads if g is not None)
+        return torch.stack([torch.zeros_like(like_, dtype=torch.float32)
+                            if g is None else g.float() for g in grads])
+
+
 def _fp8_expert_params(params):
     """MoE expert weights (``we_i``, ``we_o``) as float8 e4m3 with a
     float32 scale per output channel; the reference's fp8 expert gather.
@@ -54,6 +74,16 @@ def _fp8_expert_params(params):
         b[name] = (w / scale).to(torch.float8_e4m3fn)
         b[name + "_scale"] = scale
     return {**params, "blocks": b}
+
+
+def _float8_by_layer(params):
+    """``params`` with each float8 stack of ``blocks`` as its layers'
+    slices, taken once (:class:`_Float8Layers`)."""
+    if "blocks" not in params:
+        return params
+    return {**params, "blocks": {
+        k: _Float8Layers.apply(v) if v.dtype == torch.float8_e4m3fn else v
+        for k, v in params["blocks"].items()}}
 
 
 def _compress(grads, how: str | None):
@@ -77,7 +107,7 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig,
     cross entropy plus ``aux_loss_weight`` x the auxiliary loss."""
     def loss_fn(params, batch):
         if tcfg.fp8_expert_gather:
-            params = _fp8_expert_params(params)
+            params = _float8_by_layer(_fp8_expert_params(params))
         kw = {k: batch[k] for k in ("patch_embeds", "encoder_feats")
               if k in batch}
         hidden, aux = forward(cfg, params, batch["tokens"],

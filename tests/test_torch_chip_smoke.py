@@ -54,7 +54,10 @@ def test_phase_functions_importable():
                  "sample_positions", "call_recorder", "chunked_gate",
                  "phase_serve_chunked", "pipeline_run", "phase_pipeline",
                  "phase_dryrun", "mesh_shape", "mesh_gate", "mesh_timed",
-                 "mesh_train_rank", "phase_mesh_train"):
+                 "mesh_train_rank", "phase_mesh_train", "step_gate",
+                 "gate_step", "host_gate", "phase_train_family",
+                 "family_timed", "train_attention_timing",
+                 "resume_check"):
         assert callable(getattr(cs, name)), name
 
 
