@@ -78,7 +78,8 @@ exits non-zero:
     placed Python oracle, its zero-wire rows equal to the unplaced
     sweep's; the place / anneal / timing walls;
 11. search: ``flow.search_design_space`` over the full 1,920-point grid
-    (budget 12,000, eta 8, at least 8 survivors) with the torch backend
+    (budget 6,000, eta 8, at least 8 survivors, rungs from the 2 smallest
+    circuits; starting from the sweep's packs) with the torch backend
     and ``verify=True``, equal rung by rung to a numpy-backend rerun; the
     winners verified, and the winner's packs of the two smallest circuits
     proven equivalent by lane simulation through ``lut_eval6``;
@@ -196,15 +197,18 @@ exits non-zero:
     which train on the plain route alone, the card's plain step against
     the same step in float64 on the host), for the kernel-route families
     a bf16 gate over the same layers (gradients against the plain
-    route's, the noise from float32), 3 bf16 steps over 2-3 layers
-    (whisper-small's at full depth through ``launch.train``, the SSMs'
-    through ``fit``), each loss within 2e-2 of a float32 run's and, at
-    every step of the plain bf16 run, the kernel route's loss at that
+    route's, the noise from float32), 3 bf16 steps over 2-4 layers
+    (deepseek-moe-16b's dense layer and 3 MoE layers; whisper-small's at
+    full depth through ``launch.train``, the SSMs' through ``fit``; every
+    run's step donating its train state, as ``fit``'s does), each loss
+    within 2e-2 of a float32 run's and, at every step of the plain bf16
+    run, the kernel route's loss at that
     step's weights within ``max(1e-4, 4 x d'_s)`` of the plain route's
     (d'_s its distance there from float32); deepseek also one step with
-    ``fp8_expert_gather``; peak memory, step walls, flash calls per
-    step and variant, and one flash call at the run's shapes timed
-    (forward and recompute backward) beside SDPA;
+    ``fp8_expert_gather``; peak memory (beside each run's with the step
+    that held two train states, ``PURE_STEP_PEAKS``), step walls, flash
+    calls per step and variant, and one flash call at the run's shapes
+    timed (forward and recompute backward) beside SDPA;
 26. train_tinyllama: ``tinyllama-1.1b`` at full width — a float32 gate
     over its first 4 layers (2 x 512 tokens, seed-0 weights: the kernel
     route's loss, every leaf's gradient and every parameter after one
@@ -221,8 +225,8 @@ exits non-zero:
     its losses beside the uninterrupted run's);
 27. profile_train: one warm bf16 train step under ``torch.profiler``
     (device busy and idle share, top kernels, the flash forwards' and the
-    recompute backward's shares) and one eager AdamW update alone; then
-    pipeline: ``tinyllama-1.1b`` at full width through
+    recompute backward's shares) and one in-place AdamW update alone;
+    then pipeline: ``tinyllama-1.1b`` at full width through
     ``parallel.pipeline_apply``, 2 stages x 11 layers, 4 microbatches of
     2 x 512 (88 ``mma`` flash calls), bit for bit equal to the stages
     applied to each microbatch in turn, timed against the sequential
@@ -270,7 +274,11 @@ exits non-zero:
     requested, less the step's arguments; the traces start after the
     per-level baseline, at the host's lowest priority, so that they do
     not share the host with the CAD phases);
-28. summary: the ``kernels`` line (all six kernels; for those with
+28. summary: the ``profiler`` line (every device-time reading turned
+    down, its session's records showing a loss or the reading below half
+    of what the same call's CUDA events allow the device: where, and
+    what it read; retried, then reported as not measured), the
+    ``kernels`` line (all six kernels; for those with
     variants, each variant's calls on the main paths; ``lut_eval6``'s
     times and bound are its level variant's, the one the main paths
     launch, with the op's beside, and its launches include the search
@@ -430,40 +438,153 @@ def time_ms(fn, reps: int = 10, inner: int = 10, warmup: int = 3) -> float:
 
 #: profiler sessions :func:`device_ms` opens before it gives up on one
 #: that records the device's work (on an H100, a session late in a long
-#: run has come back with no device events while the work ran)
+#: run has come back with no device events, or part of them, while the
+#: work ran)
 PROFILE_TRIES = 3
+#: a profiler reading below this share of the device time that the same
+#: call's CUDA events allow is short: part of the work went unrecorded
+PROFILE_FLOOR = 0.5
+#: throwaway kernel launches that open every profiler window, their
+#: records left out of the reading: a session late in a long run has
+#: dropped the records of its first 15-17 kernels, whatever the calls
+#: (``scripts/profiler_window.py``), and of its first 60 in another run
+#: of the script
+PROFILE_WARMUP_LAUNCHES = 256
+#: the profiler range around the calls a reading counts
+PROFILE_MARK = "chip_smoke.profiled_calls"
+#: every short reading :func:`device_ms` turned down, with its call site
+#: (the script prints them in its ``profiler`` line)
+PROFILE_REJECTED: list = []
 
 
-def device_ms(fn, calls: int = 20) -> tuple[float | None, list[dict]]:
+def profile_session(fn, calls: int, warmup: int = PROFILE_WARMUP_LAUNCHES,
+                    pad_s: float = 0.0):
+    """``calls`` back-to-back ``fn()`` under ``torch.profiler``: ``(the
+    profiler, the device records of the calls by name, each with its
+    ``key``, ``count`` and ``self_device_time_total`` in µs, the host's
+    ms per call to launch them under the profiler, the device records the
+    session kept of the launches that opened its window (None without
+    them))``.  The window opens with a fill and ``warmup`` throwaway
+    launches and a 100 ms gap, whose records are left out (the calls'
+    are those starting after the range ``PROFILE_MARK`` around them
+    opened, less 50 ms: a session's device records have stood up to 27 ms
+    off the host's clock); ``pad_s`` holds it open that long before and
+    after."""
+    from types import SimpleNamespace
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        if warmup:
+            scratch = torch.zeros(warmup, device="cuda")
+            for i in range(warmup):
+                scratch[i].add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+        with record_function(PROFILE_MARK):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            host_ms = (time.perf_counter() - t0) * 1e3 / calls
+            torch.cuda.synchronize()
+        time.sleep(pad_s)
+    events = prof.events()
+    opened = min(e.time_range.start for e in events if e.name == PROFILE_MARK
+                 and e.device_type == DeviceType.CPU) - 5e4
+    by_name, opening = {}, 0
+    for e in events:
+        if (e.device_type != DeviceType.CUDA or e.name == PROFILE_MARK
+                or e.name.startswith("Activity Buffer")):
+            continue
+        if e.time_range.start < opened:
+            opening += 1
+            continue
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return (prof, [SimpleNamespace(key=k, count=n, self_device_time_total=us)
+                   for k, (n, us) in by_name.items()], host_ms,
+            opening if warmup else None)
+
+
+def host_launch_ms(fn, calls: int) -> float:
+    """The host's ms per call to launch ``calls`` back-to-back ``fn()``,
+    outside the profiler (which slows the host)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def lost_records(dev: list, calls: int, opening: int | None) -> bool:
+    """Whether a session's device records (``dev``, by name with their
+    ``count``) show that it lost some of the calls': it kept none of the
+    records of the launches that opened its window (``opening``; None:
+    it opened with none), so the records it dropped from its start may
+    reach into the calls'; or a kernel's count is no multiple of
+    ``calls``, each of which launches the same kernels."""
+    return opening == 0 or any(e.count % calls for e in dev)
+
+
+def short_reading(ms: float | None, events_ms: float | None,
+                  host_ms: float) -> bool:
+    """Whether a profiler reading of ``ms`` per call (None: no device
+    events) is below ``PROFILE_FLOOR`` x what the same call's CUDA events
+    (``events_ms``; None: not held) allow the device: their time less
+    the host's own time to launch the call (``host_ms``,
+    :func:`host_launch_ms`), the most the device can idle waiting for
+    launches.  A host-bound call, whose host time is ``PROFILE_FLOOR`` x
+    its events time or more, is not held to it: the events allow its
+    device almost any idle share, and their launch latency outweighs its
+    work; :func:`lost_records` guards it."""
+    if ms is None:
+        return True
+    if events_ms is None or host_ms >= PROFILE_FLOOR * events_ms:
+        return False
+    return ms < PROFILE_FLOOR * (events_ms - host_ms)
+
+
+def device_ms(fn, calls: int = 20, events_ms: float | None = None
+              ) -> tuple[float | None, list[dict]]:
     """Device time per ``fn()`` on the card: the summed duration of every
     kernel and copy that ``calls`` back-to-back calls ran, under
     ``torch.profiler``, over ``calls``; and the same per kernel name.
     Unlike :func:`time_ms` it leaves out the host's time between launches,
     which sets the pace of back-to-back calls that take the device only a
-    few microseconds.  A session that records no device work is run
-    again, up to ``PROFILE_TRIES`` times; after that the time is ``None``
-    (not measured), never 0."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    few microseconds.  A session that records no device work, whose
+    records show a loss (:func:`lost_records`), or that records less
+    than the call's CUDA events (``events_ms``, :func:`time_ms`'s
+    reading) allow (:func:`short_reading`), is run again, up to
+    ``PROFILE_TRIES`` times, each such reading kept in
+    ``PROFILE_REJECTED``; after that the time is ``None`` (not measured,
+    and so is each kernel's), never a short one."""
     fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("Activity Buffer")]
-        if dev:
-            break
-    by_name = [{"name": e.key[:80],
-                "ms": e.self_device_time_total / 1e3 / calls}
-               for e in dev]
-    return (sum(k["ms"] for k in by_name) if dev else None), by_name
+    host_ms = host_launch_ms(fn, calls)
+    caller = sys._getframe(1)
+    for attempt in range(PROFILE_TRIES):
+        _, dev, _, opening = profile_session(fn, calls)
+        by_name = [{"name": e.key[:80],
+                    "ms": e.self_device_time_total / 1e3 / calls}
+                   for e in dev]
+        ms = sum(k["ms"] for k in by_name) if dev else None
+        if not (lost_records(dev, calls, opening)
+                or short_reading(ms, events_ms, host_ms)):
+            return ms, by_name
+        PROFILE_REJECTED.append({
+            "at": f"{Path(caller.f_code.co_filename).name}:"
+                  f"{caller.f_lineno}",
+            "try": attempt, "ms": ms, "events_ms": events_ms,
+            "host_ms": host_ms, "opening_records": opening,
+            "device_records": len(dev)})
+    return None, [{"name": k["name"], "ms": None} for k in by_name]
 
 
 def lut_bound_ms(M: int, K: int, N: int, n_tables: int) -> dict:
@@ -740,12 +861,16 @@ def kernel_parity(device, main_shapes: dict, level: dict) -> dict:
     ins = _random_words(rng, (M6, 6, N6), device)
     lo = _random_words(rng, (M6,), device)
     hi = _random_words(rng, (M6,), device)
-    dev6, kern6 = device_ms(lambda: ops.lut_eval6(ins, lo, hi))
+    ms6 = time_ms(lambda: ops.lut_eval6(ins, lo, hi))
+    dev6, kern6 = device_ms(lambda: ops.lut_eval6(ins, lo, hi),
+                            events_ms=ms6)
     vals = _level_buffer(rng, level["rows"], level["member_rows"], N6,
                          device)
     largs = (vals, level["ins"], level["tt_lo"], level["tt_hi"],
              level["out"])
-    dev_l, kern_l = device_ms(lambda: ops.lut_eval6_level(*largs))
+    ms_l = time_ms(lambda: ops.lut_eval6_level(*largs))
+    dev_l, kern_l = device_ms(lambda: ops.lut_eval6_level(*largs),
+                              events_ms=ms_l)
     # the headline is the level variant's, the one the main paths launch:
     # its bound is its data's (rows read and written once), with the
     # [M, 6, N] figure that counts every pin row beside it
@@ -757,8 +882,7 @@ def kernel_parity(device, main_shapes: dict, level: dict) -> dict:
         "buffer_rows": level["rows"],
         "max_abs_err": max(err6, *level_errs.values()),
         "level_max_abs_err": level_errs,
-        "ms": time_ms(lambda: ops.lut_eval6_level(*largs)),
-        "device_ms": dev_l, "kernels": kern_l,
+        "ms": ms_l, "device_ms": dev_l, "kernels": kern_l,
         "plain_ms": time_ms(lambda: ops.lut_eval6_level(
             *largs, use_kernel=False), reps=3, inner=2),
         **level_rows_once_bound(level, N6),
@@ -766,8 +890,7 @@ def kernel_parity(device, main_shapes: dict, level: dict) -> dict:
         "pin_rows_bound_by": pin_rows["bound_by"], "sass": sass,
         "op": {
             "shape": [M6, 6, N6], "max_abs_err": err6,
-            "ms": time_ms(lambda: ops.lut_eval6(ins, lo, hi)),
-            "device_ms": dev6, "kernels": kern6,
+            "ms": ms6, "device_ms": dev6, "kernels": kern6,
             "plain_ms": time_ms(lambda: ops.lut_eval6(ins, lo, hi,
                                                       use_kernel=False),
                                 reps=3, inner=2),
@@ -775,11 +898,11 @@ def kernel_parity(device, main_shapes: dict, level: dict) -> dict:
     M5, K5 = main_shapes["lut_eval"]
     ins5 = _random_words(rng, (M5, K5, N6), device)
     tts = _random_words(rng, (M5,), device)
-    dev5, kern5 = device_ms(lambda: ops.lut_eval(ins5, tts))
+    ms5 = time_ms(lambda: ops.lut_eval(ins5, tts))
+    dev5, kern5 = device_ms(lambda: ops.lut_eval(ins5, tts), events_ms=ms5)
     recs["lut_eval"] = {
         "shape": [M5, K5, N6], "max_abs_err": err,
-        "ms": time_ms(lambda: ops.lut_eval(ins5, tts)),
-        "device_ms": dev5, "kernels": kern5,
+        "ms": ms5, "device_ms": dev5, "kernels": kern5,
         "plain_ms": time_ms(lambda: ops.lut_eval(ins5, tts,
                                                  use_kernel=False),
                             reps=3, inner=2),
@@ -1134,7 +1257,7 @@ def lm_kernel_parity(device) -> dict:
                **flash_bound_ms(B, Hq, Hkv, S, T, D, q.element_size(),
                                 causal, window)}
         rec["device_ms"], rec["kernels"] = device_ms(
-            lambda: ops.flash_attention(q, k, v, **kw))
+            lambda: ops.flash_attention(q, k, v, **kw), events_ms=rec["ms"])
         sdpa = sdpa_call(q, k, v, causal, window, softcap)
         if sdpa is not None:
             ok, rec["library_max_abs_err"] = _within(
@@ -1142,7 +1265,8 @@ def lm_kernel_parity(device) -> dict:
             check(ok, f"SDPA on {label} does not compute the kernel's "
                       f"function (max abs err {rec['library_max_abs_err']})")
             rec["library_ms"] = time_ms(sdpa)
-            rec["library_device_ms"] = device_ms(sdpa)[0]
+            rec["library_device_ms"] = device_ms(
+                sdpa, events_ms=rec["library_ms"])[0]
             rec["library_kernels"] = sdpa_backend(sdpa)
         else:
             rec["library_ms"] = rec["library_device_ms"] = None
@@ -1161,17 +1285,19 @@ def lm_kernel_parity(device) -> dict:
         check(ok, f"bitplane_matmul [{M}, {K}] x [{B}, {K}, {N}] differs "
                   f"from its plain version (max abs err {err})")
         w = dequantize(planes, scale)
+        ms = time_ms(lambda: ops.bitplane_matmul(x, planes, scale))
         dev_ms, kernels = device_ms(
-            lambda: ops.bitplane_matmul(x, planes, scale))
+            lambda: ops.bitplane_matmul(x, planes, scale), events_ms=ms)
+        lib_ms = time_ms(lambda: torch.matmul(x, w))
         bit_main.append({
             "shape": [M, K, N, B], "variant": bitplane_variant(M, B),
-            "max_abs_err": err,
-            "ms": time_ms(lambda: ops.bitplane_matmul(x, planes, scale)),
+            "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "kernels": kernels,
             "plain_ms": time_ms(lambda: ops.bitplane_matmul(
                 x, planes, scale, use_kernel=False)),
-            "library_ms": time_ms(lambda: torch.matmul(x, w)),
-            "library_device_ms": device_ms(lambda: torch.matmul(x, w))[0],
+            "library_ms": lib_ms,
+            "library_device_ms": device_ms(lambda: torch.matmul(x, w),
+                                           events_ms=lib_ms)[0],
             **bitplane_bound_ms(M, K, N, B)})
     return {"phase": "lm_kernel_parity",
             "flash_attention": {"max_abs_err": flash_err,
@@ -1420,9 +1546,9 @@ def at_p_block(args, width: int, want, tol: float) -> dict:
         ok, err = _within(ops.ssd_scan(*args), want, tol, tol)
         check(ok, f"ssd_scan with {width}-wide P blocks differs from its "
                   f"plain version (max abs err {err})")
-        dev, kernels = device_ms(lambda: ops.ssd_scan(*args))
-        return {"p_block": width, "max_abs_err": err,
-                "ms": time_ms(lambda: ops.ssd_scan(*args)),
+        ms = time_ms(lambda: ops.ssd_scan(*args))
+        dev, kernels = device_ms(lambda: ops.ssd_scan(*args), events_ms=ms)
+        return {"p_block": width, "max_abs_err": err, "ms": ms,
                 "device_ms": dev, "kernels": kernels}
     finally:
         ss.p_block = chosen
@@ -1485,7 +1611,7 @@ def ssm_kernel_parity(device) -> dict:
                    "library_ms": None,
                    **ssd_bound_ms(Bb, L, H, P, N, 2)}
             rec["device_ms"], rec["kernels"] = device_ms(
-                lambda: ops.ssd_scan(*args))
+                lambda: ops.ssd_scan(*args), events_ms=rec["ms"])
             rec["other_p_block"] = at_p_block(args, 16 if pb == 32 else 32,
                                               want, tol)
             rec["planted_fault"] = fault
@@ -1541,11 +1667,13 @@ def ssm_kernel_parity(device) -> dict:
         "plain_ms": time_ms(lambda: ops.popcount_matmul(
             x, w, "xnor", kb, use_kernel=False), reps=3, inner=2),
         "library_ms": time_ms(lambda: torch.matmul(xs, ws.T)),
-        "library_device_ms": device_ms(lambda: torch.matmul(xs, ws.T))[0],
         "library_equal": bool(torch.equal(lib.float(), got.float())),
         **popcount_bound_ms(M, N, W)}
+    pop_main["library_device_ms"] = device_ms(
+        lambda: torch.matmul(xs, ws.T), events_ms=pop_main["library_ms"])[0]
     pop_main["device_ms"], pop_main["kernels"] = device_ms(
-        lambda: ops.popcount_matmul(x, w, "xnor", kb))
+        lambda: ops.popcount_matmul(x, w, "xnor", kb),
+        events_ms=pop_main["ms"])
     return {"phase": "ssm_kernel_parity",
             "ssd_scan": {"max_abs_err": ssd_err,
                          "cases": 2 * (len(SSD_CASES) + len(SSD_SLICED_CASES)
@@ -1874,9 +2002,12 @@ CANONICAL_ROWS = {"baseline": "b0", "dd5": "b2_f10", "dd6": "b2_f10_l6"}
 #: afresh at every point: 42 packs here at 6 points, 98 at 14)
 PLACED_SUITES = ("kratos",)
 #: the design-space search's parameters (``benchmarks/search_frontier.py``'s
-#: but eta 8 for its 4, cut for time: 4 rungs in place of 5, 7,438 of
-#: the budget spent in place of 9,626, the same winner)
-SEARCH_PARAMS = {"budget": 12000, "eta": 8, "min_survivors": 8}
+#: but eta 8 for its 4 and rungs from the 2 smallest circuits for its 3,
+#: cut for time: 4 rungs in place of 5, 5,213 evaluations in place of
+#: 9,626, the same winner; the first rung's packing of every structural
+#: class sets the search's time)
+SEARCH_PARAMS = {"budget": 6000, "eta": 8, "min_survivors": 8,
+                 "min_circuits": 2}
 
 
 def stable_payload(payload: dict) -> dict:
@@ -1999,11 +2130,13 @@ def phase_sweep_placed(suites: dict, device, unplaced, packs: dict,
             "frontier": flow.sweep_frontier(res, baseline="b0")}
 
 
-def phase_search(suites: dict, device, archs=None, params=None) -> dict:
+def phase_search(suites: dict, device, archs=None, params=None,
+                 packs: dict | None = None) -> dict:
     """``flow.search_design_space`` over the full grid with the torch
     backend and ``verify=True``, then again with the numpy backend (its
     packs are cache hits): equal rungs, survivors, frontier and winner,
-    the winners verified.  The winner's packs of the two smallest
+    the winners verified.  ``packs``: a pack store to start from (the
+    sweep's), shared by both runs.  The winner's packs of the two smallest
     circuits are then proven equivalent by lane simulation on the fused
     evaluator (``lut_eval6`` launches counted)."""
     from repro_torch.core import flow, timing_vec
@@ -2014,6 +2147,8 @@ def phase_search(suites: dict, device, archs=None, params=None) -> dict:
     archs = full_arch_grid() if archs is None else archs
     params = SEARCH_PARAMS if params is None else params
     kw = dict(params, archs=archs)
+    if packs is not None:
+        kw["packs"] = packs
     built0 = timing_vec.read_compile_counts()["programs"]
     t0 = time.perf_counter()
     res, counts = _counted(lambda: flow.search_design_space(
@@ -4155,7 +4290,9 @@ def train_timed(cfg, device, steps: int, batch: int, seq: int, workdir,
              "median_wall_ms_after_first": wall * 1e3,
              "tok_per_s": batch * seq / wall,
              "model_flops_share_of_bf16_peak": flops / wall / BF16_FLOPS,
-             "per_step": per_step, "launches": counts, "variants": variants},
+             "per_step": per_step, "launches": counts, "variants": variants,
+             "peak_bytes": (max(r["max_memory_allocated"] for r in per_step)
+                            if cuda else None)},
             whole)
 
 
@@ -4287,6 +4424,8 @@ def phase_train(name: str, cfg, device, workdir, gate=TRAIN_GATE,
              "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
              "head_dim": cfg.hd, "vocab": cfg.vocab, "gate": gate_rec,
              "timed": timed_rec, "flash_launches_expected": expected,
+             "peaks": beside_pure_step(name, {
+                 "timed": (L, timed_rec["peak_bytes"])}),
              "walls": walls}, prof)
 
 
@@ -4296,7 +4435,9 @@ def phase_profile_train(cfg, state: dict, batch: int, seq: int, device,
     ``torch.profiler``: device busy and idle share, the top kernels, the
     share of the device time in the flash kernel's forwards and in the
     attention backward's recompute (``FlashAttentionFnBackward``); then
-    one eager AdamW update alone, its kernels and device time."""
+    one eager AdamW update alone, in place as ``fit``'s step runs it,
+    its kernels and device time.  The steps donate, as ``fit``'s do:
+    ``state`` is updated in place."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4307,7 +4448,7 @@ def phase_profile_train(cfg, state: dict, batch: int, seq: int, device,
 
     tcfg = tstep.TrainConfig(opt=optimizer.OptConfig(
         decay_steps=TRAIN_TIMED[0], **TRAIN_OPT))
-    train_step, _ = tstep.make_train_step(cfg, tcfg)
+    train_step, _ = tstep.make_train_step(cfg, tcfg, donate=True)
     data = to_device(batch_for_step(cfg, seq, batch, TRAIN_TIMED[0]), device)
     params, opt_state = state["params"], state["opt_state"]
 
@@ -4339,7 +4480,8 @@ def phase_profile_train(cfg, state: dict, batch: int, seq: int, device,
     grads = tree.map(lambda p: p.detach().clone(), params)  # stand-ins
 
     def update():
-        optimizer.adamw_update(tcfg.opt, grads, opt_state, params)
+        optimizer.adamw_update(tcfg.opt, grads, opt_state, params,
+                               in_place=True)
         _sync(device)
 
     update()
@@ -4375,10 +4517,11 @@ def phase_profile_train(cfg, state: dict, batch: int, seq: int, device,
 #: seq), the bf16 run's (layers, steps, batch, seq)); a vlm sequence is
 #: the config's 576 patches and then these tokens, an encdec one these
 #: tokens over its 1,500 frames.  deepseek-moe-16b's run keeps its dense
-#: layer and 2 MoE layers: with 3 MoE layers its float32 run's AdamW
-#: update (old and new state side by side) did not fit on the card
+#: layer and 3 MoE layers, which fit the card in float32 since the step
+#: donates its train state (the old and new AdamW states side by side did
+#: not fit at that depth)
 FAMILY_TRAIN = {
-    "deepseek-moe-16b": ("train_deepseek", (2, 2, 256), (3, 3, 2, 1024)),
+    "deepseek-moe-16b": ("train_deepseek", (2, 2, 256), (4, 3, 2, 1024)),
     "llava-next-34b": ("train_llava", (1, 1, 512), (2, 3, 2, 1024)),
     "whisper-small": ("train_whisper", (2, 2, 128), (12, 3, 8, 128)),
     "mamba2-2.7b": ("train_mamba2", (2, 1, 128), (2, 3, 2, 256)),
@@ -4387,6 +4530,43 @@ FAMILY_TRAIN = {
 #: a plain-route family's bf16 losses against its float32 ones, relative:
 #: the bf16 tolerance of the reference's own kernel tests
 PLAIN_BF16_TOL = 2e-2
+
+
+#: each training run's peak device memory (``max_memory_allocated``) with
+#: the train step that built a new train state beside the old one, before
+#: it donated: ``{phase: {run: (decoder layers, bytes)}}``, read by
+#: ``chip_smoke.py`` itself on an NVIDIA H100 80GB HBM3 at 700 W (the
+#: mesh phase's on a ``(1, 1)`` mesh, rank 0; deepseek-moe-16b's at its
+#: dense layer and 2 MoE layers, since 3 did not fit)
+PURE_STEP_PEAKS = {
+    "train_deepseek": {"bf16": (3, 52180161536),
+                       "plain_bf16": (3, 52180163072),
+                       "float32": (3, 55945148928), "fp8": (3, 52180161536)},
+    "train_llava": {"bf16": (2, 60622805504), "plain_bf16": (2, 60622543360),
+                    "float32": (2, 70272002560)},
+    "train_whisper": {"bf16": (12, 7443549696), "plain_bf16": (12, 6888955392),
+                      "float32": (12, 8041114624)},
+    "train_mamba2": {"bf16": (2, 7318109696), "float32": (2, 7798617088)},
+    "train_hymba": {"bf16": (2, 4225125888), "float32": (2, 4710035456)},
+    "train_tinyllama": {"timed": (22, 34590948352)},
+    "mesh_train": {"mesh": (22, 36789906432), "unsharded": (22, 34589809664)}}
+
+
+def beside_pure_step(phase: str, peaks: dict) -> dict:
+    """Each run's peak (``{run: (layers, bytes)}``; bytes None off the
+    card) beside the same run's with the non-donating step
+    (``PURE_STEP_PEAKS``), and their ratio where the depths agree."""
+    out = {}
+    for run, (layers, got) in peaks.items():
+        was_layers, was = PURE_STEP_PEAKS.get(phase, {}).get(
+            run, (None, None))
+        out[run] = {"layers": layers, "peak_bytes": got,
+                    "pure_step_layers": was_layers,
+                    "pure_step_peak_bytes": was,
+                    "share_of_pure_step": (
+                        got / was if got and was and layers == was_layers
+                        else None)}
+    return out
 
 
 def _median_ms(walls) -> float:
@@ -4587,7 +4767,7 @@ def train_attention_timing(B: int, Hq: int, Hkv: int, S: int, D: int,
                           HEAVY_REPS)):
         rec[f"{key}_ms"] = time_ms(fn, **kw_)
         rec[f"{key}_device_ms"], kernels = device_ms(
-            fn, calls=2 if kw_ else 5)
+            fn, calls=2 if kw_ else 5, events_ms=rec[f"{key}_ms"])
     rec["library_kernels"] = sorted(k_["name"] for k_ in kernels)
     return rec
 
@@ -4686,13 +4866,20 @@ def phase_train_family(arch: str, device, gate: tuple, run: tuple,
                   f"ssd_scan")
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    n = rcfg.n_layers
     return {"phase": FAMILY_TRAIN[arch][0], "arch": cfg.name,
             "family": cfg.family, "route": "kernel" if kernel else "plain",
             "layers": cfg.n_layers, "d_model": cfg.d_model,
             "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
             "vocab": cfg.vocab, "gate": gate_rec, "gate_bf16": gate_bf16,
             "timed": timed, "fp8_step": fp8, "attention": attention,
-            "flash_launches_expected": expected, "walls": walls}
+            "flash_launches_expected": expected,
+            "peaks": beside_pure_step(FAMILY_TRAIN[arch][0], {
+                "bf16": (n, timed["peak_bytes"]),
+                "plain_bf16": (n, timed["plain_bf16_peak_bytes"]),
+                "float32": (n, timed["float32_peak_bytes"]),
+                **({"fp8": (n, fp8["peak_bytes"])} if fp8 else {})}),
+            "walls": walls}
 
 
 # ---------------------------------------------------------------------------
@@ -5115,33 +5302,35 @@ def _unsharded_steps(cfg, tcfg, params, device, steps: int, batch: int,
                      seq: int, use_kernel: bool = True,
                      flash_calls: list | None = None,
                      probe=None) -> tuple[list, list]:
-    """``steps`` train steps of ``train.step`` (what ``fit`` runs a step)
+    """``steps`` train steps of ``train.step`` as ``fit`` runs them
+    (donating: ``params`` and the optimizer state are updated in place)
     on plain tensors from ``params`` on the route ``use_kernel`` picks,
     each timed as ``fit`` times a step (the batch's upload to the loss on
     the host), no checkpoint: ``(losses, walls in s)``.  ``flash_calls``
     gets each step's flash launches; ``probe(params, batch)`` is called
-    after each step (outside its wall) with the weights and batch the
-    step's loss was taken at."""
+    before each step (outside its wall and its launches) with the
+    weights and batch the step's loss is taken at."""
     from repro_torch.data.pipeline import batch_for_step, to_device
     from repro_torch.kernels import ops
     from repro_torch.train import step as tstep
 
-    step_fn, opt_init = tstep.make_train_step(cfg, tcfg, use_kernel)
+    step_fn, opt_init = tstep.make_train_step(cfg, tcfg, use_kernel,
+                                              donate=True)
     opt = opt_init(params)
     losses, walls = [], []
     for s in range(steps):
+        if probe is not None:
+            probe(params, to_device(batch_for_step(cfg, seq, batch, s),
+                                    device))
         before = ops.launch_counts()["flash_attention"]
         t1 = time.perf_counter()
         data = to_device(batch_for_step(cfg, seq, batch, s), device)
-        new, opt, m = step_fn(params, opt, data)
+        params, opt, m = step_fn(params, opt, data)
         losses.append(float(m["loss"]))
         walls.append(time.perf_counter() - t1)
         if flash_calls is not None:
             flash_calls.append(ops.launch_counts()["flash_attention"]
                                - before)
-        if probe is not None:
-            probe(params, data)
-        params = new
     return losses, walls
 
 
@@ -5371,6 +5560,9 @@ def phase_mesh_train(device, gate=MESH_GATE, timed=MESH_TIMED) -> dict:
             "local_heads": heads, "gate": lead["gate"],
             "timed": lead["timed"],
             "per_rank_peak_bytes": [r["timed"]["peak_bytes"] for r in recs],
+            "peaks": beside_pure_step("mesh_train", {
+                "mesh": (L, lead["timed"]["peak_bytes"]),
+                "unsharded": (L, lead["timed"]["unsharded_peak_bytes"])}),
             "per_rank_launches": [r["timed"]["launches"]["flash_attention"]
                                   for r in recs],
             "flash_variants_expected": want,
@@ -6049,8 +6241,8 @@ def main() -> int:
     walls.emit(phase_sweep_placed({k: suites[k] for k in PLACED_SUITES},
                                   device, unplaced["result"],
                                   unplaced["packs"]))
+    serec = phase_search(suites, device, packs=unplaced["packs"])
     del unplaced
-    serec = phase_search(suites, device)
     walls.emit(serec)
     launches6 += serec["launches"]["lut_eval6"]
     walls.emit(phase_placement_ensembles({"kratos": suites["kratos"]},
@@ -6340,6 +6532,9 @@ def main() -> int:
             "gate float32 mamba2":
                 mrec["gate"]["forward"]["variants"]["ssd_scan"]},
         "popcount_matmul": {"main": pop_main["variants"]}}
+    emit({"phase": "profiler", "floor": PROFILE_FLOOR,
+          "warmup_launches": PROFILE_WARMUP_LAUNCHES, "tries": PROFILE_TRIES,
+          "rejected": PROFILE_REJECTED})
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k], "launches": launches[k],

@@ -15,21 +15,21 @@ refuses to run where a process group is formed already.  Each argument
 specs ``launch.dryrun`` computes, over a ``meta`` tensor of this rank's
 shard (a shape and a type, nothing allocated), and the
 step is the one the port runs: ``train.step.make_train_step`` for a
-train cell, ``serve.decode.prefill`` or ``decode_step`` for a serving
-cell, under the reference's ``activation_rules``, through the plain
-route (``use_kernel=False``), as the reference's dry run lowers its jnp
-path.
+train cell (donating its weights and optimizer state, as ``fit`` does),
+``serve.decode.prefill`` or ``decode_step`` for a serving cell, under
+the reference's ``activation_rules``, through the plain route
+(``use_kernel=False``), as the reference's dry run lowers its jnp path.
 
 A dispatch mode (:class:`Counter`) sits under DTensor and sees every op
 a rank runs on its own shards, so every count is per device:
 
 * ``memory``: ``argument_size_in_bytes`` (the local shards of the
   arguments), ``output_size_in_bytes`` and ``alias_size_in_bytes`` (of
-  the outputs, and of those that are arguments updated in place, the
-  cache), ``temp_size_in_bytes``: the peak of the bytes of the storages
-  the step allocates that are alive at once, outputs included — a new
-  train state is allocated beside the old one, which the caller holds
-  until the step returns (the reference donates its arguments instead);
+  the outputs, and of those that are arguments updated in place: the
+  cache, and a train step's weights and optimizer state, which the step
+  donates as the reference's does), ``temp_size_in_bytes``: the peak of
+  the bytes of the storages the step allocates that are alive at once,
+  outputs included;
 * ``cost``: ``flops``, the matrix products' and convolutions' (torch's
   ``flop_registry``, as ``FlopCounterMode`` counts them) on local shapes;
   ``transcendentals``, an element of each exp, log, tanh, sin, cos,
@@ -522,9 +522,10 @@ def _local_leaves(tree_) -> list:
 
 
 def _run_step(cfg, shape, mesh, placed: dict):
-    """The cell's step on the placed arguments through the plain route,
-    under the reference's activation rules (``n_moe_groups``: tokens over
-    the MoE group size for train and prefill, the batch for decode)."""
+    """The cell's step on the placed arguments through the plain route (a
+    train step donating them), under the reference's activation rules
+    (``n_moe_groups``: tokens over the MoE group size for train and
+    prefill, the batch for decode)."""
     from ..parallel.api import sharding_rules
     from ..parallel.sharding import activation_rules
     from ..serve.decode import decode_step, prefill
@@ -539,7 +540,8 @@ def _run_step(cfg, shape, mesh, placed: dict):
     with sharding_rules(rules):
         if shape.kind == "train":
             step_fn, _ = make_train_step(
-                cfg, TrainConfig(opt=_opt_config(cfg)), use_kernel=False)
+                cfg, TrainConfig(opt=_opt_config(cfg)), use_kernel=False,
+                donate=True)
             return step_fn(placed["weights"], placed["optimizer"], batch)
         tokens = batch.pop("tokens")
         if shape.kind == "prefill":

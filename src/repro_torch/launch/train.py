@@ -12,7 +12,8 @@ Builds the ``(data, model)`` mesh over every rank of the process group
 mesh of one for a single process), places the parameters by
 ``parallel.sharding.param_specs`` as DTensors, and runs the
 fault-tolerant loop under the activation rules, as the reference runs
-``fit`` under ``sharding_rules``.  Random weights from a seeded generator
+``fit`` under ``sharding_rules`` (its step donating the train state,
+which it updates in place).  Random weights from a seeded generator
 on each rank's device (every rank draws the same ones and keeps its
 shards), the synthetic data stream (with frames for encdec and patch
 embeddings for vlm), AdamW with the reference launcher's schedule (warmup

@@ -10,9 +10,11 @@
 * deterministic data: the pipeline is a pure function of the step, so
   recovery replays or skips exactly.
 
-The step is eager.  The counterpart of the reference's donated buffers is
-that params and optimizer state are rebound every step, so the previous
-step's tensors are freed as soon as the new ones exist.
+The step is eager and donates, as the reference's ``fit`` jits its step
+with ``donate_argnums=(0, 1)``: the weights and the optimizer state are
+updated in place (:func:`make_train_step`), so a step holds one train
+state, not two.  ``fit`` donates its own copy of the caller's weights,
+taken once at entry, and leaves the caller's as they were.
 
 On a mesh the params are DTensors (``parallel.sharding.distribute``) and
 the caller installs the activation rules; every rank builds the same
@@ -29,15 +31,25 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .. import tree
 from ..checkpoint import ckpt
 from ..configs.base import ModelConfig
 from ..data.pipeline import batch_for_step, to_device
 from ..parallel.api import is_distributed
-from .step import TrainConfig, make_train_step
+from . import step as _step
+from .step import TrainConfig
 
 log = logging.getLogger("repro_torch.train")
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    use_kernel: bool = True):
+    """The step ``fit`` runs: :func:`repro_torch.train.step.make_train_step`
+    with ``donate=True`` (the reference's ``jax.jit(train_step,
+    donate_argnums=(0, 1))``)."""
+    return _step.make_train_step(cfg, tcfg, use_kernel, donate=True)
 
 
 def default_ckpt_dir() -> str:
@@ -60,11 +72,12 @@ class FitConfig:
 def fit(cfg: ModelConfig, params, fitc: FitConfig,
         tcfg: TrainConfig | None = None, hooks=None,
         use_kernel: bool = True) -> dict:
-    """Train from ``params`` (or the latest checkpoint under
-    ``fitc.ckpt_dir``) to step ``fitc.steps`` on the device (or the mesh)
-    the params lie on.  ``hooks``: callables ``h(step, metrics)`` after
-    each good step.  Returns ``params``, ``opt_state``, the good steps'
-    ``losses``, ``final_step`` and ``step_s``, each good step's wall in
+    """Train from ``params`` (which stay as they were) or the latest
+    checkpoint under ``fitc.ckpt_dir`` to step ``fitc.steps`` on the
+    device (or the mesh) the params lie on.  ``hooks``: callables
+    ``h(step, metrics)`` after each good step.  Returns ``params``,
+    ``opt_state``, the good steps' ``losses``, ``final_step`` and
+    ``step_s``, each good step's wall in
     seconds (host clock from the batch's upload to the loss on the host,
     which waits for the device)."""
     tcfg = tcfg or TrainConfig()
@@ -72,10 +85,12 @@ def fit(cfg: ModelConfig, params, fitc: FitConfig,
     leaf = tree.leaves(params)[0]
     mesh = leaf.device_mesh if is_distributed(leaf) else None
     device = leaf.to_local().device if mesh is not None else leaf.device
-    opt_state = opt_init(params)
-
     start = 0
-    if ckpt.latest_step(fitc.ckpt_dir) is not None:
+    resume = ckpt.latest_step(fitc.ckpt_dir) is not None
+    if not resume:   # the step donates fit's own copy, not the caller's
+        params = tree.map(torch.clone, params)
+    opt_state = opt_init(params)
+    if resume:       # restored into new tensors, fit's own
         (params, opt_state), start = ckpt.restore(fitc.ckpt_dir,
                                                   (params, opt_state))
         log.info("resumed from step %d", start)

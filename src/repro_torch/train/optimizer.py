@@ -14,9 +14,14 @@ shards, the moments in their parameter's placements (the statistics of a
 factored one less the dimension they reduce), and the global norm is one
 all-reduce over every rank.
 
-An update returns new tensors and leaves its inputs as they were, as the
-reference's does; the caller drops the old state (the train loop rebinds
-it each step).
+An update is the reference's as a donated step runs it
+(``jax.jit(..., donate_argnums=...)``): each leaf's new moments and
+parameter are written into the tensors it was given, one leaf at a time,
+so the update holds one leaf's temporaries, not a second state, and
+returns those same tensors (the step count too), the float32 gradients
+clipped in place.  That is its ``in_place=True`` form; by default it
+runs the same arithmetic on copies (:func:`_copies`) and leaves its
+inputs as they were, as the reference's pure function does.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ import torch
 import torch.distributed as dist
 
 from .. import tree
-from ..parallel.api import is_distributed, like, on_mesh
+from ..parallel.api import (is_distributed, like, on_mesh, plain,
+                            write_into)
 
 
 @dataclass(frozen=True)
@@ -86,12 +92,28 @@ def _first_holder(g) -> bool:
                for m, pl in enumerate(g.placements) if pl.is_replicate())
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """``(grads in float32, scaled to norm <= max_norm; the norm)``."""
+def _clip_scale(grads, max_norm: float):
+    """``(the factor that scales grads to norm <= max_norm, the norm)``."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    with on_mesh(tree.leaves(grads)):
-        return tree.map(lambda g: g.float() * scale, grads), norm
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
+def _clipped_(g, scale):
+    """A gradient leaf clipped by ``scale``: a float32 one scaled in
+    place, another type scaled in a float32 copy."""
+    return g.mul_(scale) if g.dtype == torch.float32 else g.float().mul_(scale)
+
+
+def _own_shard(t, ref):
+    """``t``'s own shard where ``ref`` (its parameter) is a DTensor laid
+    out as ``t`` is (a view: writes reach ``t``); a plain ``t`` as it
+    is."""
+    if not is_distributed(t):
+        return t
+    if tuple(t.placements) != tuple(ref.placements):
+        raise ValueError(f"a state leaf in {t.placements} beside its "
+                         f"parameter in {ref.placements}")
+    return t.to_local()
 
 
 # ---------------------------------------------------------------------------
@@ -114,32 +136,54 @@ def adamw_init(params) -> dict:
             "count": _count(params)}
 
 
+def _copies(grads, state, params):
+    """What an update writes into, copied for its pure form: the params,
+    the state and the float32 gradients (it clips those in place; it
+    clips a gradient of another type in a float32 copy of its own)."""
+    return (tree.map(lambda g: g.clone() if g.dtype == torch.float32 else g,
+                     grads),
+            tree.map(torch.clone, state), tree.map(torch.clone, params))
+
+
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, grads, state, params):
-    """``(new params, new state, gradient norm before clipping)``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    with on_mesh(tree.leaves(params)):
-        return _adamw_apply(cfg, grads, state, params, gnorm)
+def adamw_update(cfg: OptConfig, grads, state, params,
+                 in_place: bool = False):
+    """``(new params, new state, gradient norm before clipping)``: with
+    ``in_place`` the params and state it was given, updated (the
+    gradients consumed); else copies of them.
 
-
-def _adamw_apply(cfg: OptConfig, grads, state, params, gnorm):
-    count = state["count"] + 1
+    The reference's arithmetic, written into the state and params leaf by
+    leaf, on each rank's own shards (a moment and a gradient lie as their
+    parameter does).  One float32 buffer of the leaf's size is the
+    update's own, and the clipped gradient (the caller's float32 leaf, or
+    a float32 copy) serves as the step's."""
+    if not in_place:
+        grads, state, params = _copies(grads, state, params)
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm)
+    count = state["count"].add_(1)
     lr = lr_schedule(cfg, count)
     b1, b2 = cfg.b1, cfg.b2
-    mu = tree.map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)
-    nu = tree.map(lambda v, g: b2 * v + (1 - b2) * g * g, state["nu"],
-                  grads)
     c = count.to(torch.float32)
-    bc1 = 1 - b1 ** c
-    bc2 = 1 - b2 ** c
-
-    def upd(p, m, v):
-        step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        step = step + cfg.weight_decay * p.float()
-        return like((p.float() - lr * step).to(p.dtype), p)
-
-    new_params = tree.map(upd, params, mu, nu)
-    return new_params, {"mu": mu, "nu": nu, "count": count}, gnorm
+    # plain scalars for the shards' ops (a count placed on a mesh is a
+    # replicated DTensor)
+    lr, bc1, bc2 = (plain(t) for t in (lr, 1 - b1 ** c, 1 - b2 ** c))
+    for p, g, m, v in zip(*map(tree.leaves, (params, grads, state["mu"],
+                                             state["nu"]))):
+        g = _clipped_(_own_shard(like(g, p), p), scale)
+        m, v = _own_shard(m, p), _own_shard(v, p)
+        p = _own_shard(p, p)
+        buf = torch.empty_like(g)
+        m.mul_(b1).add_(torch.mul(g, 1 - b1, out=buf))             # mu
+        v.mul_(b2).add_(torch.mul(g, 1 - b2, out=buf).mul_(g))     # nu
+        step = torch.div(m, bc1, out=g)
+        step.div_(torch.div(v, bc2, out=buf).sqrt_().add_(cfg.eps))
+        step.add_(buf.copy_(p).mul_(cfg.weight_decay)).mul_(lr)
+        if p.dtype == torch.float32:
+            p.sub_(step)
+        else:
+            p.copy_(buf.copy_(p).sub_(step))
+        del buf, g, step   # before the next leaf's are made
+    return params, state, gnorm
 
 
 # ---------------------------------------------------------------------------
@@ -191,45 +235,59 @@ def _at(nested, path: tuple):
 
 
 @torch.no_grad()
-def adafactor_update(cfg: OptConfig, grads, state, params):
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+def adafactor_update(cfg: OptConfig, grads, state, params,
+                     in_place: bool = False):
+    """As :func:`adamw_update`, for Adafactor: each leaf's new parameter
+    and statistics (:func:`_adafactor_leaf`) written over the old before
+    the next leaf's are made."""
+    if not in_place:
+        grads, state, params = _copies(grads, state, params)
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm)
     with on_mesh(tree.leaves(params)):
-        return _adafactor_apply(cfg, grads, state, params, gnorm)
+        count = state["count"].add_(1)
+        lr = lr_schedule(cfg, count)
+        decay = 1.0 - (count.to(torch.float32) + 1.0) ** -0.8
+        for path, p in tree.flatten_with_path(params):
+            v = _at(state["v"], path)
+            g = _clipped_(like(_at(grads, path), p), scale)
+            new_p, nv = _adafactor_leaf(cfg, p, g, v, lr, decay)
+            write_into(p, new_p)
+            for k, t in nv.items():
+                write_into(v[k], t)
+            del g, new_p, nv
+    return params, state, gnorm
 
 
-def _adafactor_apply(cfg: OptConfig, grads, state, params, gnorm):
-    count = state["count"] + 1
-    lr = lr_schedule(cfg, count)
-    decay = 1.0 - (count.to(torch.float32) + 1.0) ** -0.8
-
-    def upd(p, g, v):
-        g2 = g * g + 1e-30
-        if _factored(p.shape):
-            vr = decay * v["vr"] + (1 - decay) * g2.mean(dim=-1)
-            vc = decay * v["vc"] + (1 - decay) * g2.mean(dim=-2)
-            denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
-                                   min=1e-30))
-            step = g / (torch.sqrt(denom) + cfg.eps)
-            nv = {"vr": vr, "vc": vc}
-        else:
-            nv = {"v": decay * v["v"] + (1 - decay) * g2}
-            step = g / (torch.sqrt(nv["v"]) + cfg.eps)
-        step = step + cfg.weight_decay * p.float()
-        nv = {k: like(t, v[k]) for k, t in nv.items()}
-        return like((p.float() - lr * step).to(p.dtype), p), nv
-
-    flat = tree.flatten_with_path(params)
-    outs = [upd(p, _at(grads, path), _at(state["v"], path))
-            for path, p in flat]
-    new_params = tree.unflatten(params, [o[0] for o in outs])
-    new_v = tree.unflatten(params, [o[1] for o in outs])
-    return new_params, {"v": new_v, "count": count}, gnorm
+def _adafactor_leaf(cfg: OptConfig, p, g, v, lr, decay):
+    """One leaf's ``(new parameter, new statistics)`` from its clipped
+    float32 gradient ``g`` and statistics ``v``."""
+    g2 = g * g + 1e-30
+    if _factored(p.shape):
+        vr = decay * v["vr"] + (1 - decay) * g2.mean(dim=-1)
+        vc = decay * v["vc"] + (1 - decay) * g2.mean(dim=-2)
+        del g2
+        denom = (vr[..., None] * vc[..., None, :]
+                 / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
+                               min=1e-30))
+        step = g / (torch.sqrt(denom) + cfg.eps)
+        del denom
+        nv = {"vr": vr, "vc": vc}
+    else:
+        nv = {"v": decay * v["v"] + (1 - decay) * g2}
+        del g2
+        step = g / (torch.sqrt(nv["v"]) + cfg.eps)
+    step = step + cfg.weight_decay * p.float()
+    nv = {k: like(t, v[k]) for k, t in nv.items()}
+    return like((p.float() - lr * step).to(p.dtype), p), nv
 
 
-def make_optimizer(cfg: OptConfig):
+def make_optimizer(cfg: OptConfig, in_place: bool = False):
+    """``(init, update)``; ``update(grads, state, params)`` in place with
+    ``in_place``, else on copies."""
     if cfg.name == "adamw":
-        return adamw_init, functools.partial(adamw_update, cfg)
+        return adamw_init, functools.partial(adamw_update, cfg,
+                                             in_place=in_place)
     if cfg.name == "adafactor":
-        return adafactor_init, functools.partial(adafactor_update, cfg)
+        return adafactor_init, functools.partial(adafactor_update, cfg,
+                                                 in_place=in_place)
     raise ValueError(cfg.name)

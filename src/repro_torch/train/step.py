@@ -11,9 +11,13 @@ weights.  A vlm batch carries ``patch_embeds`` and an encdec batch
 which carry no next-token loss.
 
 Gradients come from ``torch.autograd.grad`` over detached views of the
-parameter leaves, so the caller's tensors are never mutated, and each is
-in its leaf's own type (bf16 for bf16 weights), as ``jax.value_and_grad``
-gives them.
+parameter leaves, and each is in its leaf's own type (bf16 for bf16
+weights), as ``jax.value_and_grad`` gives them.  The step leaves the
+caller's tensors as they were, as the reference's pure function does,
+unless it is made with ``donate=True``: then it updates the weights and
+the optimizer state in place and returns them, as the reference's step
+jitted with ``donate_argnums=(0, 1)`` writes its new state over the old,
+and a step holds one train state, not two.
 """
 from __future__ import annotations
 
@@ -142,15 +146,19 @@ def value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, donate: bool = False):
     """``(train_step, opt_init)``.  ``train_step(params, opt_state,
     batch) -> (new_params, new_opt_state, metrics)`` with ``loss``,
     ``aux_loss`` and ``grad_norm`` as 0-d tensors.  ``use_kernel`` is the
     forward's: the flash kernel under autograd for attention; the SSD
     kernel has no backward, so the ssm and hybrid families train with
     ``use_kernel=False`` on the card (``ops.ssd_scan`` raises
-    otherwise)."""
-    opt_init, opt_update = make_optimizer(tcfg.opt)
+    otherwise).  With ``donate`` the step consumes ``params`` and
+    ``opt_state``: it returns them, updated in place (the optimizer's
+    ``in_place`` form; accumulated gradients summed into one float32
+    buffer in place), so a caller that reads the weights a step started
+    from keeps the default."""
+    opt_init, opt_update = make_optimizer(tcfg.opt, in_place=donate)
     loss_fn = make_loss_fn(cfg, tcfg, use_kernel)
 
     def train_step(params, opt_state, batch):
@@ -165,11 +173,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 (_, (l_mb, a_mb)), g_mb = value_and_grad(loss_fn, params,
                                                           mb)
                 g_mb = _compress(g_mb, tcfg.grad_compress)
-                grads = tree.map(torch.add, grads, g_mb)
+                if donate:
+                    for acc, g in zip(tree.leaves(grads), tree.leaves(g_mb)):
+                        acc.add_(g)
+                else:
+                    grads = tree.map(torch.add, grads, g_mb)
+                del g_mb
                 loss = l_mb if loss is None else loss + l_mb
                 aux = a_mb if aux is None else aux + a_mb
             loss, aux = loss / n, aux / n
-            grads = tree.map(lambda g: g / n, grads)
+            if donate:
+                for g in tree.leaves(grads):
+                    g.div_(n)
+            else:
+                grads = tree.map(lambda g: g / n, grads)
         else:
             (_, (loss, aux)), grads = value_and_grad(loss_fn, params, batch)
             grads = _compress(grads, tcfg.grad_compress)

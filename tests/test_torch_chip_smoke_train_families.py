@@ -34,6 +34,21 @@ def test_family_table_covers_every_family_but_dense():
     assert cs.FAMILY_TRAIN["whisper-small"][2][0] == whisper.n_layers
 
 
+def test_deepseek_run_keeps_its_dense_layer_and_three_moe_layers():
+    """The donating step fits deepseek-moe-16b's run at 4 layers on the
+    card: its dense layer and 3 MoE layers, two flash calls a layer and
+    step (the forward and the remat recompute)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("deepseek-moe-16b")
+    _, gate, run = cs.FAMILY_TRAIN["deepseek-moe-16b"]
+    assert run == (4, 3, 2, 1024)
+    cut = cs.cut_depth(cfg, run[0])
+    assert (cut.n_layers, cut.n_dense_layers, cut.remat) == (4, 1, True)
+    assert 2 * cut.n_layers == 8   # flash launches a step, as the phase
+    assert cs.PURE_STEP_PEAKS["train_deepseek"]["float32"][0] == 3
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_family_phase_rehearsed_on_cpu(arch, tmp_path):
     """Each family's phase at smoke width: the gate (kernel route against
@@ -74,6 +89,10 @@ def test_train_family_phase_rehearsed_on_cpu(arch, tmp_path):
                             "hybrid": "fit"}.get(cfg.family, "train.step")
     assert len(timed["losses"]) == len(timed["float32_losses"]) == RUN[1]
     assert timed["peak_bytes"] is None   # no card: not measured
+    assert set(rec["peaks"]) == {"bf16", "plain_bf16", "float32"} | (
+        {"fp8"} if cfg.is_moe else set())
+    assert all(p["peak_bytes"] is None and p["share_of_pure_step"] is None
+               for p in rec["peaks"].values())
     assert (rec["fp8_step"] is not None) == cfg.is_moe
     if cfg.is_moe:
         assert rec["fp8_step"]["fp8_expert_gather"] is True
