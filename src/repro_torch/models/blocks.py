@@ -22,11 +22,13 @@ from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
-from ..parallel.api import (constrain, current_rules, is_distributed,
+from ..parallel.api import (constrain, current_rules, grad_placements,
+                            hold, is_distributed, local_map, whole,
                             write_into)
-from .layers import (attention, glu_ffn, merge_heads, mesh_axes,
-                     mesh_placements, reduce_model, rms_norm, rope,
-                     split_heads, whole_over_model)
+from .layers import (attention, gathered, glu_ffn, linear, merge_heads,
+                     mesh_axes, mesh_placements, reduce_model, rms_norm, rope,
+                     split_heads, split_last, split_over_model,
+                     whole_over_model)
 
 HUGE_WINDOW = 1 << 30
 #: the profiler range the dropless expert products run in
@@ -43,9 +45,9 @@ def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
     B, S, _ = x.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+    q = linear(h, p["wq"])
+    k = linear(h, p["wk"])
+    v = linear(h, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -83,7 +85,7 @@ def attn_block(cfg: ModelConfig, p, x, positions, window=None, cache=None,
     else:
         out = attention(cfg, q, k, v, causal=causal, window=window,
                         softcap=cfg.attn_softcap, use_kernel=use_kernel)
-    out = reduce_model(merge_heads(out, B, S, Hq * D) @ p["wo"])
+    out = reduce_model(linear(merge_heads(out, B, S, Hq * D), p["wo"]))
     if "post_ln" in p:  # gemma2 post-attention norm
         out = rms_norm(out, p["post_ln"], cfg.rms_eps)
     return out, cache
@@ -152,8 +154,8 @@ def _cached_kv(cache: dict, end: int | None, dtype):
 def ffn_block(cfg: ModelConfig, p, x):
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
     if cfg.act == "gelu_mlp":
-        out = reduce_model(F.gelu(h @ p["wi"], approximate="tanh")
-                           @ p["wo_ff"])
+        out = reduce_model(linear(F.gelu(linear(h, p["wi"]),
+                                         approximate="tanh"), p["wo_ff"]))
     else:
         out = glu_ffn(h, p["wi"], p["wo_ff"], cfg.act)
     if "post_ln2" in p:
@@ -177,8 +179,11 @@ def _moe_route(cfg: ModelConfig, p, ht):
     over the k.  ``ht``'s leading axes are arbitrary.  Returns ``(probs
     [..., E], gate_vals [..., K], onehot [..., K, E])``, all float32."""
     # every expert's logit on every model rank (the router's columns are
-    # sharded over model): the softmax and top-k then split no token
-    logits = whole_over_model(ht.float() @ p["router"].float())
+    # sharded over model): the softmax and top-k then split no token; the
+    # router's gradient of ht at ht's placements before it meets the
+    # experts'
+    logits = whole_over_model(hold(ht).float()
+                              @ gathered(p["router"]).float())
     probs = torch.softmax(logits, dim=-1)
     gate_idx = topk_lowest_index(probs, cfg.top_k)[1]
     return (probs, *_moe_gates(probs, gate_idx, cfg.n_experts))
@@ -212,8 +217,11 @@ def _moe_expert_weights(p, cdt):
 def _moe_aux_loss(cfg: ModelConfig, probs, onehot):
     """Switch-style load-balance loss over every token and choice."""
     E = cfg.n_experts
-    me = probs.reshape(-1, E).mean(dim=0)
-    ce = onehot.reshape(-1, E).mean(dim=0)
+    # on a mesh the means over the tokens are made whole (their gradient
+    # too, and the probabilities' back at their own placements before it
+    # meets the gates'), so the product meets no partial sum
+    me = whole(hold(probs).reshape(-1, E).mean(dim=0))
+    ce = whole(onehot.reshape(-1, E).mean(dim=0))
     return E * torch.sum(me * ce)
 
 
@@ -249,10 +257,14 @@ def moe_block(cfg: ModelConfig, p, x):
     comb = _dispatch_einsum("ngke,ngkc,ngk->ngec", onehot, slot_oh,
                             gate_vals).to(cdt)
     comb = constrain(comb, "moe_dispatch")
-    yt = _dispatch_einsum("necd,ngec->ngd", ye, comb)
+    # the combine's partial sums over model added here, before the shared
+    # experts' output meets them
+    yt = reduce_model(_dispatch_einsum("necd,ngec->ngd", ye, comb))
     out = yt.reshape(B, S, d).to(x.dtype)
     if cfg.n_shared_experts > 0:
-        out = out + glu_ffn(h, p["ws_i"], p["ws_o"], "swiglu")
+        # the shared experts' gradient of h at h's placements before it
+        # meets the router's and the dispatch's
+        out = out + glu_ffn(hold(h), p["ws_i"], p["ws_o"], "swiglu")
     return out, _moe_aux_loss(cfg, probs, onehot)
 
 
@@ -270,7 +282,6 @@ def _dispatch_einsum(eq: str, *ts):
     if not is_distributed(ts[0]):
         return torch.einsum(eq, *ts)
     from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
 
     subs, res = eq.split("->")
     subs = subs.split(",")
@@ -294,7 +305,7 @@ def _dispatch_einsum(eq: str, *ts):
                      out_placements=partial(res),
                      in_placements=tuple(pl(s) for s in subs),
                      in_grad_placements=tuple(partial(s) for s in subs),
-                     device_mesh=mesh, redistribute_inputs=True)(*ts)
+                     device_mesh=mesh)(*ts)
 
 
 def _expert_ffn(xe, we_i, we_o):
@@ -314,7 +325,6 @@ def _capacity_experts(xe, we_i, we_o):
     if not is_distributed(xe):
         return _expert_ffn(xe, we_i, we_o)
     from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
 
     mesh = xe.device_mesh
     dp, n_dp, mp = mesh_axes(mesh)
@@ -330,7 +340,7 @@ def _capacity_experts(xe, we_i, we_o):
     return local_map(_expert_ffn, out_placements=x_pl,
                      in_placements=(x_pl, w_pl, w_pl),
                      in_grad_placements=(x_pl, wg_pl, wg_pl),
-                     device_mesh=mesh, redistribute_inputs=True)(
+                     device_mesh=mesh)(
                          xe, we_i, we_o)
 
 
@@ -363,7 +373,6 @@ def _dropless_on_mesh(ht, we_i, we_o, weight):
     the ranks' partial results over ``model``
     (:func:`repro_torch.models.layers.reduce_model`)."""
     from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
 
     mesh = ht.device_mesh
     dp, n_dp, mp = mesh_axes(mesh)
@@ -377,8 +386,8 @@ def _dropless_on_mesh(ht, we_i, we_o, weight):
               for n, p in zip(mesh.mesh_dim_names, x_pl)]
     return reduce_model(local_map(
         _dropless_experts, out_placements=out_pl,
-        in_placements=(x_pl, w_pl, w_pl, g_pl), device_mesh=mesh,
-        redistribute_inputs=True)(ht, we_i, we_o, weight))
+        in_placements=(x_pl, w_pl, w_pl, g_pl), device_mesh=mesh)(
+            ht, we_i, we_o, weight))
 
 
 def moe_block_dropless(cfg: ModelConfig, p, x):
@@ -404,7 +413,7 @@ def moe_block_dropless(cfg: ModelConfig, p, x):
         yt = _dropless_experts(ht, we_i, we_o, weight.to(cdt))
     out = yt.reshape(B, S, d).to(x.dtype)
     if cfg.n_shared_experts > 0:
-        out = out + glu_ffn(h, p["ws_i"], p["ws_o"], "swiglu")
+        out = out + glu_ffn(hold(h), p["ws_i"], p["ws_o"], "swiglu")
     return out, _moe_aux_loss(cfg, probs, onehot)
 
 
@@ -426,19 +435,56 @@ def _causal_conv(x, w, state=None):
     return out, new_state
 
 
-def _scan(fn, xh, dt, A, Bm, Cm, *state):
+def _conv(x, w, state=None):
+    """:func:`_causal_conv`; on DTensors under ``local_map``: each rank on
+    its own rows and channels (``x`` at its placements, ``w``'s channels
+    split as ``x``'s, the state laid out as ``x``), ``w``'s gradient
+    partial over the mesh dimensions that split the rows."""
+    if not is_distributed(x) or w.shape[0] == 1:
+        return _causal_conv(x, w, state)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    x_pl = grad_placements(x.placements)
+    w_pl = [Shard(1) if p.is_shard(2) else Replicate() for p in x_pl]
+    w_grad = [Partial() if p.is_shard() and not p.is_shard(2) else q
+              for p, q in zip(x_pl, w_pl)]
+    ins, grads = (x_pl, w_pl), (x_pl, w_grad)
+    if state is not None:
+        ins, grads = ins + (x_pl,), grads + (x_pl,)
+    return local_map(_causal_conv, out_placements=(x_pl, x_pl),
+                     in_placements=ins, in_grad_placements=grads,
+                     device_mesh=x.device_mesh)(
+                         x, w, *(() if state is None else (state,)))
+
+
+def _plus_skip(out, xh, skip):
+    """A scan's output ``y`` (or ``(y, state)``) plus the skip term
+    ``xh * skip`` per head (``skip`` ``[H]``, the D of Mamba-2)."""
+    if isinstance(out, tuple):
+        return (out[0] + xh * skip[:, None],) + out[1:]
+    return out + xh * skip[:, None]
+
+
+def _scan(fn, xh, dt, A, Bm, Cm, *state, skip=None):
     """``fn(xh, dt, A, Bm, Cm[, h])``, an SSD scan or recurrence (``xh``
     ``[B, S, H, P]``, ``dt`` ``[B, S, H]``, ``A`` ``[H]``, ``Bm`` / ``Cm``
-    ``[B, S, N]``, the state ``h`` ``[B, H, P, N]``); on DTensors under
+    ``[B, S, N]``, the state ``h`` ``[B, H, P, N]``), plus ``xh * skip``
+    per head where ``skip`` ``[H]`` is given; on DTensors under
     ``local_map``: each rank scans its own batch rows (over the data
     axes, when they divide B) and heads (over ``model``, when it divides
     H) as one device does, so no step of the scan communicates.  A
-    rank's gradient of ``A`` covers its own rows (partial over the data
-    axes), of ``Bm`` / ``Cm`` its own heads (partial over ``model``)."""
+    rank's gradient of ``A`` (and ``skip``) covers its own rows (partial
+    over the data axes), of ``Bm`` / ``Cm`` its own heads (partial over
+    ``model``)."""
+    run, args = fn, (xh, dt, A, Bm, Cm)
+    if skip is not None:
+        def run(x, d, a, b, c, D, *s):
+            return _plus_skip(fn(x, d, a, b, c, *s), x, D)
+
+        args += (skip,)
     if not is_distributed(xh):
-        return fn(xh, dt, A, Bm, Cm, *state)
+        return run(*args, *state)
     from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
 
     mesh = xh.device_mesh
     dp, n_dp, mp = mesh_axes(mesh)
@@ -454,12 +500,14 @@ def _scan(fn, xh, dt, A, Bm, Cm, *state):
     x_pl, a_pl, bc_pl, h_pl = pl(b, 2), pl(None, 0), pl(b, None), pl(b, 1)
     a_grad = pl(None, 0, dp if b is not None else ())
     bc_grad = pl(b, None, ("model",) if hd else ())
-    ins = (x_pl, x_pl, a_pl, bc_pl, bc_pl) + (h_pl,) * len(state)
-    grads = (x_pl, x_pl, a_grad, bc_grad, bc_grad) + (h_pl,) * len(state)
-    return local_map(fn, out_placements=(x_pl, h_pl) if state else x_pl,
+    n_skip = len(args) - 5
+    ins = ((x_pl, x_pl, a_pl, bc_pl, bc_pl) + (a_pl,) * n_skip
+           + (h_pl,) * len(state))
+    grads = ((x_pl, x_pl, a_grad, bc_grad, bc_grad) + (a_grad,) * n_skip
+             + (h_pl,) * len(state))
+    return local_map(run, out_placements=(x_pl, h_pl) if state else x_pl,
                      in_placements=ins, in_grad_placements=grads,
-                     device_mesh=mesh, redistribute_inputs=True)(
-                         xh, dt, A, Bm, Cm, *state)
+                     device_mesh=mesh)(*args, *state)
 
 
 def ssd_block(cfg: ModelConfig, p, x, cache=None, use_kernel: bool = True):
@@ -474,42 +522,49 @@ def ssd_block(cfg: ModelConfig, p, x, cache=None, use_kernel: bool = True):
     B, S, _ = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
-    proj = h @ p["in_proj"]     # [B, S, HP + HP + N + N + H]
-    zx, xin, Bm, Cm, dt = torch.split(proj, [H * P, H * P, N, N, H], dim=-1)
+    # [B, S, HP + HP + N + N + H]; on a mesh made whole over ``model``
+    # here, as the split below needs (its pieces do not follow the
+    # shards), with its gradient back at the product's placements, a
+    # local slice, so the product's backward stays split over ``model``
+    proj = whole_over_model(linear(h, p["in_proj"]))
+    zx, xin, Bm, Cm, dt = split_last(proj, [H * P, H * P, N, N, H])
     # softplus as jax.nn.softplus forms it: logaddexp(x, 0)
     dt = torch.logaddexp(dt.float() + p["dt_bias"],
                          torch.zeros((), device=x.device))      # [B, S, H]
     A = -torch.exp(p["a_log"].float())                   # [H]
     conv_state = cache["conv"] if cache is not None else None
-    xin, new_conv = _causal_conv(xin, p["conv_w"], conv_state)
+    # on a mesh the heads' channels are split over model from here on
+    # where model divides the heads (each rank convolves its own)
+    heads_split = is_distributed(x) and H % mesh_axes(x.device_mesh)[2] == 0
+    if heads_split:
+        xin, zx = split_over_model(xin), split_over_model(zx)
+    xin, new_conv = _conv(xin, p["conv_w"], conv_state)
     xin = F.silu(xin.float()).to(x.dtype)
     xh = split_heads(xin, B, S, H, P)
+    # the skip term (jnp.repeat's each head's D over its P channels) is
+    # added per head with the scan, on each rank's own heads
+    skip = p["d_skip"].to(x.dtype)
     if cache is not None:
         # recurrent decode: S small (1 per decode step; the prompt length
         # at prefill)
         y, hst = _scan(ref.ssd_recurrence, xh, dt, A, Bm, Cm,
-                       cache["ssm"].float())
+                       cache["ssm"].float(), skip=skip)
         write_into(cache["conv"], new_conv)
         write_into(cache["ssm"], hst)
     elif use_kernel:
-        y = _scan(ops.ssd_scan, xh, dt, A, Bm, Cm)
+        y = _scan(ops.ssd_scan, xh, dt, A, Bm, Cm, skip=skip)
     elif cfg.ssd_chunk and S % cfg.ssd_chunk == 0 and S > cfg.ssd_chunk:
         y = _scan(lambda *a: ref.ssd_scan_chunked_ref(*a,
                                                       chunk=cfg.ssd_chunk),
-                  xh, dt, A, Bm, Cm)
+                  xh, dt, A, Bm, Cm, skip=skip)
     else:
-        y = _scan(ref.ssd_scan_ref, xh, dt, A, Bm, Cm)
+        y = _scan(ref.ssd_scan_ref, xh, dt, A, Bm, Cm, skip=skip)
     # on a mesh whose model axis does not divide H the heads are whole on
     # every rank (split_heads), and merge_heads keeps their gradients so
     y = merge_heads(y, B, S, H * P)
-    # jnp.repeat: each head's skip weight repeated over its P channels
-    # (its gradient, too, held whole for the repeat's backward)
-    d_skip = merge_heads(p["d_skip"].to(x.dtype).repeat_interleave(P),
-                         H * P)
-    y = y + merge_heads(xh, B, S, H * P) * d_skip
     y = y.to(x.dtype) * F.silu(zx.float()).to(x.dtype)
-    out = reduce_model(rms_norm(y, p["out_ln"], cfg.rms_eps)
-                       @ p["out_proj"])
+    out = reduce_model(linear(rms_norm(y, p["out_ln"], cfg.rms_eps),
+                              p["out_proj"]))
     return out, cache
 
 

@@ -9,15 +9,18 @@ kernel on a CUDA tensor and runs the plain version on a CPU tensor;
 attention, or, under ``cfg.chunked_local_attn`` and the reference's
 conditions (:func:`chunked_applies`), :func:`local_chunked_attention`.
 
-On a mesh the activations and weights are DTensors, and every op but
-attention runs by DTensor's own rules.  Attention runs under
-``local_map`` (:func:`attention_on_mesh`): each rank attends with its own
-batch rows (``data``) and heads (``model``), through the same route as
-on one device; :func:`reduce_model` sums a row-sharded product's partial
-results over ``model``.
+On a mesh the activations and weights are DTensors.  Attention runs
+under ``local_map`` (:func:`attention_on_mesh`): each rank attends with
+its own batch rows (``data``) and heads (``model``), through the same
+route as on one device; RMSNorm likewise on its own rows.  A product
+with a weight goes through :func:`linear`, which settles the weight's
+split over the data axes, so its operands meet at placements that leave
+DTensor no layout to choose; :func:`reduce_model` sums a row-sharded
+product's partial results over ``model``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,7 +28,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..parallel.api import is_distributed
+from ..parallel.api import (all_reduce, grad_placements, is_distributed,
+                            local_map, redistribute)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -46,10 +50,51 @@ def wide(t: torch.Tensor) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
+    if is_distributed(x):
+        return _rms_norm_on_mesh(x, w, eps)
+    return _rms_norm_local(x, w, eps)
+
+
+def _rms_norm_local(x, w, eps: float, mesh=None, split=(), width=None):
+    """:func:`rms_norm` of local tensors; where ``x``'s last dimension is
+    split over ``mesh``'s dimensions ``split``, its sum of squares is
+    summed over those ranks (``width`` wide in all)."""
     x32 = wide(x)
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if split:
+        ss = torch.sum(x32 * x32, dim=-1, keepdim=True)
+        for m in split:
+            ss = all_reduce(ss, mesh, m)
+        var = ss / width
+    else:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + wide(w))).to(x.dtype)
+
+
+def _rms_norm_on_mesh(x, w, eps: float):
+    """:func:`rms_norm` of a DTensor under ``local_map``, each rank on its
+    own rows: ``x`` at its own placements (a partial sum there made whole
+    first), the output alike and ``x``'s gradient at them, so the
+    residual stream's gradients meet at one placement.  Where ``x``'s
+    last dimension is split (the SSD block's heads over ``model``) the
+    sum of squares is summed over those ranks, a ``[..., 1]`` all-reduce,
+    as the reference's partitioner does.  ``w`` is split as that
+    dimension is; its gradient is partial over the mesh dimensions that
+    split the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, last = x.device_mesh, x.ndim - 1
+    x_pl = grad_placements(x.placements)
+    split = [m for m, p in enumerate(x_pl) if p.is_shard(last)]
+    w_pl = [Shard(0) if m in split else Replicate()
+            for m in range(mesh.ndim)]
+    w_grad = [Partial() if p.is_shard() and not p.is_shard(last) else q
+              for p, q in zip(x_pl, w_pl)]
+    local = functools.partial(_rms_norm_local, eps=eps, mesh=mesh,
+                              split=split, width=x.shape[-1])
+    return local_map(local, out_placements=x_pl, in_placements=(x_pl, w_pl),
+                     in_grad_placements=(x_pl, w_grad),
+                     device_mesh=mesh)(x, w)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
@@ -203,8 +248,8 @@ def split_heads(t, *shape):
         n = math.prod(mesh.size(m) for m, p in enumerate(t.placements)
                       if p.is_shard(last))
         if shape[-2] % n:
-            t = t.redistribute(mesh, [Replicate() if p.is_shard(last) else p
-                                      for p in t.placements])
+            t = redistribute(t, [Replicate() if p.is_shard(last) else p
+                                 for p in t.placements])
     return t.reshape(*shape)
 
 
@@ -217,7 +262,7 @@ def merge_heads(t, *shape):
     out = t.reshape(*shape)
     if is_distributed(out) and not any(p.is_shard(out.ndim - 1)
                                        for p in out.placements):
-        out = out.redistribute(out.device_mesh, out.placements)
+        out = redistribute(out, out.placements)
     return out
 
 
@@ -253,7 +298,6 @@ def attention_on_mesh(fn, q, k, v):
     split.  The local tensors are made contiguous, the layout the kernel
     reads."""
     from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
     B, _, Hq, _ = q.shape
@@ -283,7 +327,7 @@ def attention_on_mesh(fn, q, k, v):
     return local_map(local, out_placements=q_pl,
                      in_placements=(q_pl, kv_pl, kv_pl),
                      in_grad_placements=(q_pl, kv_grad, kv_grad),
-                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+                     device_mesh=mesh)(q, k, v)
 
 
 def cross_attention(q, k, v):
@@ -306,8 +350,126 @@ def reduce_model(x):
         return x
     from torch.distributed.tensor import Replicate
 
-    return x.redistribute(x.device_mesh, [
-        Replicate() if p.is_partial() else p for p in x.placements])
+    return redistribute(x, [Replicate() if p.is_partial() else p
+                            for p in x.placements])
+
+
+def gathered(w):
+    """A weight DTensor gathered over the data axes for a product (FSDP:
+    every mesh dimension but ``model`` made replicated, as the reference
+    gathers its ``d``-sharded weights), its gradient returned to the
+    weight's own placements (a reduce-scatter over them); a plain tensor
+    as it is.  The product's operands then meet at placements that leave
+    DTensor no layout to choose."""
+    if not is_distributed(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    want = [p if n == "model" else Replicate()
+            for n, p in zip(w.device_mesh.mesh_dim_names, w.placements)]
+    return redistribute(w, want)
+
+
+def linear(x, w):
+    """``x @ w`` for a weight ``w [d, n]``.  On a mesh the data axes'
+    split of the weight (FSDP: its rows for a column-parallel weight, its
+    columns for a row-parallel one) is settled here, by the elements a
+    rank receives each way: the weight gathered over them
+    (:func:`gathered`), or, where that moves less (a decode step's few
+    rows), the product taken on the weight's own shards, its result then
+    moved to ``x``'s row placement.  Split rows are contracted: ``x``'s
+    last dimension split as them, the partial sums reduced.  Split
+    columns are kept: ``x``'s rows made whole over those axes, the
+    output's column blocks moved back.  Both are taken only outside
+    autograd: the rule counts the forward's moves alone, and their
+    backward would move the output's gradient over the data axes
+    besides.  Either way the product's operands meet at placements that
+    leave DTensor no layout to choose."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if grad or not (is_distributed(x) and is_distributed(w)) or w.ndim != 2:
+        return x @ gathered(w)
+    mesh, last = w.device_mesh, x.ndim - 1
+    names = mesh.mesh_dim_names
+    data = [m for m, (n, p) in enumerate(zip(names, w.placements))
+            if n != "model" and p.is_shard()]
+    if not data:
+        return x @ gathered(w)
+    x_pl = grad_placements(x.placements)
+    k = w.placements[data[0]].dim     # 0: rows split, 1: columns
+    if any(w.placements[m].dim != k for m in data) or any(
+            x_pl[m].is_shard(last)
+            and (m in data or not w.placements[m].is_shard(0))
+            for m in range(mesh.ndim)):
+        return x @ gathered(w)
+    n = math.prod(mesh.size(m) for m in data)
+    shards = math.prod(mesh.size(m) for m, p in enumerate(w.placements)
+                       if p.is_shard())
+    rows = x.numel() // x.shape[-1]
+    split_rows = any(x_pl[m].is_shard() for m in data)
+    # elements a rank receives: the weight's other blocks over the data
+    # axes; or x and the product moved
+    gather = w.numel() // shards * (n - 1)
+    if k == 0:
+        # x's rows moved to a split last dimension, the partial sums
+        # reduced (scattered back to split rows, or whole)
+        cols = w.shape[1] * n // shards
+        contract = ((rows * x.shape[-1] // n if split_rows else 0)
+                    + rows * cols * (1 if split_rows else 2))
+    else:
+        # x's split rows gathered, the product's column blocks moved back
+        # to them (or gathered whole)
+        width = w.shape[0] * n // shards
+        contract = ((rows * width if split_rows else 0)
+                    + rows * w.shape[1] // n * (1 if split_rows else n - 1))
+    if gather <= contract:
+        return x @ gathered(w)
+    from torch.distributed.tensor import Replicate, Shard
+
+    # x at the weight's shards: over the data axes its last dimension
+    # split (rows) or its rows whole (columns); over model its last
+    # dimension split where the weight's rows are
+    want = [(Shard(last) if k == 0 else Replicate()) if m in data
+            else Shard(last) if w.placements[m].is_shard(0) else p
+            for m, p in enumerate(x_pl)]
+    y = redistribute(x, want) @ w
+    return redistribute(y, [x_pl[m] if m in data else p
+                            for m, p in enumerate(y.placements)])
+
+
+def split_last(x, sizes):
+    """``torch.split(x, sizes, dim=-1)``; on a DTensor (its last dimension
+    whole) each rank splits its own rows, every piece and its gradient at
+    ``x``'s placements."""
+    if not is_distributed(x):
+        return torch.split(x, sizes, dim=-1)
+    pl = grad_placements(x.placements)
+    return local_map(lambda t: torch.split(t, sizes, dim=-1),
+                     out_placements=(pl,) * len(sizes), in_placements=(pl,),
+                     device_mesh=x.device_mesh)(x)
+
+
+def split_over_model(x):
+    """A DTensor split over ``model`` on its last dimension (a local slice
+    where it is whole there), its gradient held so, so that a product
+    with a weight whose rows are split over ``model`` runs split in both
+    passes; ``x`` itself on a plain tensor, or where ``model`` splits
+    another dimension or does not divide that one."""
+    if not is_distributed(x):
+        return x
+    from torch.distributed.tensor import Shard
+
+    mesh, last = x.device_mesh, x.ndim - 1
+    names = mesh.mesh_dim_names
+    if "model" not in names:
+        return x
+    m = names.index("model")
+    if x.shape[last] % mesh.size(m) or not (
+            x.placements[m].is_replicate()
+            or x.placements[m].is_shard(last)):
+        return x
+    want = tuple(Shard(last) if i == m else p
+                 for i, p in enumerate(x.placements))
+    return redistribute(x, want, want)
 
 
 def whole_over_model(x):
@@ -321,7 +483,7 @@ def whole_over_model(x):
     mesh = x.device_mesh
     want = tuple(Replicate() if n == "model" else p
                  for n, p in zip(mesh.mesh_dim_names, x.placements))
-    return x if want == tuple(x.placements) else x.redistribute(mesh, want)
+    return x if want == tuple(x.placements) else redistribute(x, want)
 
 
 def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=None,
@@ -373,8 +535,12 @@ def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=None,
 
 
 def glu_ffn(x, wi, wo, act: str):
-    """wi: ``[d, 2F]`` fused gate+up; wo: ``[F, d]``."""
-    h = x @ wi
+    """wi: ``[d, 2F]`` fused gate+up; wo: ``[F, d]``.  On a mesh the
+    product is made whole over ``model`` before the halves are taken (a
+    rank's columns are gate or up, not both), and its gradient is held
+    back at the product's placements, a local slice, so the product's
+    backward stays split over ``model``."""
+    h = whole_over_model(linear(x, wi))
     gate, up = torch.chunk(h, 2, dim=-1)
     if act == "swiglu":
         g = F.silu(wide(gate)).to(x.dtype)
@@ -382,7 +548,7 @@ def glu_ffn(x, wi, wo, act: str):
         g = F.gelu(wide(gate), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(act)
-    return reduce_model((g * up) @ wo)
+    return reduce_model(linear(split_over_model(g * up), wo))
 
 
 #: a stacked leaf with more elements than this (8 GiB as float32) is drawn

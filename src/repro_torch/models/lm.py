@@ -29,11 +29,13 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tree
 from ..configs.base import ModelConfig
-from ..parallel.api import constrain, is_distributed
+from ..parallel.api import (constrain, is_distributed, local_map,
+                            redistribute)
 from . import blocks
 from .blocks import HUGE_WINDOW
 from .layers import (cross_attention, dtype_of, gen_device, init_dense,
-                     merge_heads, reduce_model, rms_norm, split_heads, wide)
+                     linear, merge_heads, reduce_model, rms_norm,
+                     split_heads, wide)
 
 
 #: leaves that stay float32 whatever ``param_dtype`` is (the SSD's step
@@ -206,7 +208,6 @@ def _embed_on_mesh(w, tokens):
     dimensions that split the rows, sharded over those that split the
     columns; the table's gradient is each rank's own slice, whole."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
 
     mesh = w.device_mesh
     rows = [m for m, p in enumerate(w.placements) if p.is_shard(0)]
@@ -232,7 +233,7 @@ def _embed_on_mesh(w, tokens):
     return local_map(lookup, out_placements=out_pl,
                      in_placements=(rep, w.placements),
                      in_grad_placements=(rep, w.placements),
-                     device_mesh=mesh, redistribute_inputs=True)(tokens, w)
+                     device_mesh=mesh)(tokens, w)
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
@@ -249,12 +250,27 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
     return emb.to(dtype_of(cfg.compute_dtype))
 
 
+def _vocab_over_model(w):
+    """The unembedding ``w [d, V]`` with the vocabulary split over
+    ``model`` (in DTensor's chunks where ``model`` does not divide it), so
+    the product runs split, and its gradient back at the table's own
+    placements, as the lookup's is (:func:`_embed_on_mesh`), before the
+    two gradients of a tied table meet; a plain ``w`` as it is."""
+    if not is_distributed(w) or "model" not in w.device_mesh.mesh_dim_names:
+        return w
+    from torch.distributed.tensor import Shard
+
+    m = w.device_mesh.mesh_dim_names.index("model")
+    return redistribute(w, [Shard(1) if i == m else p
+                            for i, p in enumerate(w.placements)])
+
+
 def unembed(cfg: ModelConfig, params, x):
     x = rms_norm(x, params["ln_f"], cfg.rms_eps)
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].T
-    logits = x @ w.to(x.dtype)
+    logits = linear(x, _vocab_over_model(w).to(x.dtype))
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(
             wide(logits) / cfg.logit_softcap).to(x.dtype)
@@ -310,11 +326,11 @@ def _cross_attn(cfg: ModelConfig, p, x, enc):
     B, S, _ = x.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["x_ln"], cfg.rms_eps)
-    q = split_heads(h @ p["x_wq"], B, S, Hq, D)
-    k = split_heads(enc @ p["x_wk"], B, enc.shape[1], Hkv, D)
-    v = split_heads(enc @ p["x_wv"], B, enc.shape[1], Hkv, D)
+    q = split_heads(linear(h, p["x_wq"]), B, S, Hq, D)
+    k = split_heads(linear(enc, p["x_wk"]), B, enc.shape[1], Hkv, D)
+    v = split_heads(linear(enc, p["x_wv"]), B, enc.shape[1], Hkv, D)
     out = cross_attention(q, k, v)
-    return reduce_model(merge_heads(out, B, S, Hq * D) @ p["x_wo"])
+    return reduce_model(linear(merge_heads(out, B, S, Hq * D), p["x_wo"]))
 
 
 def _local(t):
@@ -361,8 +377,11 @@ def forward(cfg: ModelConfig, params, tokens, *, patch_embeds=None,
     attention either way."""
     x = embed_tokens(cfg, params, tokens)
     if cfg.family == "vlm" and patch_embeds is not None:
-        pe = patch_embeds.to(x.dtype) @ params["patch_proj"]
-        x = torch.cat([pe, x], dim=1)
+        pe = linear(patch_embeds.to(x.dtype), params["patch_proj"])
+        # both pinned to the activation rule, so the concatenation meets
+        # one placement
+        x = torch.cat([constrain(pe, "activation"),
+                       constrain(x, "activation")], dim=1)
     B, S, _ = x.shape
     x = constrain(x, "activation")
     positions = torch.arange(S, device=_local(x).device)[None, :].expand(B, S)

@@ -4,7 +4,10 @@
 * :mod:`.api` — the sharding-constraint side channel: ``constrain`` names
   an intermediate, a rule table installed by ``sharding_rules`` maps
   names to specs; on a mesh it redistributes the DTensor to the rule's
-  placements, on one device it returns its input unchanged.
+  placements and holds its gradient there, on one device it returns its
+  input unchanged.  ``redistribute``, ``hold`` and the port's own
+  ``local_map`` name every gradient's placement, so a sharded step lays
+  out alike on every torch version.
 * :mod:`.sharding` — the rule tables: parameter, optimizer, batch, cache
   and activation specs per (config, mesh), pure functions of the config,
   a mesh (a :class:`repro_torch.launch.mesh.Mesh` record or a

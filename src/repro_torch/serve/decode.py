@@ -31,8 +31,8 @@ import torch
 from .. import tree
 from ..configs.base import ModelConfig
 from ..models import blocks
-from ..models.layers import (cross_attention, merge_heads, reduce_model,
-                             rms_norm, split_heads)
+from ..models.layers import (cross_attention, linear, merge_heads,
+                             reduce_model, rms_norm, split_heads)
 from ..models.lm import embed_tokens, encode, layer_params, stacks, unembed
 from ..parallel.api import constrain, is_distributed, on_mesh, write_into
 from .kvcache import init_cache
@@ -46,9 +46,9 @@ def _cross_attn_cached(cfg: ModelConfig, p, x, layer):
     B, S, _ = x.shape
     Hq, D = cfg.n_heads, cfg.hd
     h = rms_norm(x, p["x_ln"], cfg.rms_eps)
-    q = split_heads(h @ p["x_wq"], B, S, Hq, D)
+    q = split_heads(linear(h, p["x_wq"]), B, S, Hq, D)
     out = cross_attention(q, layer["xk"], layer["xv"])
-    return reduce_model(merge_heads(out, B, S, Hq * D) @ p["x_wo"])
+    return reduce_model(linear(merge_heads(out, B, S, Hq * D), p["x_wo"]))
 
 
 def _layer_step(cfg: ModelConfig, x, p, layer, window, positions,
@@ -107,9 +107,11 @@ def _encode_to_cache(cfg: ModelConfig, params, cache, encoder_feats,
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         write_into(cache["xk"][i],
-                   split_heads(enc @ p["x_wk"].to(dt), Be, Te, Hkv, D))
+                   split_heads(linear(enc, p["x_wk"].to(dt)), Be, Te, Hkv,
+                               D))
         write_into(cache["xv"][i],
-                   split_heads(enc @ p["x_wv"].to(dt), Be, Te, Hkv, D))
+                   split_heads(linear(enc, p["x_wv"].to(dt)), Be, Te, Hkv,
+                               D))
 
 
 def prefill(cfg: ModelConfig, params, cache, tokens, *, encoder_feats=None,
@@ -121,8 +123,9 @@ def prefill(cfg: ModelConfig, params, cache, tokens, *, encoder_feats=None,
     with on_mesh(tree.leaves(params)):
         x = embed_tokens(cfg, params, tokens)
         if cfg.family == "vlm" and patch_embeds is not None:
-            pe = patch_embeds.to(x.dtype) @ params["patch_proj"]
-            x = torch.cat([pe, x], dim=1)
+            pe = linear(patch_embeds.to(x.dtype), params["patch_proj"])
+            x = torch.cat([constrain(pe, "activation"),
+                           constrain(x, "activation")], dim=1)
         B, S, _ = x.shape
         positions = _positions(x, 0, B, S)
         x = constrain(x, "activation")

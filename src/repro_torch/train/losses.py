@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..models.layers import wide, wide_type
 from ..models.lm import unembed
+from ..parallel.api import whole
 
 PAD_ID = 0
 
@@ -41,9 +42,9 @@ def _gold(logits, labels):
     if not isinstance(logits, DTensor):
         return torch.gather(logits, -1, labels[..., None])[..., 0]
     from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
 
-    from ..models.layers import mesh_axes, mesh_placements
+    from ..models.layers import mesh_axes, mesh_placements, reduce_model
+    from ..parallel.api import local_map
 
     mesh = logits.device_mesh
     dp, n_dp, mp = mesh_axes(mesh)
@@ -57,18 +58,19 @@ def _gold(logits, labels):
     out = mesh_placements(mesh, rows)
     out = [Partial() if n == "model" else p
            for n, p in zip(mesh.mesh_dim_names, out)]
-    return local_map(pick, out_placements=out,
-                     in_placements=(mesh_placements(mesh, {**rows,
-                                                           "model": 2}),
-                                    mesh_placements(mesh, rows)),
-                     device_mesh=mesh, redistribute_inputs=True)(
-                         logits, labels)
+    # the ranks' picks summed here, so the loss's terms meet at one
+    # placement
+    return reduce_model(local_map(
+        pick, out_placements=out,
+        in_placements=(mesh_placements(mesh, {**rows, "model": 2}),
+                       mesh_placements(mesh, rows)),
+        device_mesh=mesh)(logits, labels))
 
 
 def _chunk_loss(cfg: ModelConfig, params, h, labels, mask):
     logits = wide(unembed(cfg, params, h))
     lse = torch.logsumexp(logits, dim=-1)
-    return ((lse - _gold(logits, labels)) * mask).sum()
+    return whole(((lse - _gold(logits, labels)) * mask).sum())
 
 
 def chunked_xent(cfg: ModelConfig, params, hidden, labels,
@@ -91,5 +93,5 @@ def chunked_xent(cfg: ModelConfig, params, hidden, labels,
         tot = tot + (checkpoint(_chunk_loss, *args, use_reentrant=False,
                                 preserve_rng_state=False) if remat
                      else _chunk_loss(*args))
-        cnt = cnt + mask[:, sl].sum()
+        cnt = cnt + whole(mask[:, sl].sum())
     return tot / torch.clamp(cnt, min=1.0)

@@ -34,7 +34,7 @@ import torch.distributed as dist
 
 from .. import tree
 from ..parallel.api import (is_distributed, like, on_mesh, plain,
-                            write_into)
+                            reduce_over, write_into)
 
 
 @dataclass(frozen=True)
@@ -258,27 +258,61 @@ def adafactor_update(cfg: OptConfig, grads, state, params,
     return params, state, gnorm
 
 
+def _local(t):
+    """A DTensor's local shard; a plain tensor as it is."""
+    return t.to_local() if is_distributed(t) else t
+
+
 def _adafactor_leaf(cfg: OptConfig, p, g, v, lr, decay):
     """One leaf's ``(new parameter, new statistics)`` from its clipped
-    float32 gradient ``g`` and statistics ``v``."""
-    g2 = g * g + 1e-30
+    float32 gradient ``g`` (laid out as ``p``) and statistics ``v``.
+
+    Each rank works on its own shards (the statistics as ``opt_specs``
+    place them: ``vr`` split as ``p``'s rows, ``vc`` as its columns): a
+    mean over a dimension the mesh splits is each rank's local mean,
+    averaged over the ranks that split it (one all-reduce of the
+    statistic), and the results are placed as the tensors they replace,
+    so DTensor is left no layout to choose.  On one device there is
+    nothing to average."""
+    mesh, rows, cols = None, [], []
+    if is_distributed(p):
+        mesh, nd = p.device_mesh, p.ndim
+        rows = [m for m, q in enumerate(p.placements) if q.is_shard(nd - 2)]
+        cols = [m for m, q in enumerate(p.placements) if q.is_shard(nd - 1)]
+    # the schedule's scalars: replicated where the step count is placed
+    lr, decay = _local(lr), _local(decay)
+    pl, gl = _local(p), _local(g)
+    g2 = gl * gl + 1e-30
     if _factored(p.shape):
-        vr = decay * v["vr"] + (1 - decay) * g2.mean(dim=-1)
-        vc = decay * v["vc"] + (1 - decay) * g2.mean(dim=-2)
+        # each statistic updated with the rank's local mean, then averaged
+        # over the ranks that split the mean's dimension
+        vr = decay * _local(v["vr"]) + (1 - decay) * g2.mean(dim=-1)
+        vc = decay * _local(v["vc"]) + (1 - decay) * g2.mean(dim=-2)
         del g2
+        mean = reduce_over(vr.mean(dim=-1, keepdim=True), mesh, cols + rows,
+                           "avg")
+        vr = reduce_over(vr, mesh, cols, "avg")
+        vc = reduce_over(vc, mesh, rows, "avg")
         denom = (vr[..., None] * vc[..., None, :]
-                 / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
-                               min=1e-30))
-        step = g / (torch.sqrt(denom) + cfg.eps)
+                 / torch.clamp(mean[..., None], min=1e-30))
+        step = gl / (torch.sqrt(denom) + cfg.eps)
         del denom
         nv = {"vr": vr, "vc": vc}
     else:
-        nv = {"v": decay * v["v"] + (1 - decay) * g2}
+        nv = {"v": decay * _local(v["v"]) + (1 - decay) * g2}
         del g2
-        step = g / (torch.sqrt(nv["v"]) + cfg.eps)
-    step = step + cfg.weight_decay * p.float()
-    nv = {k: like(t, v[k]) for k, t in nv.items()}
-    return like((p.float() - lr * step).to(p.dtype), p), nv
+        step = gl / (torch.sqrt(nv["v"]) + cfg.eps)
+    step = step + cfg.weight_decay * pl.float()
+    new_p = (pl.float() - lr * step).to(p.dtype)
+    if mesh is None:
+        return new_p, nv
+    from torch.distributed.tensor import DTensor
+
+    def placed(t, ref):
+        return DTensor.from_local(t, mesh, ref.placements, run_check=False,
+                                  shape=ref.shape, stride=ref.stride())
+
+    return placed(new_p, p), {k: placed(t, v[k]) for k, t in nv.items()}
 
 
 def make_optimizer(cfg: OptConfig, in_place: bool = False):

@@ -17,6 +17,14 @@ are compared leaf by leaf.  Held: each step's loss, and every parameter
 and optimizer leaf after 3 steps, within ``GRAD_TOL`` (rtol and atol, as
 in ``tests/test_torch_train.py``); each rank's local shards are its
 spec's share of each leaf.
+
+The cases also hold whisper-small and hymba-1.5b on a ``(1, 8)`` mesh,
+whose ``model`` axis does not divide their 4 heads (as ``(16, 16)`` does
+not divide whisper's 12 or hymba's 25, where torch 2.11 refused the
+step), and the port's 8 ranks there are held to the reference's
+unsharded step too (one device, from the same weights): losses and every
+parameter and optimizer leaf within ``GRAD_TOL``.  The gradient
+placements the port pins change no number.
 """
 import json
 import os
@@ -36,7 +44,10 @@ from repro.models.lm import init_params as jinit_params
 pytestmark = pytest.mark.slow   # subprocesses: 8 ranks and an 8-device host
 
 GRAD_TOL = 1e-4
-CASES = [("qwen1.5-0.5b", 2), ("deepseek-moe-16b", 2), ("mamba2-2.7b", 4)]
+#: model parallelism 8 of 8 ranks: 8 does not divide the 4 heads
+UNEVEN_CASES = [("whisper-small", 8), ("hymba-1.5b", 8)]
+CASES = [("qwen1.5-0.5b", 2), ("deepseek-moe-16b", 2),
+         ("mamba2-2.7b", 4)] + UNEVEN_CASES
 WORLD = 8
 #: each launch's time limit, seconds
 TIMEOUT = 420
@@ -56,28 +67,46 @@ from repro.parallel.compat import AXIS_TYPE_AUTO, make_mesh
 from repro.parallel.sharding import activation_rules, param_specs
 from repro.train.step import TrainConfig, make_train_step
 
+
+def steps(cfg, params):
+    # 3 AdamW steps of the jitted train step from params
+    step_fn, opt_init = make_train_step(cfg, TrainConfig())
+    opt = opt_init(params)
+    jstep = jax.jit(step_fn, donate_argnums=(0, 1))
+    losses = []
+    for s in range(3):
+        batch = to_device(batch_for_step(cfg, 64, 8, s))
+        params, opt, m = jstep(params, opt, batch)
+        losses.append(float(m["loss"]))
+    return params, opt, losses
+
+
 out = {}
+one = json.loads(sys.argv[2])
 for arch, mp, d in json.loads(sys.argv[1]):
     cfg = get_config(arch).smoke()
+
+    def init():
+        return ckpt.restore(d + "/init",
+                            init_params(jax.random.key(0), cfg))[0]
+
     mesh = make_mesh((8 // mp, mp), ("data", "model"),
                      axis_types=(AXIS_TYPE_AUTO,) * 2)
-    params, _ = ckpt.restore(d + "/init", init_params(jax.random.key(0), cfg))
+    params = init()
     pspecs = param_specs(cfg, mesh, jax.eval_shape(lambda: params))
     params = jax.tree.map(
         lambda x, s: jax.device_put(x, NamedSharding(mesh, s)), params,
         pspecs, is_leaf=lambda x: isinstance(x, jax.Array))
-    step_fn, opt_init = make_train_step(cfg, TrainConfig())
-    opt = opt_init(params)
-    losses = []
     with mesh, sharding_rules(activation_rules(cfg, mesh)):
-        jstep = jax.jit(step_fn, donate_argnums=(0, 1))
-        for s in range(3):
-            batch = to_device(batch_for_step(cfg, 64, 8, s))
-            params, opt, m = jstep(params, opt, batch)
-            losses.append(float(m["loss"]))
+        params, opt, losses = steps(cfg, params)
     ckpt.save(d + "/ref", 3, (params, opt))
     out[arch] = {"losses": losses, "mesh": dict(mesh.shape),
                  "n_devices": len(jax.devices())}
+    if arch in one:
+        # the unsharded step: one device, no rules
+        params, opt, losses = steps(cfg, init())
+        ckpt.save(d + "/one", 3, (params, opt))
+        out[arch]["one_losses"] = losses
 print(json.dumps(out))
 """
 
@@ -164,22 +193,32 @@ print(json.dumps(out))
 """
 
 
+
+def _init_cases(root, cases) -> list:
+    """The reference's initial weights of each case, written as a
+    checkpoint under ``root``: ``[[arch, mp, directory], ...]``."""
+    out = []
+    for arch, mp in cases:
+        d = root / arch
+        jckpt.save(str(d / "init"), 0,
+                   jinit_params(jax.random.key(0),
+                                jget_config(arch).smoke()))
+        out.append([arch, mp, str(d)])
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both packages' runs of every case: ``(reference record, every
     rank's port record, {arch: case directory})``."""
     root = tmp_path_factory.mktemp("mesh_train")
-    cases = []
-    for arch, mp in CASES:
-        d = root / arch
-        jckpt.save(str(d / "init"), 0,
-                   jinit_params(jax.random.key(0),
-                                jget_config(arch).smoke()))
-        cases.append([arch, mp, str(d)])
+    cases = _init_cases(root, CASES)
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
     ref = subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
-                            json.dumps(cases)], stdout=subprocess.PIPE,
-                           stderr=subprocess.PIPE, text=True, env=env)
+                            json.dumps(cases),
+                            json.dumps([a for a, _ in UNEVEN_CASES])],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True, env=env)
     try:
         port = run_ranks(PORT_SCRIPT, WORLD, root, json.dumps(cases),
                          timeout=TIMEOUT)
@@ -244,3 +283,23 @@ def test_embedding_gathers_no_table(runs):
         assert rec["sharded"].get("all_gather_into_tensor", 0) == 1, rec
         assert rec["max_err"] == 0.0 and rec["pinned_err"] == 0.0
         assert rec["pinned"] == ["S(0)", "R"]
+
+
+@pytest.mark.parametrize("arch,mp", UNEVEN_CASES)
+def test_uneven_mesh_matches_one_process(runs, arch, mp):
+    """The port's 8 ranks against the reference's unsharded step in one
+    process on one device: each step's loss, then every parameter and
+    optimizer leaf after 3 steps."""
+    ref, port, dirs = runs
+    for rank in port:
+        assert rank[arch]["mesh"] == {"data": WORLD // mp, "model": mp}
+        np.testing.assert_allclose(rank[arch]["losses"],
+                                   ref[arch]["one_losses"], rtol=GRAD_TOL,
+                                   atol=GRAD_TOL)
+    assert all(np.isfinite(ref[arch]["one_losses"]))
+    got, want = _arrays(dirs[arch] / "port"), _arrays(dirs[arch] / "one")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k], want[k], rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=k)
