@@ -1913,7 +1913,7 @@ def phase_profile(nets: list, lanes: list, n_lane_words: int,
 
 
 def profile_summary(run, device, top: int = 10,
-                    ranges: tuple = ()) -> dict:
+                    ranges: tuple = (), host: bool = True) -> dict:
     """One call of ``run()`` (which ends in a device synchronisation)
     under ``torch.profiler``: its wall, device busy time and idle share,
     device time by kernel and copy (the copies and memsets also on their
@@ -1921,12 +1921,15 @@ def profile_summary(run, device, top: int = 10,
     that take the most time.  ``ranges`` names ``record_function`` ranges
     of the program (such as ``blocks.EXPERTS_RANGE``): the device time of
     the kernels each launched is reported with its share of the busy
-    time."""
+    time.  ``host=False`` on the card: the device's activity alone, no
+    host operations recorded (for a program of many small host
+    operations, whose records cost more to gather than it runs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    cuda = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] if host or not cuda else []
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1942,9 +1945,9 @@ def profile_summary(run, device, top: int = 10,
                   and not e.key.startswith("Activity Buffer")
                   and e.key not in ranges),
                  key=lambda r: -r[1])
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                   for e in events if e.device_type == DeviceType.CPU),
-                  key=lambda r: -r[1])
+    host_ops = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                       for e in events if e.device_type == DeviceType.CPU),
+                      key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in dev)
     copies = [r for r in dev if r[0].startswith(("Memcpy", "Memset"))]
     rec = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
@@ -1957,7 +1960,7 @@ def profile_summary(run, device, top: int = 10,
            "device_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
                                  for k, ms, c in dev[:top]],
            "host_self_ms_by_name": [{"name": k[:80], "ms": ms, "count": c}
-                                    for k, ms, c in host[:top]]}
+                                    for k, ms, c in host_ops[:top]]}
     if ranges:
         rec["ranges"] = {}
         for label in ranges:
@@ -2016,16 +2019,52 @@ def stable_payload(payload: dict) -> dict:
                                  for r in payload["rungs"]]}
 
 
+def _oracle_case(net, arch, row: dict) -> bool:
+    """One sweep record (``row``: ``net`` under ``arch``) against the
+    Python oracle: ``sweep.oracle_parity`` on that record alone."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import sweep
+
+    return sweep.oracle_parity(SimpleNamespace(records=[[row]]), [net],
+                               [arch])
+
+
+def oracle_parity_pool(result, suites: dict, archs) -> bool:
+    """``sweep.oracle_parity`` of an unplaced sweep, each (circuit, arch)
+    record checked on its own in one process per host core (at most one
+    per circuit), the largest circuits first:
+    every record must equal the oracle's, which packs the circuit under
+    that very arch."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core.search import net_size
+
+    nets = [n for ns in suites.values() for n in ns]
+    with ProcessPoolExecutor(
+            max_workers=min(os.cpu_count() or 1, len(nets)),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(_oracle_case, nets[g], arch,
+                               result.records[g][k])
+                   for g in sorted(range(len(nets)),
+                                   key=lambda g: -net_size(nets[g]))
+                   for k, arch in enumerate(archs)]
+        return all(f.result() for f in futures)
+
+
 def phase_sweep(suites: dict, device, flow_rec: dict, archs=None
                 ) -> tuple[dict, dict]:
     """``flow.sweep_architectures`` over the default 7-point grid through
     the torch timing program: cold, then warm with caller-owned packs and
-    programs, then warm under ``torch.profiler`` (device busy, idle share,
-    kernels launched).  Every record equals the numpy sweep's and the
-    Python oracle's, and the rows with the paper's parameters equal the
-    flow phase's records.  Returns the record and what the placed phase
-    reuses (the unplaced result and the packs)."""
-    from repro_torch.core import flow, sweep, timing_vec
+    programs under ``torch.profiler`` (the device's activity alone:
+    device busy, idle share, kernels launched), which must build no
+    program again.  Every record equals the numpy sweep's and the Python
+    oracle's (:func:`oracle_parity_pool`), and the rows with the paper's
+    parameters equal the flow phase's records.
+    Returns the record and what the placed phase reuses (the unplaced
+    result and the packs)."""
+    from repro_torch.core import flow, timing_vec
     from repro_torch.core.alm import arch_grid
 
     archs = arch_grid() if archs is None else archs
@@ -2043,12 +2082,11 @@ def phase_sweep(suites: dict, device, flow_rec: dict, archs=None
     cold = run()
     t_cold = time.perf_counter() - t0
     built = timing_vec.read_compile_counts()["programs"] - built0
-    t0 = time.perf_counter()
-    warm = run()
-    t_warm = time.perf_counter() - t0
+    out = []
+    prof = profile_summary(lambda: out.append(run()), device, host=False)
+    warm = out.pop()
     check(timing_vec.read_compile_counts()["programs"] == built0 + built,
           "the warm sweep built a timing program again")
-    prof = profile_summary(run, device)
     t0 = time.perf_counter()
     plain = flow.sweep_architectures(suites, archs=archs, backend="numpy",
                                      packs=packs)
@@ -2057,7 +2095,7 @@ def phase_sweep(suites: dict, device, flow_rec: dict, archs=None
         check(res.records == plain.records,
               f"the {what} torch sweep differs from the numpy sweep")
     t0 = time.perf_counter()
-    check(sweep.oracle_parity(cold, suites, archs),
+    check(oracle_parity_pool(cold, suites, archs),
           "a sweep record differs from the Python oracle")
     t_oracle = time.perf_counter() - t0
     for g, net in enumerate(cold.circuits):
@@ -2067,8 +2105,8 @@ def phase_sweep(suites: dict, device, flow_rec: dict, archs=None
                   f"{net}: sweep row {row} differs from the flow's {arch}")
     rec = {"phase": "sweep", "circuits": len(cold.circuits),
            "archs": cold.archs, "structural_classes": cold.n_classes,
-           "wall_s": {"cold": t_cold, "warm": t_warm, "numpy": t_numpy,
-                      "oracle_parity": t_oracle},
+           "wall_s": {"cold": t_cold, "warm_profiled": prof["wall_ms"] / 1e3,
+                      "numpy": t_numpy, "oracle_parity": t_oracle},
            "wall_split": {"cold": cold.wall, "warm": warm.wall,
                           "numpy": plain.wall},
            "programs_built": {"cold": built, "warm": 0},
@@ -5106,10 +5144,13 @@ def _timed(fn, device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def pipeline_run(cfg, params, shape: tuple, device) -> dict:
+def pipeline_run(cfg, params, shape: tuple, device, mesh=None) -> dict:
     """The pipelined stack against the stages applied to each microbatch
     in turn (bit for bit) and against the batched sequential stack (its
-    distance), with the walls of all three."""
+    distance), with the walls of all three.  ``mesh``: a ``DeviceMesh``
+    with a ``stage`` axis of ``shape[0]`` ranks, stage s on rank s (every
+    rank holds the whole stack and computes both references itself);
+    without one the stages run in turn on ``device``."""
     import torch
 
     from repro_torch.launch import serve
@@ -5127,9 +5168,10 @@ def pipeline_run(cfg, params, shape: tuple, device) -> dict:
             n_mb, mb, Sq, cfg.d_model)
         pos = torch.arange(Sq, device=device)[None].expand(mb, Sq)
         stage = _stage_fn(cfg, L // n_st, pos)
-        pipeline.pipeline_apply(stage, stacked, x, n_st)  # warm
+        where = n_st if mesh is None else mesh
+        pipeline.pipeline_apply(stage, stacked, x, where)  # warm
         (y, ms), counts = _counted(lambda: _timed(
-            lambda: pipeline.pipeline_apply(stage, stacked, x, n_st),
+            lambda: pipeline.pipeline_apply(stage, stacked, x, where),
             device))
         variants = _variants()
 
@@ -5163,13 +5205,15 @@ def pipeline_run(cfg, params, shape: tuple, device) -> dict:
 
 
 def phase_pipeline(cfg, device, shape: tuple = PIPELINE,
-                   seed: int = 0) -> dict:
+                   seed: int = 0, mesh=None) -> dict:
     """tinyllama-1.1b at full width through ``parallel.pipeline``:
     ``shape[0]`` stages of its layers, in bfloat16 (bit for bit against
     per-microbatch execution, timed against the sequential stack), then
     in float32, where the pipelined output must lie within ``SERVE_TOL``
     of the batched sequential stack, taken against the output's scale
-    (the float32 rounding of a sum grows with its terms)."""
+    (the float32 rounding of a sum grows with its terms).  ``mesh``: the
+    stages across its ``stage`` axis, one per rank (:func:`pipeline_run`),
+    each rank launching its own stage's flash calls."""
     import torch
 
     from repro_torch.launch import serve
@@ -5177,11 +5221,11 @@ def phase_pipeline(cfg, device, shape: tuple = PIPELINE,
 
     t0 = time.perf_counter()
     params = serve.make_params(cfg, device, seed=seed)
-    bf16 = pipeline_run(cfg, params, shape, device)
+    bf16 = pipeline_run(cfg, params, shape, device, mesh)
     del params
     cfg32 = as_float32(cfg)
     params32 = serve.make_params(cfg32, device, seed=seed)
-    f32 = pipeline_run(cfg32, params32, shape, device)
+    f32 = pipeline_run(cfg32, params32, shape, device, mesh)
     del params32
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -5191,7 +5235,7 @@ def phase_pipeline(cfg, device, shape: tuple = PIPELINE,
           f"sequential stack by {f32['max_abs_diff_vs_batched']} "
           f"(tol {tol})")
     n_st, n_mb = shape[0], shape[1]
-    want = n_mb * cfg.n_layers
+    want = n_mb * cfg.n_layers // (1 if mesh is None else n_st)
     if device.type == "cuda":
         check_timed_variants("pipeline tinyllama-1.1b", bf16,
                              {"mma": want})
@@ -5237,41 +5281,76 @@ def _gathered(tree_):
     return tree.map(plain, tree_)
 
 
+def _placed(tree_) -> dict:
+    """How many DTensor leaves of ``tree_`` lie at each placement, written
+    one letter group a mesh dimension: ``S<d>`` a shard of dimension d,
+    ``R`` replicated (``"S0,R"``: rows over the first mesh dimension)."""
+    from collections import Counter
+
+    from repro_torch import tree
+
+    return dict(Counter(",".join(f"S{p.dim}" if p.is_shard() else "R"
+                                 for p in x.placements)
+                        for x in tree.leaves(tree_)))
+
+
 def mesh_gate(cfg, mesh, device, layers: int, batch: int, seq: int,
               seed: int = 0) -> dict:
     """The float32 gate of the mesh step over the config's first
     ``layers`` layers (:func:`_gate_setup`): :func:`step_gate` with the
-    mesh step (kernel route, parameters placed by ``param_specs``, the
-    batch by ``batch_specs``, under the activation rules; gathered whole)
-    as the subject, the unsharded kernel-route step as its baseline, and
-    the plain path against float64 for the noise (:func:`train_gate`'s
-    rule): the loss, every gradient and every parameter after one AdamW
-    step.  Raises on a miss."""
+    mesh step (on the route the train launcher picks, parameters placed
+    by ``param_specs``, the batch by ``batch_specs``, under the
+    activation rules; gathered whole) as the subject and the unsharded
+    step on the same route and card as its baseline: the loss, every
+    gradient and every parameter after one AdamW step; the record counts
+    the parameters and the batch by their placements (:func:`_placed`).
+    The noise: on the
+    kernel route the plain path against float64 (:func:`train_gate`'s
+    rule); on the plain route (``launch.train.PLAIN_PATH_FAMILIES``: ssm,
+    hybrid) the unsharded step against the same step in float64 on the
+    host CPU (:func:`host_gate`'s float64).  Raises on a miss."""
     import torch
 
+    from repro_torch import tree
     from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.train import PLAIN_PATH_FAMILIES
     from repro_torch.parallel import sharding
     from repro_torch.parallel.api import sharding_rules
 
+    kernel = cfg.family not in PLAIN_PATH_FAMILIES
     cut, params, host, tcfg = _gate_setup(cfg, device, layers, batch, seq,
                                           seed)
     data = to_device(host, device)
+    placed = {}
 
     def on_mesh():
         dparams = sharding.distribute(
             params, sharding.param_specs(cut, mesh, params), mesh)
+        dbatch = to_device(host, device, mesh)
+        placed.update(params=_placed(dparams), batch=_placed(dbatch))
         with sharding_rules(sharding.activation_rules(cut, mesh)):
-            return _gathered(gate_step(cut, tcfg, dparams,
-                                       to_device(host, device, mesh), True))
+            return _gathered(gate_step(cut, tcfg, dparams, dbatch, kernel))
 
-    rec = step_gate(f"{cfg.name} mesh gate", [
-        ("float64", lambda: gate_step(_float64(cut), tcfg, cast_params(
-            params, torch.float64), data, False)),
-        ("plain", lambda: gate_step(cut, tcfg, params, data, False)),
-        ("unsharded", lambda: gate_step(cut, tcfg, params, data, True)),
-        ("mesh", on_mesh)],
-        "mesh", "unsharded", ("plain", "float64"))
-    return {"layers": layers, "batch": batch, "seq_len": seq, **rec}
+    if kernel:
+        runs = [("float64", lambda: gate_step(_float64(cut), tcfg,
+                                              cast_params(params,
+                                                          torch.float64),
+                                              data, False)),
+                ("plain", lambda: gate_step(cut, tcfg, params, data, False))]
+        noise = ("plain", "float64")
+    else:
+        cpu = torch.device("cpu")
+        runs = [("host_float64", lambda: gate_step(
+            _float64(cut), tcfg, cast_params(tree.map(
+                lambda t: t.to(cpu), params), torch.float64),
+            to_device(host, cpu), False))]
+        noise = ("unsharded", "host_float64")
+    rec = step_gate(f"{cfg.name} mesh gate", runs + [
+        ("unsharded", lambda: gate_step(cut, tcfg, params, data, kernel)),
+        ("mesh", on_mesh)], "mesh", "unsharded", noise)
+    return {"layers": layers, "batch": batch, "seq_len": seq,
+            "route": "kernel" if kernel else "plain", "placements": placed,
+            **rec}
 
 
 def _peak(device):
@@ -5334,6 +5413,28 @@ def _unsharded_steps(cfg, tcfg, params, device, steps: int, batch: int,
     return losses, walls
 
 
+def _launcher_run(arch: str, smoke: bool, mesh, device, steps: int,
+                  batch: int, seq: int, workdir, more=(), hooks=()
+                  ) -> tuple[dict, dict]:
+    """``steps`` bf16 steps of ``arch`` through ``launch.train`` at
+    ``mesh``'s model parallelism, its checkpoints under ``workdir``
+    (``more``: further arguments; ``hooks``: ``fit``'s), the launch counts
+    reset first: ``(fit's result, the launches, kernel variants and flash
+    heads it counted)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+
+    mp = mesh.size(mesh.mesh_dim_names.index("model"))
+    argv = ["--arch", arch, "--steps", str(steps), "--seq-len", str(seq),
+            "--batch", str(batch), "--model-parallel", str(mp),
+            "--ckpt-dir", str(workdir), "--device", str(device), *more]
+    ops.reset_launch_counts()
+    res = train_launch.main(argv + (["--smoke"] if smoke else []),
+                            hooks=hooks)
+    return res, {"launches": ops.launch_counts(), "variants": _variants(),
+                 "flash_heads": ops.flash_head_counts()}
+
+
 def mesh_timed(arch: str, smoke: bool, mesh, device, steps: int,
                batch: int, seq: int, workdir) -> dict:
     """``steps`` bf16 steps through ``launch.train``'s mesh path (seed-0
@@ -5348,22 +5449,14 @@ def mesh_timed(arch: str, smoke: bool, mesh, device, steps: int,
     import torch
 
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train as train_launch
 
     cfg = get_config(arch)
     cfg = cfg.smoke() if smoke else cfg
-    mp = mesh.size(mesh.mesh_dim_names.index("model"))
-    argv = ["--arch", arch, "--steps", str(steps), "--seq-len", str(seq),
-            "--batch", str(batch), "--model-parallel", str(mp),
-            "--ckpt-dir", str(workdir), "--device", str(device)]
     _reset_peak(device)
-    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = train_launch.main(argv + (["--smoke"] if smoke else []))
+    res, counted = _launcher_run(arch, smoke, mesh, device, steps, batch,
+                                 seq, workdir)
     fit_s = time.perf_counter() - t0
-    counts, variants = ops.launch_counts(), _variants()
-    heads = ops.flash_head_counts()
     mesh_peak = _peak(device)
     mesh_losses, mesh_walls = res["losses"], res["step_s"]
     del res
@@ -5402,8 +5495,7 @@ def mesh_timed(arch: str, smoke: bool, mesh, device, steps: int,
             "unsharded_median_step_ms_after_first": median_ms(walls),
             "peak_bytes": mesh_peak, "unsharded_peak_bytes": plain_peak,
             "fit_with_checkpoint_s": fit_s, "float32_run_s": float32_s,
-            "launches": counts, "variants": variants,
-            "flash_heads": heads}
+            **counted}
 
 
 def mesh_train_rank(arch: str, device, mp: int, gate=MESH_GATE,
@@ -5443,20 +5535,26 @@ def mesh_train_rank(arch: str, device, mp: int, gate=MESH_GATE,
 def _mesh_rank_main(rank: int, world: int, init: str, workdir: str,
                     what: str = "train") -> int:
     """A spawned rank of a mesh phase (``--mesh-rank``; ``what``: the
-    training phase, or ``serve``): its card, an NCCL group over ``init``,
-    the checkpoint directory every rank shares, its record as the last
-    output line."""
+    training phase, ``serve`` or ``families``): its card, an NCCL group
+    over ``init``, the checkpoint directory every rank shares, its record
+    as the last output line."""
     import torch
     import torch.distributed as dist
 
     device = torch.device(f"cuda:{rank}")
     torch.cuda.set_device(device)
+    # the ranks share the host's cores (the SSM gates' float64 steps run
+    # there)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     dist.init_process_group("nccl", init_method=init, rank=rank,
                             world_size=world, device_id=device)
     try:
         if what == "serve":
             rec = mesh_serve_rank(MESH_SERVE_ARCH, device,
                                   mesh_shape(world)[1])
+        elif what == "families":
+            rec = mesh_families_rank(device, mesh_shape(world)[1],
+                                     workdir=Path(workdir))
         else:
             rec = mesh_train_rank("tinyllama-1.1b", device,
                                   mesh_shape(world)[1],
@@ -5567,6 +5665,406 @@ def phase_mesh_train(device, gate=MESH_GATE, timed=MESH_TIMED) -> dict:
                                   for r in recs],
             "flash_variants_expected": want,
             "wall_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# every family's sharded train step on the cards' mesh
+# ---------------------------------------------------------------------------
+
+#: the families' mesh phase: each arch's float32 gate (layers, batch,
+#: sequence) over its first layers at full width: the reference's own
+#: dense case (tied embedding, qkv bias), then the other families at
+#: their training gates' sizes (``FAMILY_TRAIN``)
+MESH_FAMILY_GATES = {"qwen1.5-0.5b": (2, 2, 512),
+                     **{a: g for a, (_, g, _) in FAMILY_TRAIN.items()}}
+#: on more than one card: the MoE model at full depth through the train
+#: launcher (steps, batch, sequence), its step held to its trace on the
+#: same mesh; the elastic restore's model and its one step (batch,
+#: sequence)
+MESH_MOE_TIMED = (2, 4, 2048)
+ELASTIC_ARCH = "qwen1.5-0.5b"
+ELASTIC_STEP = (4, 512)
+
+
+def mesh_moe_key(shape, timed=MESH_MOE_TIMED) -> tuple:
+    """The trace key (:func:`collect_traces`) of the families phase's
+    full-depth MoE step on a ``(data, model)`` mesh of ``shape``."""
+    return (mesh_tag(shape), MESH_SERVE_ARCH,
+            json.dumps(["train", timed[1], timed[2]]))
+
+
+class StepMemory:
+    """A ``fit`` hook that reads each step after the first as
+    :func:`trace_reading` holds a step: the peak ``max_memory_allocated``
+    since the hook before, above what was allocated when the reader was
+    made (so the train state included), and the temporaries, the
+    requested peak less the arguments (what the requested bytes held at
+    the hook before: weights, optimizer state, the batch).  Off the card
+    it records the losses alone."""
+
+    def __init__(self, device):
+        import torch
+
+        self.device, self.cuda = device, device.type == "cuda"
+        _reset_peak(device)
+        self.base = (torch.cuda.memory_allocated(device) if self.cuda
+                     else None)
+        self.base_req = _requested(device) if self.cuda else None
+        self.per_step, self.args = [], []
+
+    def __call__(self, s, m) -> None:
+        import torch
+
+        row = {"step": s, "loss": float(m["loss"])}
+        if self.cuda:
+            if self.args:
+                row.update(
+                    argument_bytes=self.args[-1],
+                    peak_bytes=torch.cuda.max_memory_allocated(self.device)
+                    - self.base,
+                    temp_bytes=_requested(self.device, "peak")
+                    - self.base_req - self.args[-1])
+            self.args.append(_requested(self.device) - self.base_req)
+            torch.cuda.reset_peak_memory_stats(self.device)
+        self.per_step.append(row)
+
+    def worst(self) -> dict:
+        """The step read with the highest peak (empty off the card)."""
+        read = [r for r in self.per_step if "peak_bytes" in r]
+        return max(read, key=lambda r: r["peak_bytes"]) if read else {}
+
+
+def launcher_memory(arch: str, smoke: bool, mesh, device, steps: int,
+                    batch: int, seq: int, workdir) -> dict:
+    """``steps`` bf16 steps of ``arch`` at full depth through
+    ``launch.train``'s mesh path (seed-0 weights placed by
+    ``param_specs``, AdamW at the launcher's defaults, no checkpoint
+    written, ``--ckpt-every 0``, and none to resume from in the fresh
+    ``workdir``), each step after the first read by :class:`StepMemory`.
+    The losses must be finite."""
+    memory = StepMemory(device)
+    res, counted = _launcher_run(arch, smoke, mesh, device, steps, batch,
+                                 seq, workdir, more=["--ckpt-every", "0"],
+                                 hooks=[memory])
+    losses, walls = res["losses"], res["step_s"]
+    del res
+    _reset_peak(device)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{arch} on the mesh at full depth: losses {losses}")
+    worst = memory.worst()
+    return {"arch": arch, "steps": steps, "batch": batch, "seq_len": seq,
+            "losses": losses, "step_ms": [w * 1e3 for w in walls],
+            "per_step": memory.per_step,
+            "peak_bytes": worst.get("peak_bytes"),
+            "temp_bytes": worst.get("temp_bytes"),
+            "argument_bytes": worst.get("argument_bytes"), **counted}
+
+
+def elastic_restore(arch: str, smoke: bool, mp: int, device, batch: int,
+                    seq: int, workdir) -> dict:
+    """The reference's elastic restore (``tests/parallel/
+    test_multidevice.py``) across the cards: one bf16 step of ``arch``
+    through ``launch.train`` on the ``(world // mp, mp)`` mesh, which
+    checkpoints into ``workdir`` (each leaf gathered, rank 0 writing);
+    that checkpoint restored onto the ``(world, 1)`` mesh into a template
+    placed there by ``param_specs`` and ``opt_specs``.  Every leaf must
+    lie on the new mesh in the template's placements and equal, bit for
+    bit, the state the run ended with, and the step must be the one
+    saved."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.api import plain
+    from repro_torch.train import step as tstep
+
+    cfg = get_config(arch)
+    cfg = cfg.smoke() if smoke else cfg
+    t0 = time.perf_counter()
+    res = train_launch.main(
+        ["--arch", arch, "--steps", "1", "--seq-len", str(seq), "--batch",
+         str(batch), "--model-parallel", str(mp), "--ckpt-dir",
+         str(workdir), "--device", str(device)]
+        + (["--smoke"] if smoke else []))
+    saved = (res.pop("params"), res.pop("opt_state"))
+    save_s = time.perf_counter() - t0
+    mesh = tree.leaves(saved[0])[0].device_mesh
+    other = make_host_mesh(1, device)
+    _, opt_init = tstep.make_train_step(cfg, tstep.TrainConfig())
+    zeros = tree.map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                           device=device), saved[0])
+    specs = sharding.param_specs(cfg, other, zeros)
+    opt = opt_init(zeros)
+    tmpl = sharding.distribute(
+        (zeros, opt), (specs, sharding.opt_specs(cfg, other, specs, opt)),
+        other)
+    del zeros, opt
+    t0 = time.perf_counter()
+    got, step = ckpt.restore(str(workdir), tmpl)
+    restore_s = time.perf_counter() - t0
+    bad = []
+    for (path, g), t, s_ in zip(tree.flatten_with_path(got),
+                                tree.leaves(tmpl), tree.leaves(saved)):
+        key = "/".join(map(str, path))
+        if g.device_mesh != other or g.placements != t.placements:
+            bad.append(f"{key} placed {g.placements} on "
+                       f"{tuple(g.device_mesh.shape)}")
+        a, b = plain(g), plain(s_)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            bad.append(key)
+    n = len(tree.leaves(got))
+    check(step == 1 and not bad,
+          f"the {tuple(mesh.shape)} checkpoint "
+          f"restored on {tuple(other.shape)} at step {step}: leaves "
+          f"differing or misplaced {bad}")
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "saved_on": list(mesh.shape),
+            "restored_on": list(other.shape), "step": step,
+            "leaves_restored_bitwise": n, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def mesh_more_cards(device, mp: int, workdir, smoke: bool = False,
+                    timed=MESH_MOE_TIMED, pipeline_shape=PIPELINE,
+                    elastic=ELASTIC_STEP) -> dict:
+    """One rank's part of the families phase where more than one card
+    runs it: deepseek-moe-16b at full depth through the train launcher
+    (:func:`launcher_memory`), tinyllama-1.1b's pipeline with one stage
+    per rank (:func:`phase_pipeline` on a ``stage`` mesh of every rank;
+    its depth cut to a multiple of the ranks), and the elastic restore
+    (:func:`elastic_restore`)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    walls = {}
+    t0 = time.perf_counter()
+    moe = get_config(MESH_SERVE_ARCH)
+    moe_rec = launcher_memory(MESH_SERVE_ARCH, smoke,
+                              make_host_mesh(mp, device), device, *timed,
+                              Path(workdir) / "moe_full_depth")
+    moe_rec["layers"] = (moe.smoke() if smoke else moe).n_layers
+    walls["moe_full_depth_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    world = dist.get_world_size()
+    tiny = get_config("tinyllama-1.1b")
+    tiny = tiny.smoke() if smoke else tiny
+    tiny = cut_depth(tiny, tiny.n_layers - tiny.n_layers % world)
+    check(tiny.n_layers >= world,
+          f"{tiny.name}'s layers do not give each of {world} stages one")
+    stages = init_device_mesh(device.type, (world,),
+                              mesh_dim_names=("stage",))
+    pipe = phase_pipeline(tiny, device, (world, *pipeline_shape[1:]),
+                          mesh=stages)
+    walls["pipeline_s"] = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    el = elastic_restore(ELASTIC_ARCH, smoke, mp, device, *elastic,
+                         Path(workdir) / "elastic")
+    walls["elastic_s"] = time.perf_counter() - t0
+    return {"moe_full_depth": moe_rec, "pipeline": pipe, "elastic": el,
+            "walls": walls}
+
+
+def mesh_families_rank(device, mp: int, gates=None, workdir=None,
+                       smoke: bool = False, more: dict | None = None
+                       ) -> dict:
+    """One rank's part of the families phase, in a process group that is
+    formed already: the ``("data", "model")`` mesh with ``mp`` on model,
+    :func:`mesh_gate` for each arch of ``gates`` (``MESH_FAMILY_GATES``)
+    at full width (``smoke``: the configs' smoke widths); with more than
+    one rank, also :func:`mesh_more_cards` (``more``: its sizes)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(mp, device)
+    families = {}
+    for arch, gate in (gates or MESH_FAMILY_GATES).items():
+        cfg = get_config(arch)
+        cfg = cfg.smoke() if smoke else cfg
+        t0 = time.perf_counter()
+        families[arch] = {**mesh_gate(cfg, mesh, device, *gate),
+                          "wall_s": time.perf_counter() - t0}
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    rec = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "families": families}
+    if dist.get_world_size() > 1:
+        own = workdir is None
+        workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_more_")
+                       if own else workdir)
+        try:
+            rec["more"] = mesh_more_cards(device, mp, workdir, smoke,
+                                          **(more or {}))
+        finally:
+            if own:
+                shutil.rmtree(workdir, ignore_errors=True)
+    return rec
+
+
+def family_flash_expected(cfg, layers: int, mp: int) -> dict:
+    """A family's float32 mesh gate's flash calls on the card: on the
+    kernel route ``tf32x3`` on the rank's local heads, two a layer with
+    remat (the forward and the recompute), an encdec model's encoder
+    layers included; none on the plain route."""
+    from repro_torch.launch.train import PLAIN_PATH_FAMILIES
+
+    none = {"mma": 0, "split": 0, "tf32x3": 0}
+    if cfg.family in PLAIN_PATH_FAMILIES:
+        return {"variants": none, "heads": {}}
+    n = (2 if cfg.remat else 1) * (min(layers, cfg.n_layers)
+                                   + cfg.n_encoder_layers)
+    return {"variants": {**none, "tf32x3": n},
+            "heads": {f"{cfg.n_heads // mp}/{cfg.n_kv_heads // mp}": n}}
+
+
+def phase_mesh_train_families(device, gates=None, smoke: bool = False
+                              ) -> dict:
+    """Every family's sharded train step on the visible cards' mesh
+    (:func:`mesh_shape`): qwen1.5-0.5b (dense), deepseek-moe-16b (moe,
+    the capacity dispatch), mamba2-2.7b (ssm), hymba-1.5b (hybrid),
+    whisper-small (encdec) and llava-next-34b (vlm), each held by
+    :func:`mesh_gate` to its unsharded step on the same card.  On one
+    card a ``(1, 1)`` mesh over an NCCL group of one, in this process; on
+    more, one spawned process per card, which also runs
+    :func:`mesh_more_cards`.  A group that cannot form, or a rank that
+    fails, raises: nothing falls back to gloo or the host.  On the card
+    every flash call of a kernel-route family's mesh step is the
+    kernel's on the rank's local heads, and a plain-route family
+    launches no kernel."""
+    import torch
+
+    from repro_torch.launch.mesh import close_group, init_group
+
+    gates = gates or MESH_FAMILY_GATES
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    shape = mesh_shape(cards)
+    world = shape[0] * shape[1]
+    if world == 1:
+        init_group(device)
+        try:
+            recs = [mesh_families_rank(device, 1, gates, smoke=smoke)]
+        finally:
+            close_group()
+    else:
+        torch.cuda.empty_cache()
+        recs = _spawn_mesh_ranks(world, "families")
+    return {**families_record(recs, shape, device, gates, smoke),
+            "wall_s": time.perf_counter() - t0}
+
+
+def families_record(recs: list, shape, device, gates=None,
+                    smoke: bool = False) -> dict:
+    """The families phase's line from every rank's record on a mesh of
+    ``shape``, with the card's launch checks: each kernel-route gate's
+    flash calls (:func:`family_flash_expected`), none on the plain
+    route, and with more than one rank the full-depth MoE run's ``mma``
+    calls (two a layer and step) on the local heads."""
+    from repro_torch.configs.base import get_config
+
+    gates = gates or MESH_FAMILY_GATES
+    world = shape[0] * shape[1]
+    mp = shape[1]
+    families = {}
+    for arch, gate in gates.items():
+        cfg = get_config(arch)
+        cfg = cfg.smoke() if smoke else cfg
+        want = family_flash_expected(cfg, gate[0], mp)
+        for r in recs:
+            g = r["families"][arch]
+            if device.type == "cuda":
+                check(g["variants"]["flash_attention"] == want["variants"]
+                      and g["flash_heads"] == want["heads"]
+                      and g["launches"]["ssd_scan"] == 0,
+                      f"{arch} mesh gate on rank {r['rank']}: flash "
+                      f"variants {g['variants']['flash_attention']} on "
+                      f"heads {g['flash_heads']}, "
+                      f"{g['launches']['ssd_scan']} ssd_scan launches; "
+                      f"expected {want}")
+        lead = recs[0]["families"][arch]
+        families[arch] = {
+            "family": cfg.family, "route": lead["route"],
+            "layers": lead["layers"], "d_model": cfg.d_model,
+            "local_heads": f"{cfg.n_heads // mp}/{cfg.n_kv_heads // mp}",
+            "gate": lead, "flash_expected": want,
+            "per_rank_worst_grad_share_of_tol": [
+                r["families"][arch]["worst_grad_share_of_tol"]
+                for r in recs],
+            "per_rank_worst_post_step_share_of_tol": [
+                r["families"][arch]["worst_post_step_share_of_tol"]
+                for r in recs],
+            "per_rank_flash_launches": [
+                r["families"][arch]["launches"]["flash_attention"]
+                for r in recs]}
+    rec = {"phase": "mesh_train_families", "cards": world,
+           "mesh": list(shape), "families": families}
+    if world > 1:
+        more = [r["more"] for r in recs]
+        moe = more[0]["moe_full_depth"]
+        cfg = get_config(MESH_SERVE_ARCH)
+        cfg = cfg.smoke() if smoke else cfg
+        per = (2 if cfg.remat else 1) * cfg.n_layers * moe["steps"]
+        heads = f"{cfg.n_heads // mp}/{cfg.n_kv_heads // mp}"
+        if device.type == "cuda":
+            for r in recs:
+                m = r["more"]["moe_full_depth"]
+                check(m["variants"]["flash_attention"]
+                      == {"mma": per, "split": 0, "tf32x3": 0}
+                      and m["flash_heads"] == {heads: per},
+                      f"{cfg.name} at full depth on rank {r['rank']}: "
+                      f"flash variants {m['variants']['flash_attention']} "
+                      f"on heads {m['flash_heads']}, expected {per} mma "
+                      f"on {heads}")
+        rec["moe_full_depth"] = {
+            **{k: moe[k] for k in ("arch", "layers", "steps", "batch",
+                                   "seq_len")},
+            "trace": list(mesh_moe_key(shape, (moe["steps"], moe["batch"],
+                                               moe["seq_len"]))),
+            "variants": moe["variants"],
+            "per_rank": [{k: m["moe_full_depth"][k] for k in (
+                "losses", "step_ms", "peak_bytes", "temp_bytes",
+                "argument_bytes")} for m in more],
+            "flash_launches_per_rank_expected": per,
+            "per_rank_flash_launches": [
+                m["moe_full_depth"]["launches"]["flash_attention"]
+                for m in more]}
+        rec["pipeline"] = {**more[0]["pipeline"],
+                           "per_rank_flash_launches": [
+                               m["pipeline"]["bf16"]["launches"][
+                                   "flash_attention"] for m in more]}
+        rec["elastic"] = more[0]["elastic"]
+        rec["per_rank_walls"] = [m["walls"] for m in more]
+    rec["flash_launches"] = sum(
+        sum(r["per_rank_flash_launches"])
+        for r in [*families.values(), *(rec[k] for k in (
+            "moe_full_depth", "pipeline") if k in rec)])
+    return rec
+
+
+def families_held(rec: dict | None) -> dict:
+    """The families phase's steps that :func:`trace_reading` holds to
+    their traces: the full-depth MoE step on each rank (none on one
+    card)."""
+    if not rec or "moe_full_depth" not in rec:
+        return {}
+    moe = rec["moe_full_depth"]
+    return {f"mesh_train_families {moe['arch']} full depth on "
+            f"{mesh_tag(rec['mesh'])} (rank {r})": (
+                tuple(moe["trace"]), m["peak_bytes"], m["temp_bytes"])
+            for r, m in enumerate(moe["per_rank"])}
 
 
 #: the mesh serving phase's model: deepseek-moe-16b at full width, with
@@ -5907,8 +6405,10 @@ def start_traces(serve_mesh=(1, 1)) -> dict:
     ``DRYRUN_CELL``'s decode and its model's ``DRYRUN_PREFILL`` on a mesh
     of one, mesh_serve's plain-route
     prefill on ``serve_mesh`` (:func:`mesh_shape` of the visible cards),
-    and mesh_train's step (``MESH_TIMED``'s batch and sequence) on
-    ``(2, 2)``, whose collectives the four-card run sends.  They run at
+    mesh_train's step (``MESH_TIMED``'s batch and sequence) on
+    ``(2, 2)``, whose collectives the four-card run sends, and, where
+    ``serve_mesh`` is ``(2, 2)`` (four cards), the families phase's
+    full-depth MoE step there (:func:`mesh_moe_key`).  They run at
     the host's lowest priority while the card works through the phases
     (the 512-rank mesh's train step takes minutes: DTensor plans its
     redistributions over three mesh dimensions); :func:`collect_traces`
@@ -5921,8 +6421,11 @@ def start_traces(serve_mesh=(1, 1)) -> dict:
                      [DRYRUN_CELL[0], ["prefill", *DRYRUN_PREFILL]]],
              "2x2": [["tinyllama-1.1b", ["train", MESH_TIMED[1],
                                          MESH_TIMED[2]]]]}
-    tag, arch, shape = serve_prefill_key(serve_mesh)
-    cells.setdefault(tag, []).append([arch, json.loads(shape)])
+    keys = [serve_prefill_key(serve_mesh)]
+    if tuple(serve_mesh) == (2, 2):   # four cards run the MoE step there
+        keys.append(mesh_moe_key(serve_mesh))
+    for tag, arch, shape in keys:
+        cells.setdefault(tag, []).append([arch, json.loads(shape)])
     names = ["data", "model"]
     procs = {tag: (trace.start(
         c, **({"mesh": tag} if tag in ("single", "multi") else {
@@ -6006,13 +6509,15 @@ def trace_reading(traces: dict, measured: dict) -> dict:
 
 
 def held_steps(cell, peak, temp, served: dict | None,
-               prefill: dict | None = None) -> dict:
+               prefill: dict | None = None,
+               families: dict | None = None) -> dict:
     """The steps the card ran that :func:`trace_reading` holds to their
     traces: ``cell``'s decode on a mesh of one (its measured ``peak`` and
     ``temp``), the SSM prefill there (``prefill``: the dry-run phase's
-    ``prefill`` reading), and mesh_serve's plain-route prefill
+    ``prefill`` reading), mesh_serve's plain-route prefill
     (``served``: that phase's record) on the mesh it ran on, as rank 0
-    measured it."""
+    measured it, and the families phase's full-depth MoE step on each
+    rank (``families``: that phase's record; :func:`families_held`)."""
     out = {f"{cell[0]} {cell[1]} decode": (
         ("1x1", cell[0], json.dumps(cell[1])), peak, temp)}
     if prefill is not None:
@@ -6027,7 +6532,7 @@ def held_steps(cell, peak, temp, served: dict | None,
             f"{mesh_tag(served['mesh'])} (rank 0)"] = (
             serve_prefill_key(served["mesh"]), pre["peak_bytes"],
             pre["temp_bytes"])
-    return out
+    return {**out, **families_held(families)}
 
 
 def dryrun_prefill(cfg, params, batch: int, prompt: int, device,
@@ -6070,7 +6575,8 @@ def dryrun_prefill(cfg, params, batch: int, prompt: int, device,
 def phase_dryrun(device, card_bytes: int | None = None,
                  run_cfg=None, traces: dict | None = None,
                  served: dict | None = None,
-                 prefill=DRYRUN_PREFILL) -> dict:
+                 prefill=DRYRUN_PREFILL,
+                 families: dict | None = None) -> dict:
     """The dry-run records of every (arch x shape) cell
     (``launch.dryrun.cell_record``, nothing allocated) with
     ``fits_one_card`` against the card's memory, then ``DRYRUN_CELL``
@@ -6084,8 +6590,9 @@ def phase_dryrun(device, card_bytes: int | None = None,
     ``traces`` (:func:`start_traces`' processes), their records, the
     cell's and the prefill's traced peaks on a mesh of one and mesh_serve's
     plain-route prefill's on the mesh it ran on (``served``: mesh_serve's
-    record, rank 0's peak and temporaries) each held to the card's
-    (:func:`trace_reading`)."""
+    record, rank 0's peak and temporaries) and, on four cards, each
+    rank's full-depth MoE step of the families phase (``families``: its
+    record) each held to the card's (:func:`trace_reading`)."""
     import torch
 
     from repro_torch.configs.base import SHAPES, get_config, list_configs
@@ -6160,7 +6667,7 @@ def phase_dryrun(device, card_bytes: int | None = None,
         t2 = time.perf_counter()
         got = collect_traces(traces)
         traced = {**trace_reading(got, held_steps(cell, peak, temp, served,
-                                                  pre)),
+                                                  pre, families)),
                   "collect_s": time.perf_counter() - t2}
     return {"phase": "dryrun", "card_bytes": card_bytes,
             "columns": ["arch", "shape", "kind", "n_params",
@@ -6405,7 +6912,11 @@ def main() -> int:
     msrec = phase_mesh_serve(device)
     walls.emit(msrec)
     torch.cuda.empty_cache()
-    walls.emit(phase_dryrun(device, traces=traces, served=msrec))
+    mfrec = phase_mesh_train_families(device)
+    walls.emit(mfrec)
+    torch.cuda.empty_cache()
+    walls.emit(phase_dryrun(device, traces=traces, served=msrec,
+                            families=mfrec))
 
     replaces = {"lut_eval6": "src/repro/kernels/lut_eval.py:90",
                 "lut_eval": "src/repro/kernels/lut_eval.py:47",
@@ -6422,13 +6933,16 @@ def main() -> int:
                 "lut_eval": lrec["launches"]["lut_eval"],
                 # kratos-dd serving, the new families' timed serving
                 # runs, the timed training run, gemma2-2b's chunked
-                # forward, the pipeline and the mesh runs (every rank's)
+                # forward, the pipeline and the mesh runs (every rank's;
+                # the families phase's mesh gates, and on more than one
+                # card its full-depth MoE steps and pipeline stages)
                 "flash_attention": flash_launches + sum(
                     r["timed"]["launches"]["flash_attention"]
                     for r in (moerec, i8rec, vlmrec, encrec, trec, chrec))
                 + plrec["bf16"]["launches"]["flash_attention"]
                 + sum(mtrec["per_rank_launches"])
                 + sum(msrec["per_rank_launches"])
+                + mfrec["flash_launches"]
                 # qwen1.5-0.5b and gemma-2b serving, the other families'
                 # bf16 training runs and deepseek's fp8 step
                 + sum(r["timed"]["launches"]["flash_attention"]
@@ -6526,7 +7040,16 @@ def main() -> int:
             "mesh serve bf16 (rank 0)":
                 msrec["timed"]["variants"]["flash_attention"],
             "mesh serve gate float32 (rank 0)":
-                msrec["gate"]["variants"]["flash_attention"]},
+                msrec["gate"]["variants"]["flash_attention"],
+            **{f"mesh train gate float32 {a} (rank 0)":
+               f["gate"]["variants"]["flash_attention"]
+               for a, f in mfrec["families"].items()
+               if f["route"] == "kernel"},
+            **({"mesh train bf16 deepseek-moe-16b full depth (rank 0)":
+                mfrec["moe_full_depth"]["variants"]["flash_attention"],
+                "pipeline across ranks tinyllama-1.1b (rank 0)":
+                mfrec["pipeline"]["bf16"]["variants"]["flash_attention"]}
+               if "moe_full_depth" in mfrec else {})},
         "bitplane_matmul": {
             "quantized": qrec["variants"]["bitplane_matmul"]},
         "ssd_scan": {

@@ -3,7 +3,7 @@
     python -m repro_torch.launch.train --arch tinyllama-1.1b [--smoke]
         [--steps 60] [--seq-len 128] [--batch 8] [--lr 3e-3]
         [--grad-accum 1] [--model-parallel 1] [--ckpt-dir DIR]
-        [--device cuda]
+        [--ckpt-every 25] [--device cuda]
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch tinyllama-1.1b --model-parallel 2
 
@@ -13,12 +13,15 @@ mesh of one for a single process), places the parameters by
 ``parallel.sharding.param_specs`` as DTensors, and runs the
 fault-tolerant loop under the activation rules, as the reference runs
 ``fit`` under ``sharding_rules`` (its step donating the train state,
-which it updates in place).  Random weights from a seeded generator
+which it updates in place: the weights the launcher drew are the ones
+stepped, as the reference's launcher donates its own arrays, so no second
+copy of them lives through the run).  Random weights from a seeded generator
 on each rank's device (every rank draws the same ones and keeps its
 shards), the synthetic data stream (with frames for encdec and patch
 embeddings for vlm), AdamW with the reference launcher's schedule (warmup
 5 steps, cosine decay over the run); the loop resumes from the latest
-checkpoint under ``--ckpt-dir``.  Self-attention runs through the flash
+checkpoint under ``--ckpt-dir`` and saves every ``--ckpt-every`` steps and
+at the last (0: never).  Self-attention runs through the flash
 kernel under autograd for the dense, moe, encdec and vlm families, each
 rank on its own heads (MoE layers on the capacity-dropped dispatch, their
 load-balance loss folded in); the ssm and hybrid families train through
@@ -49,7 +52,10 @@ from .serve import make_params
 PLAIN_PATH_FAMILIES = ("ssm", "hybrid")
 
 
-def main(argv=None):
+def main(argv=None, hooks=()):
+    """Train as the command line ``argv`` says; ``hooks``: more callables
+    ``h(step, metrics)`` that ``fit`` calls after each good step.  Returns
+    ``fit``'s result."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -60,6 +66,9 @@ def main(argv=None):
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=default_ckpt_dir())
+    ap.add_argument("--ckpt-every", type=int,
+                    default=FitConfig.ckpt_every,
+                    help="save every N steps and at the last; 0: never")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
@@ -67,13 +76,13 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     formed = not dist.is_initialized()
     try:
-        return _train(args)
+        return _train(args, hooks)
     finally:
         if formed:
             close_group()
 
 
-def _train(args):
+def _train(args, hooks=()):
     device = init_group(args.device)
     world = dist.get_world_size()
     if args.model_parallel < 1 or world % args.model_parallel:
@@ -91,13 +100,14 @@ def _train(args):
                       decay_steps=max(args.steps, 10)),
         grad_accum=args.grad_accum)
     fitc = FitConfig(steps=args.steps, seq_len=args.seq_len,
-                     global_batch=args.batch, ckpt_dir=args.ckpt_dir)
+                     global_batch=args.batch, ckpt_dir=args.ckpt_dir,
+                     ckpt_every=args.ckpt_every)
     with sharding_rules(activation_rules(cfg, mesh)):
         result = fit(cfg, params, fitc, tcfg,
                      hooks=[lambda s, m: print(
                          f"step {s:5d} loss {float(m['loss']):.4f} "
                          f"gnorm {float(m['grad_norm']):.3f}", flush=True)
-                         if s % 10 == 0 and lead else None],
+                         if s % 10 == 0 and lead else None, *hooks],
                      use_kernel=cfg.family not in PLAIN_PATH_FAMILIES)
     if lead:
         print(f"final loss: {result['losses'][-1]:.4f} "

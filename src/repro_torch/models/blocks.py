@@ -26,9 +26,9 @@ from ..parallel.api import (constrain, current_rules, grad_placements,
                             hold, is_distributed, local_map, whole,
                             write_into)
 from .layers import (attention, gathered, glu_ffn, linear, merge_heads,
-                     mesh_axes, mesh_placements, reduce_model, rms_norm, rope,
-                     split_heads, split_last, split_over_model,
-                     whole_over_model)
+                     mesh_axes, mesh_placements, over_data, reduce_model,
+                     rms_norm, rope, split_heads, split_last,
+                     split_over_model, whole_over_model)
 
 HUGE_WINDOW = 1 << 30
 #: the profiler range the dropless expert products run in
@@ -289,7 +289,7 @@ def _dispatch_einsum(eq: str, *ts):
     dp, n_dp, mp = mesh_axes(mesh)
     rule = (current_rules() or {}).get("moe_dispatch")
     n_dim = (0 if rule is not None and rule[0] is not None
-             and ts[0].shape[0] % n_dp == 0 else None)
+             and over_data(ts[0].shape[0], n_dp) else None)
     E = next(t.shape[s.index("e")] for s, t in zip(subs, ts) if "e" in s)
     e_on = E % mp == 0
 
@@ -328,7 +328,7 @@ def _capacity_experts(xe, we_i, we_o):
 
     mesh = xe.device_mesh
     dp, n_dp, mp = mesh_axes(mesh)
-    n_on_dp = xe.shape[0] % n_dp == 0
+    n_on_dp = over_data(xe.shape[0], n_dp)
     e_dim = xe.shape[1] % mp == 0
     x_pl = mesh_placements(mesh, {**{n: 0 if n_on_dp else None for n in dp},
                                   "model": 1 if e_dim else None})
@@ -376,7 +376,7 @@ def _dropless_on_mesh(ht, we_i, we_o, weight):
 
     mesh = ht.device_mesh
     dp, n_dp, mp = mesh_axes(mesh)
-    t_dim = 0 if ht.shape[0] % n_dp == 0 else None
+    t_dim = 0 if over_data(ht.shape[0], n_dp) else None
     e_dim = we_i.shape[0] % mp == 0
     dps = {n: t_dim for n in dp}
     x_pl = mesh_placements(mesh, dps)
@@ -488,7 +488,7 @@ def _scan(fn, xh, dt, A, Bm, Cm, *state, skip=None):
 
     mesh = xh.device_mesh
     dp, n_dp, mp = mesh_axes(mesh)
-    b = 0 if xh.shape[0] % n_dp == 0 else None
+    b = 0 if over_data(xh.shape[0], n_dp) else None
     hd = xh.shape[2] % mp == 0
 
     def pl(bdim, hdim, partial=()):

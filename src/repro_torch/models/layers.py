@@ -276,6 +276,15 @@ def mesh_axes(mesh) -> tuple[list[str], int, int]:
     return dp, n_dp, mp
 
 
+def over_data(rows: int, n_dp: int) -> bool:
+    """Whether the data axes' ``n_dp`` ranks split a dimension of
+    ``rows``: they divide it and it has more than one row (DTensor
+    refuses to reshape a dimension of size 1 that is sharded, even over
+    mesh dimensions of one rank, such as a batch of one row on a one-card
+    mesh)."""
+    return rows > 1 and rows % n_dp == 0
+
+
 def mesh_placements(mesh, dims: dict):
     """Placements on ``mesh``: ``Shard(dims[name])`` on each mesh
     dimension whose name ``dims`` maps to a tensor dimension,
@@ -303,7 +312,7 @@ def attention_on_mesh(fn, q, k, v):
     B, _, Hq, _ = q.shape
     Hkv = k.shape[2]
     dp, n_dp, mp = mesh_axes(mesh)
-    bdim = 0 if B % n_dp == 0 else None
+    bdim = 0 if over_data(B, n_dp) else None
     hq = 2 if Hq % mp == 0 else None
     hk = 2 if (hq is not None and Hkv % mp == 0) else None
     q_pl = mesh_placements(mesh, {**{n: bdim for n in dp}, "model": hq})

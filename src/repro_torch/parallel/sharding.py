@@ -250,7 +250,10 @@ def placements(spec: Spec, mesh, shape=None) -> tuple:
     """The DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``:
     ``Shard(i)`` on each mesh dimension that entry ``i`` names,
     ``Replicate()`` on the others (and, given the tensor's ``shape``, on
-    those of an entry whose axes do not divide its dimension).  A tuple
+    those of an entry whose axes do not divide its dimension, or whose
+    dimension is of size 1: DTensor refuses to reshape a dimension of
+    size 1 sharded even over a mesh dimension of one rank, such as a
+    batch of one row over ``data`` on a one-card mesh).  A tuple
     entry such as ``("pod", "data")`` shards one tensor dimension over
     several mesh dimensions, the first named major, as JAX lays it out;
     DTensor orders them by mesh dimension, so the names must come in the
@@ -263,7 +266,8 @@ def placements(spec: Spec, mesh, shape=None) -> tuple:
         if entry is None:
             continue
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
-        if shape is not None and shape[i] % axis_size(mesh, axes):
+        if shape is not None and (shape[i] == 1
+                                  or shape[i] % axis_size(mesh, axes)):
             continue
         dims = [names.index(a) for a in axes]
         if dims != sorted(dims):
@@ -294,7 +298,7 @@ def distribute(tree_, specs, mesh):
     from .. import tree
 
     def one(path, x):
-        pl = placements(_spec_at(specs, path), mesh)
+        pl = placements(_spec_at(specs, path), mesh, x.shape)
         if all(not p.is_shard() or mesh.size(m) == 1
                for m, p in enumerate(pl)):
             return DTensor.from_local(x, mesh, pl, run_check=False,

@@ -13,8 +13,9 @@
 The step is eager and donates, as the reference's ``fit`` jits its step
 with ``donate_argnums=(0, 1)``: the weights and the optimizer state are
 updated in place (:func:`make_train_step`), so a step holds one train
-state, not two.  ``fit`` donates its own copy of the caller's weights,
-taken once at entry, and leaves the caller's as they were.
+state, not two.  ``fit`` steps the caller's weights themselves, as the
+reference's donation consumes its caller's arrays: a caller that wants
+its weights as they were hands ``fit`` a copy.
 
 On a mesh the params are DTensors (``parallel.sharding.distribute``) and
 the caller installs the activation rules; every rank builds the same
@@ -58,6 +59,9 @@ def default_ckpt_dir() -> str:
 
 @dataclass
 class FitConfig:
+    """``ckpt_every``: save every that many steps and at the last; 0 saves
+    none (a run whose train state is too large to write, such as a
+    capacity check)."""
     steps: int = 100
     ckpt_every: int = 25
     ckpt_dir: str = field(default_factory=default_ckpt_dir)
@@ -72,7 +76,7 @@ class FitConfig:
 def fit(cfg: ModelConfig, params, fitc: FitConfig,
         tcfg: TrainConfig | None = None, hooks=None,
         use_kernel: bool = True) -> dict:
-    """Train from ``params`` (which stay as they were) or the latest
+    """Train from ``params`` (the weights stepped in place) or the latest
     checkpoint under ``fitc.ckpt_dir`` to step ``fitc.steps`` on the
     device (or the mesh) the params lie on.  ``hooks``: callables
     ``h(step, metrics)`` after each good step.  Returns ``params``,
@@ -85,10 +89,9 @@ def fit(cfg: ModelConfig, params, fitc: FitConfig,
     leaf = tree.leaves(params)[0]
     mesh = leaf.device_mesh if is_distributed(leaf) else None
     device = leaf.to_local().device if mesh is not None else leaf.device
+    del leaf
     start = 0
     resume = ckpt.latest_step(fitc.ckpt_dir) is not None
-    if not resume:   # the step donates fit's own copy, not the caller's
-        params = tree.map(torch.clone, params)
     opt_state = opt_init(params)
     if resume:       # restored into new tensors, fit's own
         (params, opt_state), start = ckpt.restore(fitc.ckpt_dir,
@@ -130,7 +133,8 @@ def fit(cfg: ModelConfig, params, fitc: FitConfig,
             for h in hooks:
                 h(step, metrics)
         step += 1
-        if step % fitc.ckpt_every == 0 or step == fitc.steps:
+        if fitc.ckpt_every > 0 and (step % fitc.ckpt_every == 0
+                                    or step == fitc.steps):
             ckpt.save(fitc.ckpt_dir, step, (params, opt_state),
                       keep_last=fitc.keep_last)
     return {"params": params, "opt_state": opt_state, "losses": losses,

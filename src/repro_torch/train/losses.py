@@ -43,12 +43,14 @@ def _gold(logits, labels):
         return torch.gather(logits, -1, labels[..., None])[..., 0]
     from torch.distributed.tensor import Partial
 
-    from ..models.layers import mesh_axes, mesh_placements, reduce_model
+    from ..models.layers import (mesh_axes, mesh_placements, over_data,
+                                 reduce_model)
     from ..parallel.api import local_map
 
     mesh = logits.device_mesh
     dp, n_dp, mp = mesh_axes(mesh)
-    rows = {n: 0 if logits.shape[0] % n_dp == 0 else None for n in dp}
+    rows = {n: 0 if over_data(logits.shape[0], n_dp) else None
+            for n in dp}
     width = -(-logits.shape[-1] // mp)     # DTensor's chunk of V
 
     def pick(lg, lb):

@@ -64,6 +64,34 @@ def lr_schedule(cfg: OptConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
+#: the elements of a leaf that the norm and the update take at a time (its
+#: first dimension cut into runs of rows): their float32 temporaries are
+#: of this many elements, not of the leaf's (the reference's fused update
+#: holds none; a leaf's own would be 2 x 9.3 GiB a card for
+#: deepseek-moe-16b's expert stacks on a (2, 2) mesh)
+CHUNK = 1 << 26
+
+
+def _chunks(*ts):
+    """Matching views of ``ts`` (tensors of one shape) cut along their
+    first dimension into runs of rows of at most ``CHUNK`` elements (one
+    row where a row is more); a tensor of at most ``CHUNK`` elements, or
+    a scalar, whole."""
+    t = ts[0]
+    if t.dim() == 0 or t.numel() <= CHUNK:
+        yield ts
+        return
+    rows = max(1, CHUNK // (t.numel() // t.shape[0]))
+    for start in range(0, t.shape[0], rows):
+        n = min(rows, t.shape[0] - start)
+        yield tuple(x.narrow(0, start, n) for x in ts)
+
+
+def _sum_squares(g) -> torch.Tensor:
+    """``sum(g ** 2)`` in float32, a chunk (:func:`_chunks`) at a time."""
+    return sum(torch.sum(torch.square(c.float())) for (c,) in _chunks(g))
+
+
 def global_norm(grads) -> torch.Tensor:
     """The norm over every leaf.  On a mesh (DTensor leaves) it is one
     all-reduce over every rank: each rank sums the squares of its own
@@ -72,11 +100,10 @@ def global_norm(grads) -> torch.Tensor:
     equal on every rank."""
     leaves = tree.leaves(grads)
     if not any(is_distributed(g) for g in leaves):
-        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                              for g in leaves))
+        return torch.sqrt(sum(_sum_squares(g) for g in leaves))
     total = None
     for g in leaves:
-        part = torch.sum(torch.square(g.to_local().float()))
+        part = _sum_squares(g.to_local())
         if not _first_holder(g):
             part = torch.zeros_like(part)
         total = part if total is None else total + part
@@ -154,9 +181,11 @@ def adamw_update(cfg: OptConfig, grads, state, params,
 
     The reference's arithmetic, written into the state and params leaf by
     leaf, on each rank's own shards (a moment and a gradient lie as their
-    parameter does).  One float32 buffer of the leaf's size is the
-    update's own, and the clipped gradient (the caller's float32 leaf, or
-    a float32 copy) serves as the step's."""
+    parameter does), a chunk of rows at a time (:func:`_chunks`: the
+    arithmetic is elementwise, so the chunks change no bit).  One float32
+    buffer of the chunk's size is the update's own, and the clipped
+    gradient (the caller's float32 leaf, or a float32 copy of the chunk)
+    serves as the step's."""
     if not in_place:
         grads, state, params = _copies(grads, state, params)
     scale, gnorm = _clip_scale(grads, cfg.clip_norm)
@@ -169,20 +198,22 @@ def adamw_update(cfg: OptConfig, grads, state, params,
     lr, bc1, bc2 = (plain(t) for t in (lr, 1 - b1 ** c, 1 - b2 ** c))
     for p, g, m, v in zip(*map(tree.leaves, (params, grads, state["mu"],
                                              state["nu"]))):
-        g = _clipped_(_own_shard(like(g, p), p), scale)
-        m, v = _own_shard(m, p), _own_shard(v, p)
-        p = _own_shard(p, p)
-        buf = torch.empty_like(g)
-        m.mul_(b1).add_(torch.mul(g, 1 - b1, out=buf))             # mu
-        v.mul_(b2).add_(torch.mul(g, 1 - b2, out=buf).mul_(g))     # nu
-        step = torch.div(m, bc1, out=g)
-        step.div_(torch.div(v, bc2, out=buf).sqrt_().add_(cfg.eps))
-        step.add_(buf.copy_(p).mul_(cfg.weight_decay)).mul_(lr)
-        if p.dtype == torch.float32:
-            p.sub_(step)
-        else:
-            p.copy_(buf.copy_(p).sub_(step))
-        del buf, g, step   # before the next leaf's are made
+        shards = (_own_shard(p, p), _own_shard(like(g, p), p),
+                  _own_shard(m, p), _own_shard(v, p))
+        for p, g, m, v in _chunks(*shards):
+            g = _clipped_(g, scale)
+            buf = torch.empty_like(g)
+            m.mul_(b1).add_(torch.mul(g, 1 - b1, out=buf))         # mu
+            v.mul_(b2).add_(torch.mul(g, 1 - b2, out=buf).mul_(g))  # nu
+            step = torch.div(m, bc1, out=g)
+            step.div_(torch.div(v, bc2, out=buf).sqrt_().add_(cfg.eps))
+            step.add_(buf.copy_(p).mul_(cfg.weight_decay)).mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(step)
+            else:
+                p.copy_(buf.copy_(p).sub_(step))
+            del buf, g, step   # before the next chunk's are made
+        del shards
     return params, state, gnorm
 
 

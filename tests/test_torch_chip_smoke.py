@@ -57,7 +57,10 @@ def test_phase_functions_importable():
                  "mesh_train_rank", "phase_mesh_train", "step_gate",
                  "gate_step", "host_gate", "phase_train_family",
                  "family_timed", "train_attention_timing",
-                 "resume_check"):
+                 "resume_check", "phase_mesh_train_families",
+                 "mesh_families_rank", "families_record", "mesh_more_cards",
+                 "launcher_memory", "elastic_restore", "families_held",
+                 "family_flash_expected", "oracle_parity_pool"):
         assert callable(getattr(cs, name)), name
 
 

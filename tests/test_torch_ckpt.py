@@ -184,9 +184,11 @@ def _smoke_params(arch="qwen1.5-0.5b"):
 
 def test_fit_resumes_bitwise(tmp_path):
     cfg, params = _smoke_params()
-    whole = fit(cfg, params, FitConfig(steps=8, ckpt_every=100,
-                                       ckpt_dir=str(tmp_path / "whole"),
-                                       seq_len=32, global_batch=2))
+    # fit steps the weights it is given: each run gets its own copy
+    whole = fit(cfg, tree.map(torch.clone, params),
+                FitConfig(steps=8, ckpt_every=100,
+                          ckpt_dir=str(tmp_path / "whole"), seq_len=32,
+                          global_batch=2))
     part = str(tmp_path / "part")
     r1 = fit(cfg, params, FitConfig(steps=6, ckpt_every=3, ckpt_dir=part,
                                     seq_len=32, global_batch=2))
@@ -228,9 +230,9 @@ def test_fit_quarantines_non_finite_loss(tmp_path, monkeypatch):
     cfg, params = _smoke_params()
     monkeypatch.setattr(loop, "make_train_step", _nan_at(cfg, {3}))
     seen = []
-    res = fit(cfg, params, FitConfig(steps=6, ckpt_every=3,
-                                     ckpt_dir=str(tmp_path), seq_len=32,
-                                     global_batch=2),
+    res = fit(cfg, tree.map(torch.clone, params),
+              FitConfig(steps=6, ckpt_every=3, ckpt_dir=str(tmp_path),
+                        seq_len=32, global_batch=2),
               hooks=[lambda s, m: seen.append(s)])
     # step 3's loss is not finite: restore the checkpoint of step 3 (three
     # steps done) and go on from good + 1 = 4, as the reference does,
